@@ -10,7 +10,9 @@ and the result line:
   2. build    one nvcc builds every kernel in conan_tpu_torch/csrc (sm_90a)
   3. kernels  each serving kernel against its plain PyTorch version on the
               card, at the main path's shapes: max abs error, times (CUDA
-              events), bound
+              events for the wrapper call, torch.profiler for the kernel
+              alone), bound; a call launches once and allocates only its
+              output
   4. main     build_engine(...).infer_once then infer_offline at the full r5
               production geometry (egs/soak_r5/*.yaml: 6-layer Emformer,
               hidden-256 Conan, 512-channel causal shuffle HiFi-GAN) in exact
@@ -25,8 +27,10 @@ and the result line:
               against their plain versions in value and gradient; then
               VocoderTask + Trainer.fit for 5 steps at B = 18: loss terms,
               skipped updates, ms per step, peak memory, kernel launches per
-              step against the count the code predicts; then one step at
-              B = 2 on the card against the same step on the CPU
+              step against the count the code predicts, and a profiled step;
+              then one step at B = 2 on the card against the same step on
+              the CPU; then K2 on each grouped geometry beside cuDNN, its
+              bound and cuDNN's backward there, and K1's GAN form's times
   6. {"kernels": [...]}
   7. {"ok": true, "device": {...}}
 
@@ -43,6 +47,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -62,8 +67,8 @@ from conan_tpu_torch.infer.build import build_engine, write_random_checkpoints
 from conan_tpu_torch.models.vocoder.discriminators import DiscriminatorS
 from conan_tpu_torch.ops import native
 from conan_tpu_torch.ops.groupconv import groupconv, grouped_conv1d_reference
-from conan_tpu_torch.ops.logmel import (gan_pad, logmel, logmel_gan, logmel_gan_reference,
-                                        logmel_reference)
+from conan_tpu_torch.ops.logmel import (GAN_CLIP, GAN_EPS, _gan_vjp, gan_pad, logmel,
+                                        logmel_gan, logmel_gan_reference, logmel_reference)
 from conan_tpu_torch.train.losses import gan_mel_configs
 from conan_tpu_torch.train.tasks import VocoderTask
 from conan_tpu_torch.train.trainer import Trainer
@@ -71,13 +76,26 @@ from conan_tpu_torch.train.trainer import Trainer
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 16000
 STAGES = ("conan", "emf", "voc")  # build_engine's order
-# Published H100 SXM peaks (dense): fp32 outside the tensor cores, HBM3.
+# Published H100 SXM peaks (dense): fp32 outside the tensor cores, TF32 on
+# them, HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
-# K1 against its plain version: both fp32 over the same constants, sums in
-# another order (a sequential 1024-term FMA chain against cuBLAS's blocked
-# GEMM), then log10 of the mel sums; the bound the JAX package holds its
-# Pallas kernel to against XLA (tests/test_pallas_stft.py).
+# K1 against its plain version: both fp32 over the same window and
+# filterbank, the DFT computed another way (the kernel's radix-2 FFT against
+# cuBLAS's dense DFT product), then log10 of the mel sums; the bound the JAX
+# package holds its Pallas kernel to against XLA (tests/test_pallas_stft.py).
+# The dense fp32 DFT is the less exact of the two: at a mel whose only bin
+# happens to be small its error reaches 1.5e-3 in the log, where the FFT's
+# is 5.6e-5 (PERF.md §6). So an element past the bound from the fp32
+# plain version is held to the same bound from the plain version run in
+# float64. K1-GAN's dwav weighs each mel by 1/mel, so it reads those small
+# bins most; there even the plain version's exact value (float64 over its
+# basis, whose window x cos products are rounded to fp32) is 1.4e-4 from the
+# exact windowed DFT at n_fft 512. So a dwav past its bound from the fp32
+# plain version is held to the same bound from the exact value of the
+# function K1 computes (logmel_gan_exact), as the train-step check
+# below holds its leaves to a float64 step.
 LOGMEL_ATOL, LOGMEL_RTOL = 2e-4, 1e-4
 # streaming against offline waveforms (tests/test_streaming_engine.py)
 STREAM_ATOL = 1e-4
@@ -119,6 +137,26 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, key: str, iters: int = 20) -> float:
+    """Device time of one launch of the kernel whose name holds ``key``
+    (``fn`` launches it once), by torch.profiler over ``iters`` calls after a
+    warm one: the mean over the launches the profiler recorded (it may miss
+    one at the window's edge). Beside ``cuda_ms``, which times the whole
+    wrapper call (its other launches and, for a kernel of a few µs, the
+    host), this is the kernel alone."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key]
+    count = sum(e.count for e in evs)
+    if not iters // 2 <= count <= iters:
+        fail(f"profiler saw {count} launches of {key} in {iters} calls")
+    return sum(e.self_device_time_total for e in evs) / 1e3 / count
+
+
 def logmel_bound_ms(B: int, T: int, n_frames: int, cfg: MelConfig,
                     melw: torch.Tensor) -> tuple[float, str]:
     """Least time the card could take for one log-mel call, the larger of two:
@@ -139,15 +177,22 @@ def logmel_bound_ms(B: int, T: int, n_frames: int, cfg: MelConfig,
 
 
 def groupconv_bound_ms(B: int, T: int, ci: int, co: int, k: int, s: int, g: int,
-                       pad: int) -> tuple[float, str]:
-    """Least time for one grouped conv: its true FLOPs (2 per multiply-add of
-    the grouped product, not a block-diagonal packing's) over the fp32 peak,
-    against the input, weights and output once over HBM."""
+                       pad: int) -> tuple[float, str, str]:
+    """Least time for one grouped conv at fp32 accuracy, the larger of two:
+    the input, weights and output once over HBM, and its true FLOPs (2 per
+    multiply-add of the grouped product, not a block-diagonal packing's) on
+    the faster of two fp32-accurate routes, FMA at the fp32 peak or the
+    three-product tf32 split (3 × the FLOPs) at the TF32 peak. Returns (ms,
+    "bytes" or "operations", the route)."""
     t_out = (T + 2 * pad - k) // s + 1
     flops = 2 * B * t_out * co * (ci // g) * k
     bytes_ = 4 * (B * T * ci + co * (ci // g) * k + B * t_out * co)
-    t_bytes, t_ops = bytes_ / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    routes = {"fp32 FMA": flops / PEAK_FP32_FLOPS, "3xTF32": 3 * flops / PEAK_TF32_FLOPS}
+    route = min(routes, key=routes.get)
+    t_bytes, t_ops = bytes_ / PEAK_HBM_BYTES, routes[route]
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes", "HBM"
+    return 1e3 * t_ops, "operations", route
 
 
 def library_logmel_gan(wav: torch.Tensor, cfg: MelConfig, window: torch.Tensor,
@@ -201,6 +246,44 @@ def msd_grouped_geometries(T: int) -> list[tuple]:
     return geoms
 
 
+def groupconv_times(geoms: list[tuple], gen: torch.Generator, dev: torch.device) -> list[dict]:
+    """K2's time on each grouped geometry at B = TRAIN_B, beside the plain
+    version, cuDNN's F.conv1d and the bound, and its backward's (cuDNN dx and
+    dw through _GroupConvFunction.backward: dx + dw as in the discriminator
+    step, dx alone as in the generator step). One dict a geometry."""
+    rows = []
+    for scale, t, ci, co, k, s, g, pd in geoms:
+        x = torch.randn(TRAIN_B, t, ci, generator=gen).to(dev)
+        w = ((torch.rand(co, ci // g, k, generator=gen) * 2 - 1) / (k * ci // g) ** 0.5).to(dev)
+        x_cf = x.transpose(1, 2).contiguous()
+        k2 = dict(stride=s, padding=(pd, pd), groups=g)
+        with torch.no_grad():
+            row = {"ms": cuda_ms(lambda: groupconv(x, w, **k2)),
+                   "kernel_device_ms": kernel_device_ms(lambda: groupconv(x, w, **k2),
+                                                        "groupconv_tf32x3_kernel"),
+                   "plain_ms": cuda_ms(lambda: grouped_conv1d_reference(x, w, **k2)),
+                   "library_ms": cuda_ms(lambda: F.conv1d(x_cf, w, stride=s, padding=pd,
+                                                          groups=g))}
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y_both, y_dx = groupconv(xg, wg, **k2), groupconv(xg, w, **k2)
+        gy = torch.randn_like(y_both)
+        row["bwd_dx_dw_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(y_both, (xg, wg), gy, retain_graph=True), iters=20)
+        row["bwd_dx_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(y_dx, xg, gy, retain_graph=True), iters=20)
+        row["bound_ms"], row["bound_by"], row["route"] = groupconv_bound_ms(
+            TRAIN_B, t, ci, co, k, s, g, pd)
+        rows.append(row)
+        print(f"train groupconv geometry: scale {scale} {ci}->{co} s{s} g{g} B={TRAIN_B} "
+              f"T={t}: kernel {row['ms']:.4f} ms (device {row['kernel_device_ms']:.4f} ms), "
+              f"cuDNN F.conv1d (TF32 off) "
+              f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4g} ms by {row['bound_by']} ({row['route']}); backward "
+              f"(cuDNN) dx+dw {row['bwd_dx_dw_ms']:.4f} ms, dx {row['bwd_dx_ms']:.4f} ms",
+              flush=True)
+    return rows
+
+
 def value_and_grads(fn, *inputs):
     """fn's output and the gradients of sum(sin(output)) for each input."""
     inputs = [x.detach().clone().requires_grad_(True) for x in inputs]
@@ -218,6 +301,56 @@ def compare(name: str, got, want, atol: float, rtol: float) -> float:
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.double() - want.double()).norm() / want.double().norm().clamp(min=1e-30))
+
+
+def compare_logmel(name: str, got, want, exact) -> tuple[float, str]:
+    """K1's output ``got`` against its fp32 plain version ``want`` at
+    LOGMEL_ATOL / LOGMEL_RTOL; the elements past that are held to the same
+    bound from ``exact()``, the plain version run in float64. Returns the max
+    abs difference from the fp32 plain version and a note on the elements
+    held to float64 ("" if none)."""
+    if got.shape != want.shape:
+        fail(f"{name} shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = float((got - want).abs().max())
+    past = ~torch.isclose(got, want, atol=LOGMEL_ATOL, rtol=LOGMEL_RTOL)
+    if not past.any():
+        return err, ""
+    want64 = exact()
+    ok64 = torch.isclose(got.double(), want64, atol=LOGMEL_ATOL, rtol=LOGMEL_RTOL)
+    note = (f"{name}: {int(past.sum())} elements past the bound from the fp32 plain version "
+            f"(max abs {err:.3g}), from float64 max abs "
+            f"{float((got.double() - want64)[past].abs().max()):.3g} (fp32 plain from float64 "
+            f"{float((want.double() - want64)[past].abs().max()):.3g})")
+    if not ok64[past].all():
+        fail(f"{name} disagrees with its plain version in fp32 and in float64: {note}")
+    return err, note
+
+
+def logmel_gan_exact(wav: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """The function K1's GAN form computes, in float64: the frames times the
+    fp32 window K1 uses, a dense DFT with a float64 basis (the plain
+    version's basis rounds each window x cos product to fp32), then
+    sqrt(re² + im² + eps), the filterbank and ln(max(., clip))."""
+    window = logmel_gan.tables(cfg, wav.device)[0].double()
+    n = torch.arange(cfg.n_fft, device=wav.device, dtype=torch.float64)
+    angle = 2 * math.pi * n[:, None] * n[None, :cfg.n_fft // 2 + 1] / cfg.n_fft
+    frames = gan_pad(wav.double(), cfg).unfold(-1, cfg.n_fft, cfg.hop) * window
+    re, im = frames @ torch.cos(angle), frames @ -torch.sin(angle)
+    melw = logmel_gan.dense_constants(cfg, wav.device)[1].double()
+    return torch.log(torch.clamp(torch.sqrt(re * re + im * im + GAN_EPS) @ melw, min=GAN_CLIP))
+
+
+def logmel_gan_route_grad(wav: torch.Tensor, cfg: MelConfig, out: torch.Tensor) -> torch.Tensor:
+    """dwav of sum(sin(ln-mel)) by K1-GAN's own route (gan_pad, then the
+    analytic backward in fp32) for the forward output ``out``: with
+    ``logmel_gan_exact``'s, the gradient that route gives for an exact
+    forward."""
+    w = wav.detach().clone().requires_grad_(True)
+    padded = gan_pad(w, cfg)
+    basis, melw = logmel_gan.dense_constants(cfg, wav.device)
+    g = torch.cos(out.float())
+    return torch.autograd.grad(padded, w, _gan_vjp(padded.detach(), g, cfg, basis, melw))[0]
+
 
 
 def compare_grad(name: str, got, want) -> float:
@@ -265,19 +398,33 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
         for which, a, b in zip(("dx", "dw"), got_grads, want_grads):
             k2_grad_err = max(k2_grad_err, compare_grad(f"{name} {which}", a, b))
     k1_err = k1_grad_err = 0.0
+    k1_notes = []
     for cfg in gan_cfgs:
         got, (got_grad,) = value_and_grads(lambda w: logmel_gan(w, cfg), wavs)
         want, (want_grad,) = value_and_grads(lambda w: logmel_gan_reference(w, cfg), wavs)
         name = f"logmel_gan n_fft {cfg.n_fft}"
-        k1_err = max(k1_err, compare(name, got, want, LOGMEL_ATOL, LOGMEL_RTOL))
-        k1_grad_err = max(k1_grad_err, compare_grad(f"{name} dwav", got_grad, want_grad))
+        err, note = compare_logmel(name, got, want,
+                                   lambda: logmel_gan_reference(wavs.double(), cfg))
+        k1_err = max(k1_err, err)
+        k1_notes += [note] if note else []
+        grad_err = rel_l2(got_grad, want_grad)
+        k1_grad_err = max(k1_grad_err, grad_err)
+        if grad_err > GRAD_REL:
+            exact = logmel_gan_route_grad(wavs, cfg, logmel_gan_exact(wavs, cfg))
+            exact_err = rel_l2(got_grad, exact)
+            k1_notes.append(f"{name} dwav: relative L2 {grad_err:.3g} from the fp32 plain "
+                            f"version, {exact_err:.3g} from the exact function (the fp32 plain "
+                            f"version {rel_l2(want_grad, exact):.3g} from it)")
+            if exact_err > GRAD_REL:
+                fail(f"{k1_notes[-1]} (limit {GRAD_REL})")
     torch.cuda.synchronize()
     print(f"train kernels: groupconv (K2) on the MSD's {len(geoms)} grouped geometries at "
           f"B={TRAIN_B}, T={T}: max abs {k2_err:.3g} (atol {LOGMEL_ATOL}, rtol {LOGMEL_RTOL}), "
           f"dx/dw through its autograd Function max relative L2 {k2_grad_err:.3g} (limit "
           f"{GRAD_REL}); logmel_gan (K1's GAN form) at n_fft {[c.n_fft for c in gan_cfgs]}, "
           f"{mlp['mel_bin']} mels: max abs {k1_err:.3g}, dwav (analytic backward) relative L2 "
-          f"{k1_grad_err:.3g}", flush=True)
+          f"{k1_grad_err:.3g}" + (f"; held to float64: {'; '.join(k1_notes)}" if k1_notes
+                                  else ""), flush=True)
 
     # the step at production width: Trainer.fit, CUDA events between batches
     events: list = []
@@ -341,15 +488,21 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ours = {name: sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3
-            for name, key in (("groupconv", "groupconv_fwd_kernel"),
-                              ("logmel_gan", "dft_mag_kernel"),
-                              ("logmel_gan mel", "mel_log_kernel"))}
+    ours = {name: [e for e in kernels if key in e.key]
+            for name, key in (("groupconv", "groupconv_tf32x3_kernel"),
+                              ("logmel_gan", "logmel_fft_kernel"))}
+    count = {name: sum(e.count for e in evs) for name, evs in ours.items()}
+    ms = {name: sum(e.self_device_time_total for e in evs) / 1e3 for name, evs in ours.items()}
+    stale = [e.key for e in kernels if "dft_mag_kernel" in e.key or "mel_log_kernel" in e.key]
+    if count != {"groupconv": k2_pred, "logmel_gan": k1_pred} or stale:
+        fail(f"profiled step: kernels {count}, predicted groupconv {k2_pred} and logmel_gan "
+             f"{k1_pred}; two-launch K1 kernels {stale}")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     print(f"train profile: one step under torch.profiler: wall {wall_ms:.3f} ms, device "
           f"kernels {device_ms:.3f} ms (busy {100 * device_ms / wall_ms:.1f}%), "
-          f"{sum(e.count for e in kernels)} kernels; K2 {ours['groupconv']:.3f} ms, K1 "
-          f"{ours['logmel_gan'] + ours['logmel_gan mel']:.3f} ms; largest: "
+          f"{sum(e.count for e in kernels)} kernels; K2 groupconv_tf32x3_kernel "
+          f"x{count['groupconv']} {ms['groupconv']:.3f} ms, K1 logmel_fft_kernel "
+          f"x{count['logmel_gan']} {ms['logmel_gan']:.3f} ms; largest: "
           + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                       for e in top), flush=True)
 
@@ -401,43 +554,54 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
           f"worst G leaf {worst['opt_g']}, D leaf {worst['opt_d']}){f64_note}", flush=True)
 
     # the kernels' times at the step's shapes
+    k2_rows = groupconv_times(geoms, gen, dev)
+    k2_sum = {key: sum(r[key] for r in k2_rows)
+              for key in ("ms", "kernel_device_ms", "plain_ms", "library_ms", "bound_ms",
+                          "bwd_dx_dw_ms", "bwd_dx_ms")}
+    k2_by = {by: sum(r["bound_ms"] for r in k2_rows if r["bound_by"] == by)
+             for by in ("bytes", "operations")}
+    print(f"train groupconv sums over the {len(geoms)} geometries: kernel {k2_sum['ms']:.4f} "
+          f"ms (device {k2_sum['kernel_device_ms']:.4f} ms), cuDNN {k2_sum['library_ms']:.4f} "
+          f"ms, plain {k2_sum['plain_ms']:.4f} ms, bound "
+          f"{k2_sum['bound_ms']:.4g} ms; backward dx+dw {k2_sum['bwd_dx_dw_ms']:.4f} ms, dx "
+          f"{k2_sum['bwd_dx_ms']:.4f} ms, so per step (2 MSD passes with dx+dw in the "
+          f"discriminator step, 1 with dx in the generator step) forward "
+          f"{3 * k2_sum['ms']:.4f} ms, backward "
+          f"{2 * k2_sum['bwd_dx_dw_ms'] + k2_sum['bwd_dx_ms']:.4f} ms", flush=True)
     with torch.no_grad():
-        _, t, ci, co, k, s, g, pd = geoms[0]
-        x = torch.randn(TRAIN_B, t, ci, generator=gen).to(dev)
-        w = ((torch.rand(co, ci // g, k, generator=gen) * 2 - 1) / (k * ci // g) ** 0.5).to(dev)
-        x_cf = x.transpose(1, 2).contiguous()
-        k2 = dict(stride=s, padding=(pd, pd), groups=g)
-        k2_ms = cuda_ms(lambda: groupconv(x, w, **k2))
-        k2_plain_ms = cuda_ms(lambda: grouped_conv1d_reference(x, w, **k2))
-        k2_library_ms = cuda_ms(lambda: F.conv1d(x_cf, w, stride=s, padding=pd, groups=g))
-        k2_bound_ms, k2_bound_by = groupconv_bound_ms(TRAIN_B, t, ci, co, k, s, g, pd)
-        k1_ms = k1_plain_ms = k1_library_ms = k1_bound_ms = 0.0
+        k1_ms = k1_device_ms = k1_plain_ms = k1_library_ms = k1_bound_ms = 0.0
         k1_bound = {"bytes": 0.0, "operations": 0.0}
         for cfg in gan_cfgs:
             window = torch.hann_window(cfg.win_length, periodic=True, device=dev)
-            melw = logmel_gan.constants(cfg, dev)[1]
+            melw = logmel_gan.dense_constants(cfg, dev)[1]
             k1_ms += cuda_ms(lambda: logmel_gan(wavs, cfg))
+            k1_device_ms += kernel_device_ms(lambda: logmel_gan(wavs, cfg), "logmel_fft_kernel")
             k1_plain_ms += cuda_ms(lambda: logmel_gan_reference(wavs, cfg))
             k1_library_ms += cuda_ms(lambda: library_logmel_gan(wavs, cfg, window, melw))
             b_ms, b_by = logmel_bound_ms(TRAIN_B, T, T // cfg.hop, cfg, melw)
             k1_bound_ms += b_ms
             k1_bound[b_by] += b_ms
-    print(f"train kernel times: groupconv at scale 1's {ci}->{co} s{s} g{g}, B={TRAIN_B}, "
-          f"T={t}: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, cuDNN F.conv1d "
-          f"(TF32 off) {k2_library_ms:.4f} ms, bound {k2_bound_ms:.4g} ms by {k2_bound_by}; "
-          f"logmel_gan over its {len(gan_cfgs)} resolutions on B={TRAIN_B} x {T}: kernel "
-          f"{k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, torch.stft chain {k1_library_ms:.4f} "
-          f"ms, bound {k1_bound_ms:.4g} ms", flush=True)
+    print(f"train kernel times: logmel_gan over its {len(gan_cfgs)} resolutions on "
+          f"B={TRAIN_B} x {T}: kernel {k1_ms:.4f} ms (device {k1_device_ms:.4f} ms), plain "
+          f"{k1_plain_ms:.4f} ms, torch.stft "
+          f"chain {k1_library_ms:.4f} ms, bound {k1_bound_ms:.4g} ms", flush=True)
+    scale1 = {key: k2_rows[0][key]
+              for key in ("ms", "kernel_device_ms", "plain_ms", "library_ms", "bound_ms")}
     return [
         {"name": "logmel_gan", "route": "cuda", "source": "conan_tpu_torch/csrc/logmel.cu",
          "replaces": "conan_tpu/ops/pallas_stft.py:151", "launches": k1_launches,
-         "max_abs_err": k1_err, "max_abs_diff": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "max_abs_err": k1_err, "max_abs_diff": k1_err, "ms": k1_ms,
+         "kernel_device_ms": k1_device_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound_ms, "bound_by": max(k1_bound, key=k1_bound.get),
          "library_ms": k1_library_ms},
         {"name": "groupconv", "route": "cuda", "source": "conan_tpu_torch/csrc/groupconv.cu",
          "replaces": "conan_tpu/ops/pallas_groupconv.py:56", "launches": k2_launches,
-         "max_abs_err": k2_err, "max_abs_diff": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound_ms, "bound_by": k2_bound_by, "library_ms": k2_library_ms},
+         "max_abs_err": k2_err, "max_abs_diff": k2_err, "ms": k2_sum["ms"],
+         "kernel_device_ms": k2_sum["kernel_device_ms"],
+         "plain_ms": k2_sum["plain_ms"], "bound_ms": k2_sum["bound_ms"],
+         "bound_by": max(k2_by, key=k2_by.get), "library_ms": k2_sum["library_ms"],
+         "bound_route": k2_rows[0]["route"], "geometries": len(geoms),
+         "scale1_layer": scale1},
     ]
 
 
@@ -469,10 +633,14 @@ def main() -> None:
     t0 = time.perf_counter()
     log = native.build(force=True)
     native.load()
-    ptxas = "; ".join(line.split("ptxas info    : ")[-1] for line in log.splitlines()
-                      if "registers" in line or "spill" in line)
+    ptxas = [line.split("ptxas info    : ")[-1] for line in log.splitlines()
+             if "registers" in line or "spill" in line]
+    spills = [line for line in ptxas
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))]
     print(f"build: {', '.join(src.name for src in native.SOURCES)} by one nvcc in "
-          f"{time.perf_counter() - t0:.2f} s [{ptxas}]", flush=True)
+          f"{time.perf_counter() - t0:.2f} s [{'; '.join(ptxas)}]", flush=True)
+    if spills:
+        fail(f"ptxas reports register spills: {spills}")
 
     # 3. kernels against their plain versions, at the main path's shapes
     mel_cfg = MelConfig()
@@ -483,22 +651,31 @@ def main() -> None:
     else:
         src, ref = synth_wav(rng, 5.12), synth_wav(rng, 2.56)
     window = torch.hann_window(mel_cfg.win_length, periodic=True, device=dev)
-    melw = logmel.constants(mel_cfg, dev)[1]
+    melw = logmel.dense_constants(mel_cfg, dev)[1]
     batch8 = torch.randn(8, 3 * SR + 123, generator=torch.Generator().manual_seed(args.seed))
-    err, shapes = 0.0, []
+    err, shapes, notes = 0.0, [], []
     for wav in (torch.from_numpy(src[None]), torch.from_numpy(ref[None]), 0.2 * batch8):
         wav = wav.to(dev).contiguous()
         shapes.append(tuple(wav.shape))
         got, want = logmel(wav, mel_cfg), logmel_reference(wav, mel_cfg)
         torch.cuda.synchronize()
-        if got.shape != want.shape:
-            fail(f"logmel shape {tuple(got.shape)} != {tuple(want.shape)}")
-        if not torch.allclose(got, want, atol=LOGMEL_ATOL, rtol=LOGMEL_RTOL):
-            fail(f"logmel disagrees with its plain version at {shapes[-1]}: "
-                 f"max abs {float((got - want).abs().max()):.3g}")
-        err = max(err, float((got - want).abs().max()))
+        e, note = compare_logmel(f"logmel at {shapes[-1]}", got, want,
+                                 lambda: logmel_reference(wav.double(), mel_cfg))
+        err = max(err, e)
+        notes += [note] if note else []
     wav = torch.from_numpy(src[None]).to(dev).contiguous()
+    # one launch, and nothing allocated but the output (no magnitude scratch)
+    torch.cuda.synchronize()
+    base, launches0 = torch.cuda.memory_allocated(), logmel.launches
+    torch.cuda.reset_peak_memory_stats()
+    out = logmel(wav, mel_cfg)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    if logmel.launches != launches0 + 1 or extra > -(-out.numel() * 4 // 512) * 512:
+        fail(f"logmel call: {logmel.launches - launches0} launches, {extra} bytes allocated "
+             f"for a {out.numel() * 4}-byte output")
     ms = cuda_ms(lambda: logmel(wav, mel_cfg))
+    serve_device_ms = kernel_device_ms(lambda: logmel(wav, mel_cfg), "logmel_fft_kernel")
     plain_ms = cuda_ms(lambda: logmel_reference(wav, mel_cfg))
     library_ms = cuda_ms(lambda: library_logmel(wav, mel_cfg, window, melw))
     lib_err = float((library_logmel(wav, mel_cfg, window, melw)
@@ -506,9 +683,11 @@ def main() -> None:
     bound_ms, bound_by = logmel_bound_ms(1, wav.shape[1], wav.shape[1] // mel_cfg.hop + 1,
                                          mel_cfg, melw)
     print(f"kernels: logmel max_abs_err {err:.3g} (atol {LOGMEL_ATOL}, rtol {LOGMEL_RTOL}) "
-          f"over {shapes}; at B=1 T={wav.shape[1]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"over {shapes}; at B=1 T={wav.shape[1]}: kernel {ms:.4f} ms (device "
+          f"{serve_device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
           f"torch.stft chain {library_ms:.4f} ms (max abs vs plain {lib_err:.3g}), "
-          f"bound {bound_ms:.4g} ms by {bound_by}", flush=True)
+          f"bound {bound_ms:.4g} ms by {bound_by}"
+          + (f"; held to float64: {'; '.join(notes)}" if notes else ""), flush=True)
 
     # 4. the main path: build_engine(...).infer_once, then infer_offline
     hparams = {name: load_config(os.path.join(ROOT, "egs", "soak_r5", f"{name}.yaml"))
@@ -536,8 +715,8 @@ def main() -> None:
         fail(f"streaming != offline: max abs {stream_err:.3g} > {STREAM_ATOL}")
     if not np.array_equal(codes_s, codes_o):
         fail(f"streaming codes differ from offline at {int((codes_s != codes_o).sum())} frames")
-    if launches_once < 1:
-        fail("the main path did not launch the logmel kernel")
+    if launches_once != 2:
+        fail(f"infer_once launched the logmel kernel {launches_once} times, not 2 (src, ref)")
 
     # timing: a warm infer_once for the RTF, then the chunk loop with events
     torch.cuda.synchronize()
@@ -598,7 +777,8 @@ def main() -> None:
 
     kernel = {"name": "logmel", "route": "cuda", "source": "conan_tpu_torch/csrc/logmel.cu",
               "replaces": "conan_tpu/ops/pallas_stft.py:52", "launches": launches,
-              "max_abs_err": err, "max_abs_diff": err, "ms": ms, "plain_ms": plain_ms,
+              "max_abs_err": err, "max_abs_diff": err, "ms": ms,
+              "kernel_device_ms": serve_device_ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
     # 5. train

@@ -1,179 +1,132 @@
-// Log-mel spectrogram for Hopper (sm_90a), fp32.
+// Log-mel spectrogram for Hopper (sm_90a), fp32: kernel K1, one launch.
 //
 // Replaces the TPU kernel conan_tpu/ops/pallas_stft.py:_kernel / pallas_logmel:
 //   out[b, f, m] = log(max(sum_k mag[b, f, k] * melw[k, m], clip)) * out_scale
-//   mag[b, f, k] = sqrt(re^2 + im^2 + eps), [re | im] = frame(b, f) @ basis
+//   mag[b, f, k] = |sum_n win[n] frame(b, f)[n] exp(-2πi k n / n_fft)|, under
+//                  the sqrt as sqrt(re^2 + im^2 + eps)
 // with frame(b, f)[n] = wav[b, f*hop + n - pad], zero outside [0, T) (the
-// constant centre pad). The Pallas version framed the wav with an XLA gather
-// outside the kernel because Mosaic needs aligned loads; here the frames are
-// read straight from the wav, so only the wav goes in.
+// constant centre pad). The Pallas kernel computes the DFT as a dense product
+// with a [n_fft, 2*bins] basis (the MXU's shape of work) and the mel sum as a
+// dense product with the [bins, mels] filterbank; both were carried over in
+// the port's first version, two launches with the magnitudes round-tripping
+// through device memory.
 //
-// What bounds it on the card. The function itself needs little: a real FFT
-// and the sparse mel product come to ~30 kFLOP per frame against ~1.3 KB of
-// new wav and 320 B of output, so at the card's peaks it is bound by its
-// bytes (chip_smoke.py:logmel_bound_ms). This kernel does not take that
-// bound: it computes the DFT densely, as the Pallas kernel does, a
-// [frames x 1024] @ [1024 x 1026] product of ~2.1 MFLOP per frame (some 70x
-// the FFT's work), so what bounds it is its own fp32 operations; the 4.2 MB
-// basis stays in L2. It stays in fp32 FMA (no tensor cores) because "exact"
-// is the serving default: TF32 or bf16 would change the numbers. So the
-// design is that of a register-tiled fp32 GEMM, in two launches:
-//
-//   dft_mag_kernel  one block per (64 frames, 32 bins, batch row). The K loop
-//                   walks n in steps of 16: the block stages the framed wav
-//                   slice [16 x 64 frames] and the basis slice [16 x (32 re +
-//                   32 im)] in shared memory (prefetching the next slice into
-//                   registers while it computes), and each thread accumulates
-//                   4 frames x 2 bins of re and im (16 FMAs per 3 shared
-//                   loads). Its epilogue writes the magnitudes [B, F, bins].
-//   mel_log_kernel  one block per (8 frames, batch row): the magnitude rows in
-//                   shared memory, each thread a few (frame, mel) dot products
-//                   over the bins against the filterbank, then clip and log.
-//
-// Tiling frames and bins both gives enough blocks to fill the card at B=1
-// (85 blocks for 5 s of audio); the magnitudes round-trip through L2-resident
-// scratch (0.5 MB at B=1) that the wrapper allocates. No wgmma or TMA yet.
+// What bounds it on the card: its bytes. The function needs an FFT (~5 n
+// log2 n FLOP a frame for the complex FFT done here) and the mel sum over the
+// filterbank's nonzero weights against ~4 hop bytes of new wav and 4 n_mels
+// bytes of output a frame (chip_smoke.py:logmel_bound_ms). What the design
+// does about it: one block per frame does everything in shared memory, and
+// only the wav (read once per overlapping frame, from L2 after the first) and
+// the log-mel touch device memory:
+//   1. framing and window: sample n of frame f read straight from the wav at
+//      f*hop - pad + n (zero outside [0, T)), times the n_fft-long window
+//      (the periodic Hann of win_length zero-padded to the centre, the same
+//      numpy window as the plain version's DFT basis: ops/stft.py:_window_np);
+//   2. a complex FFT of the n_fft windowed samples (imaginary parts zero) in
+//      radix-2 Stockham passes between two shared buffers of n_fft float2.
+//      Pass m (m = 1, 2, .., n/2) takes butterfly t < n/2 from x[t] and
+//      x[t + n/2] and writes y[2t - k] = c0 + c1, y[2t - k + m] = (c0 - c1) *
+//      w^(t - k) with k = t mod m and w^j = exp(-2πi j / n) from a table of
+//      n/2 twiddles computed in float64 and rounded to fp32. Reads are
+//      contiguous, the output comes in natural order, and no bit reversal is
+//      needed. fp32 rounding grows as log2 n here against sqrt(n) for the
+//      dense DFT. Packing even and odd samples into an n/2-point FFT would
+//      halve the passes' work; not done yet.
+//   3. sqrt(re^2 + im^2 + eps) of bins 0..n/2 into shared memory;
+//   4. each mel summed over its own contiguous band of bins only (first bin,
+//      count and offset into a compact weight array, built by the wrapper
+//      from the same filterbank; a band of count 0 sums to 0 and gives
+//      log(clip), as the dense product does), then log(max(., clip)) *
+//      out_scale, written coalesced as [B, F, n_mels].
+// Shared memory is 16 * n_fft bytes (32 KB at n_fft 2048), so one frame a
+// block keeps several blocks on an SM, and serving at B=1 (257 frames of
+// 5.12 s) fills the card's 132 SMs with one wave. No tensor cores: the FFT is
+// a few kFLOP a frame.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // frames per DFT block
-constexpr int BN = 32;        // bins per DFT block (re and im: 64 basis columns)
-constexpr int BK = 16;        // DFT depth per stage
-constexpr int THREADS = 256;  // 16 x 16 threads: 4 frames x 2 bins each
-constexpr int AS = BM + 4;    // padded row of the staged frames (16-byte aligned)
-constexpr int MEL_TF = 8;     // frames per mel block
+constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
-dft_mag_kernel(const float* __restrict__ wav, const float* __restrict__ basis,
-               float* __restrict__ mag, int T, int n_frames, int n_fft, int hop, int pad,
-               int n_bins, float eps) {
-  __shared__ __align__(16) float As[BK][AS];       // As[kk][f] = frame f, sample n0+kk
-  __shared__ __align__(16) float Bs[BK][2 * BN];   // re cols 0..31, im cols 32..63
+logmel_fft_kernel(const float* __restrict__ wav, const float* __restrict__ window,
+                  const float2* __restrict__ twiddle, const int* __restrict__ band_first,
+                  const int* __restrict__ band_count, const int* __restrict__ band_offset,
+                  const float* __restrict__ band_w, float* __restrict__ out, int T,
+                  int n_frames, int n_fft, int hop, int pad, int n_mels, float eps, float clip,
+                  float out_scale) {
+  extern __shared__ __align__(16) float2 buf[];   // two buffers of n_fft complex values
+  const int frame = blockIdx.x;                   // b * n_frames + f
+  const int b = frame / n_frames, f = frame - b * n_frames;
+  const int half = n_fft >> 1;
+  float2* x = buf;
+  float2* y = buf + n_fft;
 
-  const int tid = threadIdx.x;
-  const int f0 = blockIdx.x * BM;
-  const int k0 = blockIdx.y * BN;
-  const int b = blockIdx.z;
   const float* w = wav + (size_t)b * T;
-  const size_t row = 2 * (size_t)n_bins;
-
-  // what each thread stages: 4 framed-wav values and 4 basis values per stage
-  int a_f[4], a_kk[4], b_r[4], b_col[4];
-  bool b_ok[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int e = tid + j * THREADS;
-    a_f[j] = e / BK;
-    a_kk[j] = e % BK;
-    b_r[j] = e / (2 * BN);
-    const int c = e % (2 * BN);
-    const int k = k0 + (c % BN);
-    b_ok[j] = k < n_bins;
-    b_col[j] = c < BN ? k : n_bins + k;
+  const long long t0 = (long long)f * hop - pad;
+  for (int n = threadIdx.x; n < n_fft; n += THREADS) {
+    const long long t = t0 + n;
+    const float v = (t >= 0 && t < T) ? __ldg(w + t) : 0.f;
+    x[n] = make_float2(v * __ldg(window + n), 0.f);
   }
-  float a_reg[4], b_reg[4];
-  auto load_stage = [&](int n0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long t = (long long)(f0 + a_f[j]) * hop + n0 + a_kk[j] - pad;
-      a_reg[j] = (t >= 0 && t < T) ? __ldg(w + t) : 0.f;
-      b_reg[j] = b_ok[j] ? __ldg(basis + (size_t)(n0 + b_r[j]) * row + b_col[j]) : 0.f;
-    }
-  };
-
-  const int ty = tid / 16, tx = tid % 16;   // frames ty*4.., bins tx*2..
-  float re[4][2], im[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) re[i][j] = im[i][j] = 0.f;
-
-  load_stage(0);
-  for (int n0 = 0; n0 < n_fft; n0 += BK) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      As[a_kk[j]][a_f[j]] = a_reg[j];
-      Bs[b_r[j]][(tid + j * THREADS) % (2 * BN)] = b_reg[j];
-    }
-    __syncthreads();
-    if (n0 + BK < n_fft) load_stage(n0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float2 cr = *reinterpret_cast<const float2*>(&Bs[kk][tx * 2]);
-      const float2 ci = *reinterpret_cast<const float2*>(&Bs[kk][BN + tx * 2]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        re[i][0] = fmaf(av[i], cr.x, re[i][0]);
-        re[i][1] = fmaf(av[i], cr.y, re[i][1]);
-        im[i][0] = fmaf(av[i], ci.x, im[i][0]);
-        im[i][1] = fmaf(av[i], ci.y, im[i][1]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = f0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = k0 + tx * 2 + j;
-      if (f < n_frames && k < n_bins)
-        mag[((size_t)b * n_frames + f) * n_bins + k] =
-            sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j] + eps);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-mel_log_kernel(const float* __restrict__ mag, const float* __restrict__ melw,
-               float* __restrict__ out, int n_frames, int n_bins, int n_mels, float clip,
-               float out_scale) {
-  extern __shared__ float s_mag[];   // [MEL_TF][n_bins]
-  const int f0 = blockIdx.x * MEL_TF;
-  const int b = blockIdx.y;
-  const int nf = min(MEL_TF, n_frames - f0);
-  const float* src = mag + ((size_t)b * n_frames + f0) * n_bins;
-  for (int i = threadIdx.x; i < nf * n_bins; i += THREADS) s_mag[i] = src[i];
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nf * n_mels; idx += THREADS) {
-    const int f = idx / n_mels, m = idx - f * n_mels;
-    const float* mg = s_mag + f * n_bins;
+
+  for (int m = 1; m < n_fft; m <<= 1) {
+    for (int t = threadIdx.x; t < half; t += THREADS) {
+      const int k = t & (m - 1);
+      const float2 c0 = x[t], c1 = x[t + half];
+      const float2 tw = __ldg(twiddle + (t - k));
+      const float dr = c0.x - c1.x, di = c0.y - c1.y;
+      y[2 * t - k] = make_float2(c0.x + c1.x, c0.y + c1.y);
+      y[2 * t - k + m] = make_float2(dr * tw.x - di * tw.y, dr * tw.y + di * tw.x);
+    }
+    __syncthreads();
+    float2* tmp = x;
+    x = y;
+    y = tmp;
+  }
+
+  float* mag = reinterpret_cast<float*>(y);       // the free buffer, bins 0..n/2
+  for (int k = threadIdx.x; k <= half; k += THREADS) {
+    const float2 v = x[k];
+    mag[k] = sqrtf(v.x * v.x + v.y * v.y + eps);
+  }
+  __syncthreads();
+
+  float* o = out + (size_t)frame * n_mels;
+  for (int m = threadIdx.x; m < n_mels; m += THREADS) {
+    const float* mg = mag + __ldg(band_first + m);
+    const float* wm = band_w + __ldg(band_offset + m);
+    const int count = __ldg(band_count + m);
     float acc = 0.f;
-    for (int k = 0; k < n_bins; ++k) acc = fmaf(mg[k], __ldg(melw + (size_t)k * n_mels + m), acc);
-    out[((size_t)b * n_frames + f0 + f) * n_mels + m] = logf(fmaxf(acc, clip)) * out_scale;
+    for (int i = 0; i < count; ++i) acc = fmaf(mg[i], __ldg(wm + i), acc);
+    o[m] = logf(fmaxf(acc, clip)) * out_scale;
   }
 }
 
 }  // namespace
 
-// wav [B, T], basis [n_fft, 2*n_bins], melw [n_bins, n_mels], mag scratch
-// [B, n_frames, n_bins], out [B, n_frames, n_mels]; all fp32, contiguous, on
-// the current device; n_fft a multiple of 16. Launches both kernels on
-// `stream` and returns cudaGetLastError().
-extern "C" int logmel_forward(const float* wav, const float* basis, const float* melw,
-                              float* mag, float* out, int B, int T, int n_frames, int n_fft,
-                              int hop, int pad, int n_bins, int n_mels, float eps,
-                              float clip, float out_scale, void* stream) {
-  if (n_fft % BK != 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid_dft((n_frames + BM - 1) / BM, (n_bins + BN - 1) / BN, B);
-  dft_mag_kernel<<<grid_dft, THREADS, 0, s>>>(wav, basis, mag, T, n_frames, n_fft, hop, pad,
-                                               n_bins, eps);
-  cudaError_t e = cudaGetLastError();
+// wav [B, T]; window [n_fft]; twiddle [n_fft/2] complex (re, im interleaved);
+// band_first, band_count, band_offset [n_mels] int32; band_w the bands'
+// weights one after another; out [B, n_frames, n_mels]. All fp32 but the
+// band tables, contiguous, on the current device; n_fft a power of two from
+// 2 to 8192. Launches one kernel on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for what it does not take).
+extern "C" int logmel_forward(const float* wav, const float* window, const float* twiddle,
+                              const int* band_first, const int* band_count,
+                              const int* band_offset, const float* band_w, float* out, int B,
+                              int T, int n_frames, int n_fft, int hop, int pad, int n_mels,
+                              float eps, float clip, float out_scale, void* stream) {
+  if (n_fft < 2 || n_fft > 8192 || (n_fft & (n_fft - 1)) || B < 1 || n_frames < 1 ||
+      (long long)B * n_frames > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * sizeof(float2) * (size_t)n_fft;
+  static size_t opted[conan::kMaxDevices] = {};
+  const cudaError_t e = conan::allow_dynamic_smem(logmel_fft_kernel, smem, opted);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = sizeof(float) * MEL_TF * (size_t)n_bins;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(mel_log_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid_mel((n_frames + MEL_TF - 1) / MEL_TF, B);
-  mel_log_kernel<<<grid_mel, THREADS, smem, s>>>(mag, melw, out, n_frames, n_bins, n_mels,
-                                                 clip, out_scale);
+  logmel_fft_kernel<<<B * n_frames, THREADS, smem, (cudaStream_t)stream>>>(
+      wav, window, reinterpret_cast<const float2*>(twiddle), band_first, band_count,
+      band_offset, band_w, out, T, n_frames, n_fft, hop, pad, n_mels, eps, clip, out_scale);
   return (int)cudaGetLastError();
 }

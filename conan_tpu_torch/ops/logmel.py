@@ -8,20 +8,22 @@ no centre pad, eps 1e-9 under the sqrt, clip 1e-5, ln), differentiable: the
 forward is K1 and the backward the analytic chain of ``_logmel_bwd``
 (log → mel → magnitude → DFT → overlap-add) in plain torch ops, as the JAX
 package's backward is XLA and not Pallas. On a CUDA tensor each launches the
-hand-written kernel in ``csrc/logmel.cu``; on a CPU tensor each runs its plain
-version (the GAN form's under the same analytic backward). There is no other
-route: any other device raises.
+hand-written kernel in ``csrc/logmel.cu`` (one launch: framing, window, a
+shared-memory FFT, magnitude, banded mel sum and log); on a CPU tensor each
+runs its plain version (the GAN form's under the same analytic backward).
+There is no other route: any other device raises.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from conan_tpu_torch.ops.stft import (_dft_kernel_np, frame_count, mel_filterbank_np,
-                                      overlap_add, stft_magnitude)
+from conan_tpu_torch.ops.stft import (_dft_kernel_np, _window_np, frame_count,
+                                      mel_filterbank_np, overlap_add, stft_magnitude)
 
 CLIP = 1e-6  # log10(max(mel, 1e-6)), librosa_wav2spec's floor
 GAN_EPS, GAN_CLIP = 1e-9, 1e-5  # sqrt(re² + im² + 1e-9), ln(max(mel, 1e-5)): cal_mel_spec
@@ -34,6 +36,32 @@ def _constants_np(cfg):
     melw = mel_filterbank_np(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
                              float(cfg.fmin), float(cfg.fmax)).T
     return basis, melw
+
+
+def _twiddles_np(n_fft: int) -> np.ndarray:
+    """[n_fft/2, 2] fp32 (re, im) of exp(-2πi k / n_fft), computed in float64:
+    the FFT's twiddle factors."""
+    w = np.exp(-2j * np.pi * np.arange(n_fft // 2) / n_fft)
+    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
+def _mel_bands_np(melw: np.ndarray):
+    """The kernel's banded form of the filterbank ``melw`` [bins, mels]: per
+    mel the first bin and count of its contiguous run of weights (first to
+    last nonzero; count 0 for a mel with none) and the run's offset into one
+    compact fp32 array of all runs. Returns (first, count, offset, weights)."""
+    first, count, offset, runs = [], [], [], []
+    n = 0
+    for col in melw.T:
+        nz = np.flatnonzero(col)
+        lo, c = (int(nz[0]), int(nz[-1] - nz[0] + 1)) if nz.size else (0, 0)
+        first.append(lo)
+        count.append(c)
+        offset.append(n)
+        runs.append(col[lo:lo + c])
+        n += c
+    ints = [np.asarray(a, dtype=np.int32) for a in (first, count, offset)]
+    return (*ints, np.concatenate(runs).astype(np.float32))
 
 
 def logmel_reference(wav: torch.Tensor, cfg) -> torch.Tensor:
@@ -83,24 +111,50 @@ def _gan_vjp(padded: torch.Tensor, g: torch.Tensor, cfg, basis: torch.Tensor,
     return overlap_add(dframes, cfg.hop, padded.shape[1])
 
 
+def _check_n_fft(n_fft: int) -> None:
+    if n_fft < 2 or n_fft > 8192 or n_fft & (n_fft - 1):
+        raise ValueError(f"logmel: n_fft {n_fft} is not a power of two from 2 to 8192")
+
+
 class LogmelKernel:
     """Wrapper of the CUDA kernel in its serving form: checks its inputs,
-    allocates the output and the magnitude scratch, launches on the current
-    stream and counts its launches in ``launches``. The DFT basis and
-    filterbank are uploaded once per (device, config)."""
+    allocates the output, launches on the current stream and counts its
+    launches in ``launches``. The kernel's tables (window, twiddles, mel
+    bands) are uploaded once per (device, config) by ``tables``; the dense
+    DFT basis and filterbank, which the GAN form's backward and the
+    yardsticks use, by ``dense_constants``."""
 
     def __init__(self):
         self.launches = 0
-        self._consts: dict = {}
+        self._dense: dict = {}
+        self._tables: dict = {}
 
-    def constants(self, cfg, device: torch.device):
-        key = (device, cfg.n_fft, cfg.win_length, cfg.sample_rate, cfg.n_mels,
-               float(cfg.fmin), float(cfg.fmax))
-        if key not in self._consts:
+    @staticmethod
+    def _key(cfg, device: torch.device):
+        return (device, cfg.n_fft, cfg.win_length, cfg.sample_rate, cfg.n_mels,
+                float(cfg.fmin), float(cfg.fmax))
+
+    def dense_constants(self, cfg, device: torch.device):
+        """(DFT basis [n_fft, 2·bins], filterbank [bins, mels]) on ``device``."""
+        key = self._key(cfg, device)
+        if key not in self._dense:
             basis, melw = _constants_np(cfg)
-            self._consts[key] = (torch.from_numpy(basis).to(device),
-                                 torch.from_numpy(melw.copy()).to(device))
-        return self._consts[key]
+            self._dense[key] = (torch.from_numpy(basis).to(device),
+                                torch.from_numpy(melw.copy()).to(device))
+        return self._dense[key]
+
+    def tables(self, cfg, device: torch.device):
+        """The kernel's constants on ``device``: (window [n_fft] fp32,
+        twiddles [n_fft/2, 2] fp32, band first, count, offset [mels] int32,
+        band weights fp32). Raises ValueError for an n_fft the FFT does not
+        take."""
+        _check_n_fft(cfg.n_fft)
+        key = self._key(cfg, device)
+        if key not in self._tables:
+            window = _window_np(cfg.n_fft, cfg.win_length).astype(np.float32)
+            consts = (window, _twiddles_np(cfg.n_fft), *_mel_bands_np(_constants_np(cfg)[1]))
+            self._tables[key] = tuple(torch.from_numpy(c).to(device) for c in consts)
+        return self._tables[key]
 
     def launch(self, wav: torch.Tensor, cfg, *, pad: int, n_frames: int, eps: float,
                clip: float, out_scale: float) -> torch.Tensor:
@@ -113,24 +167,19 @@ class LogmelKernel:
         if wav.dim() != 2 or not wav.is_contiguous() or wav.shape[0] == 0:
             raise ValueError(f"logmel: wav must be a contiguous non-empty [B, T], "
                              f"got {tuple(wav.shape)}")
-        if cfg.n_fft % 16:
-            raise ValueError(f"logmel: n_fft {cfg.n_fft} is not a multiple of 16")
         if n_frames < 1:
             raise ValueError(f"logmel: {wav.shape[1]} samples make no frame of {cfg.n_fft}")
+        tables = self.tables(cfg, wav.device)
         from conan_tpu_torch.ops import native
 
         lib = native.load()
         B, T = wav.shape
-        n_bins = cfg.n_fft // 2 + 1
-        basis, melw = self.constants(cfg, wav.device)
-        mag = torch.empty(B, n_frames, n_bins, device=wav.device, dtype=torch.float32)
         out = torch.empty(B, n_frames, cfg.n_mels, device=wav.device, dtype=torch.float32)
         stream = torch.cuda.current_stream(wav.device).cuda_stream
         with torch.cuda.device(wav.device):
             err = lib.logmel_forward(
-                wav.data_ptr(), basis.data_ptr(), melw.data_ptr(), mag.data_ptr(),
-                out.data_ptr(), B, T, n_frames, cfg.n_fft, cfg.hop, pad, n_bins, cfg.n_mels,
-                eps, clip, out_scale, stream)
+                wav.data_ptr(), *(c.data_ptr() for c in tables), out.data_ptr(), B, T,
+                n_frames, cfg.n_fft, cfg.hop, pad, cfg.n_mels, eps, clip, out_scale, stream)
         if err != 0:
             raise RuntimeError(f"logmel kernel launch failed: cudaError {err}")
         self.launches += 1
@@ -165,7 +214,8 @@ class _LogmelGanFunction(torch.autograd.Function):
         if not ctx.needs_input_grad[0]:
             return None, None, None
         (padded,) = ctx.saved_tensors
-        basis, melw = (c.to(padded.dtype) for c in ctx.kernel.constants(ctx.cfg, padded.device))
+        basis, melw = (c.to(padded.dtype)
+                       for c in ctx.kernel.dense_constants(ctx.cfg, padded.device))
         return _gan_vjp(padded, g, ctx.cfg, basis, melw), None, None
 
 

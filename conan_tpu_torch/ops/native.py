@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernel library.
 
-The sources in ``csrc/`` (``logmel.cu``: K1, ``groupconv.cu``: K2) are
-compiled by one ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, ``build/conan_tpu_torch/libconan_kernels.so`` under the checkout
-root, which ``ctypes`` loads. The build runs at first use, and again whenever
+The sources in ``csrc/`` (``logmel.cu``: K1, ``groupconv.cu``: K2, and the
+header ``common.cuh`` they share) are compiled by one ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface,
+``build/conan_tpu_torch/libconan_kernels.so`` under the checkout root, which
+``ctypes`` loads. The build runs at first use, and again whenever
 a source is newer than the library. Nothing here runs at import.
 """
 
@@ -17,8 +18,9 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCES = tuple(Path(__file__).resolve().parents[1] / "csrc" / name
-                for name in ("logmel.cu", "groupconv.cu"))
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = tuple(CSRC / name for name in ("logmel.cu", "groupconv.cu"))
+HEADERS = (CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "conan_tpu_torch"
 LIB_PATH = BUILD_DIR / "libconan_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -38,7 +40,7 @@ def build(force: bool = False) -> str:
     nvcc's diagnostics (ptxas register and shared-memory report per kernel);
     empty when the library was already up to date."""
     if (not force and LIB_PATH.exists()
-            and LIB_PATH.stat().st_mtime >= max(src.stat().st_mtime for src in SOURCES)):
+            and LIB_PATH.stat().st_mtime >= max(f.stat().st_mtime for f in SOURCES + HEADERS)):
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -58,11 +60,12 @@ def load() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(LIB_PATH))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # wav, basis, melw, mag (scratch), out, B, T, n_frames, n_fft, hop, pad,
-    # n_bins, n_mels, eps_under_sqrt, clip, out_scale, stream
-    lib.logmel_forward.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, F, P]
+    # wav, window, twiddles, band first, band count, band offset, band
+    # weights, out, B, T, n_frames, n_fft, hop, pad, n_mels, eps_under_sqrt,
+    # clip, out_scale, stream
+    lib.logmel_forward.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, F, F, P]
     lib.logmel_forward.restype = ctypes.c_int
-    # x, wt, y, B, T, Ci, T_out, Co, groups, K, stride, pad_l, stream
-    lib.groupconv_forward.argtypes = [P, P, P, I, I, I, I, I, I, I, I, I, P]
+    # x, w_hi, w_lo, y, B, T, Ci, T_out, Co, groups, K, stride, pad_l, stream
+    lib.groupconv_forward.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, I, P]
     lib.groupconv_forward.restype = ctypes.c_int
     return lib

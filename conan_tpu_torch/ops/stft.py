@@ -16,18 +16,24 @@ import torch
 import torch.nn.functional as F
 
 
-@functools.lru_cache(maxsize=None)
-def _dft_kernel_np(n_fft: int, win_length: int) -> np.ndarray:
-    """[n_fft, 2*n_bins] windowed DFT basis: real columns then imaginary.
-
-    X_k = sum_t w[t] x[t] exp(-2πi k t / n_fft). Periodic Hann window,
-    zero-padded symmetrically to n_fft like torch.stft when win_length < n_fft.
-    """
-    n_bins = n_fft // 2 + 1
+def _window_np(n_fft: int, win_length: int) -> np.ndarray:
+    """[n_fft] float64 periodic Hann window of ``win_length``, zero-padded
+    symmetrically to n_fft like torch.stft when win_length < n_fft."""
     window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(win_length) / win_length)
     w_full = np.zeros(n_fft)
     off = (n_fft - win_length) // 2
     w_full[off:off + win_length] = window
+    return w_full
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_kernel_np(n_fft: int, win_length: int) -> np.ndarray:
+    """[n_fft, 2*n_bins] windowed DFT basis: real columns then imaginary.
+
+    X_k = sum_t w[t] x[t] exp(-2πi k t / n_fft), w = ``_window_np``.
+    """
+    n_bins = n_fft // 2 + 1
+    w_full = _window_np(n_fft, win_length)
     t = np.arange(n_fft)[:, None]
     k = np.arange(n_bins)[None, :]
     angle = 2.0 * np.pi * t * k / n_fft

@@ -16,8 +16,9 @@ from conan_tpu_torch.ops.groupconv import GroupConvKernel, grouped_conv1d_refere
 from conan_tpu_torch.ops.logmel import LogmelGanKernel, LogmelKernel, logmel_gan_reference
 from conan_tpu_torch.ops.logmel import logmel_reference
 
-# K1 against its plain version: both fp32 over the same constants, the sums in
-# another order; the bound tests/test_pallas_stft.py holds the Pallas kernel to
+# K1 against its plain version: both fp32 over the same window and
+# filterbank, the DFT computed another way (an FFT against a dense product);
+# the bound tests/test_pallas_stft.py holds the Pallas kernel to
 ATOL, RTOL = 2e-4, 1e-4
 
 
@@ -29,17 +30,30 @@ def _card():
     return torch.device("cuda")
 
 
+def _check_logmel(cfg, shape, seed):
+    dev = _card()
+    kernel = LogmelKernel()
+    wav = torch.from_numpy((np.random.default_rng(seed).standard_normal(shape) * 0.2)
+                           .astype(np.float32)).to(dev)
+    got = kernel(wav, cfg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, logmel_reference(wav, cfg), atol=ATOL, rtol=RTOL)
+    assert kernel.launches == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 81920), (1, 40960), (8, 48123), (3, 100), (2, 64 * 320)])
 def test_kernel_matches_plain_version(shape):
-    dev = _card()
-    kernel = LogmelKernel()
-    wav = torch.from_numpy((np.random.default_rng(sum(shape)).standard_normal(shape) * 0.2)
-                           .astype(np.float32)).to(dev)
-    got = kernel(wav, MelConfig())
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, logmel_reference(wav, MelConfig()), atol=ATOL, rtol=RTOL)
-    assert kernel.launches == 1
+    _check_logmel(MelConfig(), shape, seed=sum(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [512, 2048])
+@pytest.mark.parametrize("shape", [(1, 81920), (3, 48123)])
+def test_kernel_matches_plain_version_at_other_n_fft(n_fft, shape):
+    """The serving form at the GAN loss's other FFT sizes: 5.12 s at B=1, and
+    B=3 with a T that is no multiple of the hop."""
+    _check_logmel(MelConfig(n_fft=n_fft, win_length=n_fft), shape, seed=n_fft)
 
 
 @pytest.mark.cuda
@@ -50,8 +64,9 @@ def test_kernel_rejects_what_it_does_not_take():
         kernel(torch.zeros(1, 8000, dtype=torch.float64, device=dev), MelConfig())
     with pytest.raises(ValueError):
         kernel(torch.zeros(8000, 2, device=dev).t(), MelConfig())
-    with pytest.raises(ValueError):
-        kernel(torch.zeros(1, 8000, device=dev), MelConfig(n_fft=1000, win_length=1000))
+    for n_fft in (1000, 1536):    # the FFT takes powers of two only
+        with pytest.raises(ValueError, match="power of two"):
+            kernel(torch.zeros(1, 8000, device=dev), MelConfig(n_fft=n_fft, win_length=n_fft))
     assert kernel.launches == 0
 
 
@@ -63,14 +78,11 @@ MSD_LAYERS = [(128, 128, 2, 4), (128, 256, 2, 16), (256, 512, 4, 16), (512, 1024
               (1024, 1024, 1, 16)]   # (ci, co, stride, groups), k 41, padding 20
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ci,co,s,g", MSD_LAYERS)
-def test_groupconv_matches_plain_version(ci, co, s, g):
+def _check_groupconv(ci, co, s, g, B, T, seed):
     dev = _card()
     kernel = GroupConvKernel()
-    rng = np.random.default_rng(ci + co)
-    T = 1000 if ci <= 256 else 300
-    x = torch.from_numpy(rng.standard_normal((3, T, ci)).astype(np.float32)).to(dev)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, T, ci)).astype(np.float32)).to(dev)
     w = torch.from_numpy((rng.standard_normal((co, ci // g, 41)) / np.sqrt(41 * ci / g))
                          .astype(np.float32)).to(dev)
     outs = {}
@@ -82,10 +94,25 @@ def test_groupconv_matches_plain_version(ci, co, s, g):
     torch.cuda.synchronize()
     assert kernel.launches == 1
     (y, dx, dw), (y_ref, dx_ref, dw_ref) = outs["kernel"], outs["plain"]
-    assert y.shape == y_ref.shape == (3, (T - 1) // s + 1, co)
+    assert y.shape == y_ref.shape == (B, (T - 1) // s + 1, co)
     torch.testing.assert_close(y, y_ref, atol=2e-4, rtol=1e-4)
     torch.testing.assert_close(dx, dx_ref, atol=5e-4, rtol=1e-3)
     torch.testing.assert_close(dw, dw_ref, atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci,co,s,g", MSD_LAYERS)
+def test_groupconv_matches_plain_version(ci, co, s, g):
+    """T_out 500, 250, 300 or 75: no multiple of the time tile."""
+    _check_groupconv(ci, co, s, g, B=3, T=1000 if ci <= 256 else 300, seed=ci + co)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci,co,s,g", MSD_LAYERS)
+def test_groupconv_matches_plain_version_at_scale_3_length(ci, co, s, g):
+    """An output of 30 times, about the length of the MSD's scale 3 deep
+    layers: one time tile, mostly masked."""
+    _check_groupconv(ci, co, s, g, B=2, T=30 * s, seed=ci + co + 1)
 
 
 @pytest.mark.cuda
@@ -104,16 +131,14 @@ def test_groupconv_rejects_what_it_does_not_take():
     assert kernel.launches == 0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
-def test_logmel_gan_matches_plain_version(n_fft):
+def _check_logmel_gan(n_fft, shape, seed):
     """K1's GAN form with its analytic backward against autograd of the plain
     chain: values atol 2e-4 / rtol 1e-4 as K1's serving form, dwav atol
     5e-4 / rtol 1e-3."""
     dev = _card()
     kernel = LogmelGanKernel()
     cfg = MelConfig(n_fft=n_fft, hop=160, win_length=n_fft, n_mels=320, fmin=0.0, fmax=8000.0)
-    wav = torch.from_numpy((np.random.default_rng(n_fft).standard_normal((4, 8000)) * 0.3)
+    wav = torch.from_numpy((np.random.default_rng(seed).standard_normal(shape) * 0.3)
                            .astype(np.float32)).to(dev)
     outs = {}
     for name, fn in (("kernel", kernel), ("plain", logmel_gan_reference)):
@@ -123,9 +148,24 @@ def test_logmel_gan_matches_plain_version(n_fft):
         outs[name] = (mel.detach(), w.grad)
     torch.cuda.synchronize()
     assert kernel.launches == 1
-    assert outs["kernel"][0].shape == (4, 50, 320)
+    assert outs["kernel"][0].shape == (shape[0], shape[1] // 160, 320)
     torch.testing.assert_close(outs["kernel"][0], outs["plain"][0], atol=2e-4, rtol=1e-4)
     torch.testing.assert_close(outs["kernel"][1], outs["plain"][1], atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
+def test_logmel_gan_matches_plain_version(n_fft):
+    _check_logmel_gan(n_fft, (4, 8000), seed=n_fft)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
+@pytest.mark.parametrize("shape", [(3, 4321), (18, 8000)])
+def test_logmel_gan_matches_plain_version_ragged(n_fft, shape):
+    """B=3 on 4321 samples, no multiple of the hop, and the train step's
+    B=18 x 8000."""
+    _check_logmel_gan(n_fft, shape, seed=n_fft + shape[0])
 
 
 # a small engine: 2-layer Emformer, hidden-64 Conan, 32-channel vocoder

@@ -1,7 +1,9 @@
 """The port's grouped conv (kernel K2's plain version, its CPU route, and its
 autograd Function, whose backward runs on the card too) against the JAX
 package's ``ops.conv1d(groups=g)`` and its Pallas kernel in interpret mode,
-on the MSD's five grouped geometries (tests/test_pallas_groupconv.py:15-21).
+on the MSD's five grouped geometries (tests/test_pallas_groupconv.py:15-21);
+and, on the CPU, the CUDA kernel's operands: the tf32 split of its weights,
+their layout, and the three-product accuracy emulated with float64 convs.
 
 Tolerances are those tests/test_pallas_groupconv.py holds the Pallas kernel
 to: values atol 2e-4 / rtol 1e-4, both gradients atol 5e-4 / rtol 1e-3 (fp32
@@ -19,7 +21,8 @@ from conan_tpu.ops.pallas_groupconv import pallas_grouped_conv1d
 
 from conan_tpu_torch.ops import conv1d
 from conan_tpu_torch.ops.groupconv import (GroupConvKernel, _GroupConvFunction,
-                                           grouped_conv1d_reference, groupconv)
+                                           grouped_conv1d_reference, groupconv, kernel_weights,
+                                           tf32_split)
 
 from tests.test_pallas_groupconv import MSD_LAYERS
 
@@ -101,3 +104,63 @@ def test_cpu_route_launches_nothing_and_other_devices_raise():
     with pytest.raises(ValueError, match="no kernel"):
         kernel(torch.empty(1, 100, 8, device="meta"), torch.empty(8, 2, 41, device="meta"),
                groups=4)
+
+
+# K2's operands (csrc/groupconv.cu): the three-product tf32 split, whose
+# weight half the wrapper makes on the CPU or the card alike
+
+def _tf32_low_bits(t):
+    return t.contiguous().view(torch.int32) & 0x1FFF
+
+
+def test_tf32_split_is_hi_plus_lo():
+    """hi and lo are tf32 values (low 13 mantissa bits zero) whose sum is w
+    to 2^-22 of |w|; a non-contiguous w gives contiguous halves (the kernel
+    reads them as laid out)."""
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy((rng.standard_normal((64, 16, 41)) * 10.0 ** rng.integers(
+        -6, 6, (64, 16, 41))).astype(np.float32)).permute(2, 0, 1)
+    hi, lo = tf32_split(w)
+    assert hi.is_contiguous() and lo.is_contiguous()
+    assert int(_tf32_low_bits(hi).abs().max()) == 0 and int(_tf32_low_bits(lo).abs().max()) == 0
+    err = (hi.double() + lo.double() - w.double()).abs()
+    assert bool((err <= 2.0 ** -22 * w.double().abs()).all())
+    # round to nearest, ties away from zero: 1 + 2^-11 is halfway between tf32 neighbours
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11)], dtype=torch.float32)
+    torch.testing.assert_close(tf32_split(tie)[0],
+                               torch.tensor([1 + 2.0 ** -10, -(1 + 2.0 ** -10)]), rtol=0, atol=0)
+
+
+def test_kernel_weights_layout():
+    """[groups, K·cig/8, cog, 8]: k-step j·cig/8 + ci/8, out-channel, ci % 8."""
+    G, cog, cig, K = 4, 16, 24, 5
+    w = torch.from_numpy(np.random.default_rng(1).standard_normal((G * cog, cig, K))
+                         .astype(np.float32))
+    hi, lo = kernel_weights(w, G)
+    assert hi.shape == lo.shape == (G, K * cig // 8, cog, 8)
+    full = hi.double() + lo.double()
+    for g, co, ci, j in [(0, 0, 0, 0), (1, 5, 9, 3), (3, 15, 23, 4), (2, 7, 16, 1)]:
+        want = float(w[g * cog + co, ci, j])
+        assert abs(float(full[g, j * cig // 8 + ci // 8, co, ci % 8]) - want) \
+            <= 2.0 ** -22 * abs(want)
+
+
+@pytest.mark.parametrize("ci,co,k,s,g", MSD_LAYERS)
+def test_three_tf32_products_keep_fp32_accuracy(ci, co, k, s, g):
+    """The kernel's product, emulated on the CPU: both operands split by
+    tf32_split, x_hi·w_hi + x_lo·w_hi + x_hi·w_lo by three float64 convs.
+    Within the plain version's atol 2e-4 / rtol 1e-4, and no further from a
+    float64 conv than 8x the fp32 conv's own error."""
+    x, w, _ = _inputs(ci, co, k, g, seed=ci + co + 1)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    pad = (k - 1) // 2
+
+    def conv(a, b):
+        return grouped_conv1d_reference(a, b, stride=s, padding=(pad, pad), groups=g)
+
+    (xh, xl), (wh, wl) = tf32_split(xt), tf32_split(wt)
+    three = conv(xh.double(), wh.double()) + conv(xl.double(), wh.double()) \
+        + conv(xh.double(), wl.double())
+    fp32, exact = conv(xt, wt), conv(xt.double(), wt.double())
+    np.testing.assert_allclose(three.float().numpy(), fp32.numpy(), atol=ATOL, rtol=RTOL)
+    assert float((three - exact).abs().max()) <= 8 * float((fp32.double() - exact).abs().max())

@@ -1,6 +1,8 @@
 """The port's log-mel, kernel K1's plain versions and wrappers in both forms
 (serving and GAN loss), against the JAX package: the XLA path and the Pallas
-kernel in interpret mode.
+kernel in interpret mode; and, on the CPU, what surrounds the CUDA kernel:
+its band tables, window and twiddles, and its FFT's arithmetic emulated in
+numpy from those tables.
 
 Tolerance atol 2e-4, rtol 1e-4, as tests/test_pallas_stft.py holds the Pallas
 kernel to the XLA path: both sides are fp32 over the same constants, and
@@ -26,7 +28,8 @@ from conan_tpu_torch.audio.mel import wav2mel_frontend
 from conan_tpu_torch.audio.mel import wav2mel_gan as port_wav2mel_gan
 from conan_tpu_torch.ops import stft as port_stft
 from conan_tpu_torch.ops.logmel import (LogmelGanKernel, LogmelKernel, _LogmelGanFunction,
-                                        gan_pad, logmel, logmel_gan, logmel_reference)
+                                        _mel_bands_np, _twiddles_np, gan_pad, logmel,
+                                        logmel_gan, logmel_reference)
 
 ATOL, RTOL = 2e-4, 1e-4
 HOP = 320
@@ -128,3 +131,97 @@ def test_logmel_gan_analytic_backward_matches_autograd():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(got_grad, want_grad, atol=GRAD_ATOL, rtol=GRAD_RTOL)
     assert kernel.launches == 0
+
+
+# K1's tables (csrc/logmel.cu): built on the CPU by the wrapper, uploaded once
+# per device; the filterbank's resolutions of the GAN loss and of serving
+MEL_CFGS = [(512, 320, 0.0, 8000.0), (1024, 320, 0.0, 8000.0), (2048, 320, 0.0, 8000.0),
+            (1024, 80, 80.0, 7600.0)]
+
+
+@pytest.mark.parametrize("n_fft,n_mels,fmin,fmax", MEL_CFGS)
+def test_mel_bands_rebuild_the_filterbank(n_fft, n_mels, fmin, fmax):
+    """The band tables give back the dense filterbank bit for bit, with the
+    empty bands (53 of 320 at n_fft 512) as count 0."""
+    melw = port_stft.mel_filterbank_np(16000, n_fft, n_mels, fmin, fmax).T
+    first, count, offset, weights = _mel_bands_np(melw)
+    dense = np.zeros_like(melw)
+    for m in range(n_mels):
+        dense[first[m]:first[m] + count[m], m] = weights[offset[m]:offset[m] + count[m]]
+    np.testing.assert_array_equal(dense, melw)
+    assert weights.dtype == np.float32 and offset[-1] + count[-1] == weights.size
+    assert int((count == 0).sum()) == (53 if n_fft == 512 else 0)
+
+
+@pytest.mark.parametrize("n_fft,win_length", [(512, 512), (1024, 1024), (2048, 2048),
+                                              (1024, 800)])
+def test_window_is_the_dft_basis_window(n_fft, win_length):
+    """K1's window is the window inside the plain version's DFT basis (its
+    cos(0) column), and the one the wrapper uploads."""
+    window = port_stft._window_np(n_fft, win_length).astype(np.float32)
+    np.testing.assert_array_equal(window, port_stft._dft_kernel_np(n_fft, win_length)[:, 0])
+    cfg = PortMelConfig(n_fft=n_fft, win_length=win_length)
+    np.testing.assert_array_equal(LogmelKernel().tables(cfg, torch.device("cpu"))[0].numpy(),
+                                  window)
+
+
+@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
+def test_twiddles_are_exp_rounded_to_fp32(n_fft):
+    want = np.exp(-2j * np.pi * np.arange(n_fft // 2) / n_fft)
+    tw = _twiddles_np(n_fft)
+    assert tw.dtype == np.float32 and tw.shape == (n_fft // 2, 2)
+    np.testing.assert_array_equal(tw[:, 0], want.real.astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], want.imag.astype(np.float32))
+
+
+def test_tables_refuse_an_n_fft_the_fft_does_not_take():
+    for n_fft in (1000, 1536, 16384):
+        with pytest.raises(ValueError, match="power of two"):
+            LogmelKernel().tables(PortMelConfig(n_fft=n_fft, win_length=min(n_fft, 1024)),
+                                  torch.device("cpu"))
+
+
+def _kernel_pipeline_np(frames, cfg, eps, clip, out_scale):
+    """K1's arithmetic, in float64 numpy, from the wrapper's tables: window,
+    the radix-2 Stockham passes as csrc/logmel.cu indexes them, magnitude,
+    the banded mel sums, log."""
+    window, tw, first, count, offset, weights = (
+        t.numpy() for t in LogmelKernel().tables(cfg, torch.device("cpu")))
+    n, half = cfg.n_fft, cfg.n_fft // 2
+    x = frames * window.astype(np.float64)
+    y = np.empty_like(x, dtype=np.complex128)
+    x = x.astype(np.complex128)
+    w = tw[:, 0].astype(np.float64) + 1j * tw[:, 1]
+    t = np.arange(half)
+    m = 1
+    while m < n:
+        k = t & (m - 1)
+        c0, c1 = x[..., t], x[..., t + half]
+        y[..., 2 * t - k] = c0 + c1
+        y[..., 2 * t - k + m] = (c0 - c1) * w[t - k]
+        x, y = y, x
+        m <<= 1
+    mag = np.sqrt(x.real[..., :half + 1] ** 2 + x.imag[..., :half + 1] ** 2 + eps)
+    mel = np.stack([mag[..., f:f + c] @ weights[o:o + c].astype(np.float64)
+                    for f, c, o in zip(first, count, offset)], axis=-1)
+    return np.log(np.maximum(mel, clip)) * out_scale
+
+
+@pytest.mark.parametrize("n_fft", [512, 1024, 2048])
+def test_kernel_arithmetic_matches_plain_version(n_fft):
+    """The kernel's algorithm from its own tables, emulated on the CPU,
+    against both plain forms: serving (80 mels, log10) and GAN (320 mels,
+    ln); the bound the card holds the kernel to."""
+    wav = (np.random.default_rng(n_fft).standard_normal((2, 6400)) * 0.2).astype(np.float32)
+    serve = PortMelConfig(n_fft=n_fft, win_length=n_fft)
+    padded = np.pad(wav, ((0, 0), (n_fft // 2, n_fft // 2)))
+    frames = np.lib.stride_tricks.sliding_window_view(padded, n_fft, axis=-1)[:, ::HOP]
+    got = _kernel_pipeline_np(frames, serve, 0.0, 1e-6, 1 / np.log(10))
+    np.testing.assert_allclose(got, logmel_reference(torch.from_numpy(wav), serve).numpy(),
+                               atol=ATOL, rtol=RTOL)
+    gan = PortMelConfig(**GAN_CFGS[[512, 1024, 2048].index(n_fft)])
+    padded = gan_pad(torch.from_numpy(wav), gan).numpy()
+    frames = np.lib.stride_tricks.sliding_window_view(padded, n_fft, axis=-1)[:, ::gan.hop]
+    got = _kernel_pipeline_np(frames, gan, 1e-9, 1e-5, 1.0)
+    np.testing.assert_allclose(got, port_wav2mel_gan(torch.from_numpy(wav), gan).numpy(),
+                               atol=ATOL, rtol=RTOL)
