@@ -20,6 +20,21 @@ and the result line:
               every kernel of the path launched; per-chunk ms, RTF, memory
               then torch.profiler over 16 chunk steps: device busy share,
               kernels per chunk, host and device ms per stage
+  4b. scan    the same engine through stream_scan, the chunk step captured
+              once into a CUDA graph and replayed per chunk:
+              infer_once(use_scan=True, bucket_lengths=True) against the
+              eager loop (codes equal, 1e-5) and offline (1e-4); replay ms
+              per chunk, RTF, kernels per chunk and busy share, memory; then
+              the "high" and "fast" rungs captured against their eager loops
+  4c. flow    egs/conan_emformer_flow.yaml (the rectified-flow F0 head: a
+              10x192 DiffNet, K = 100 Euler steps a chunk) with the r5
+              Emformer and vocoder: eager loop, captured loop and offline
+              agree (codes equal, wav 1e-4, F0 1e-3); chunk ms eager and
+              captured, launches per chunk
+  4d. run_vc  the batch runner's main (the CLI's argv) on two synthesized
+              pairs with a denoise constant set: exit 0, each written wav
+              equals the engine's use_scan output after postprocess; one
+              denoise call on the card against the CPU's
   5. train    the vocoder GAN train step at production width
               (egs/soak_r5/vocoder.yaml with train_precision: highest set
               over it, i.e. fp32 "exact"): the training kernels (K2 on the
@@ -29,7 +44,7 @@ and the result line:
               skipped updates, ms per step, peak memory, kernel launches per
               step against the count the code predicts, and a profiled step;
               then one step at B = 2 on the card against the same step on
-              the CPU; then K2 on each grouped geometry beside cuDNN, its
+              the CPU in fp32 (losses) and float64 (gradients); then K2 on each grouped geometry beside cuDNN, its
               bound and cuDNN's backward there, and K1's GAN form's times
   6. {"kernels": [...]}
   7. {"ok": true, "device": {...}}
@@ -63,10 +78,13 @@ from torch.profiler import ProfilerActivity, profile
 from conan_tpu_torch.audio.mel import MelConfig
 from conan_tpu_torch.checkpoint import tree_leaves, tree_map
 from conan_tpu_torch.config import load_config
+from conan_tpu_torch.data.binarizer import load_wav
+from conan_tpu_torch.infer import run_vc
 from conan_tpu_torch.infer.build import build_engine, write_random_checkpoints
 from conan_tpu_torch.models.vocoder.discriminators import DiscriminatorS
 from conan_tpu_torch.ops import native
 from conan_tpu_torch.ops.groupconv import groupconv, grouped_conv1d_reference
+from conan_tpu_torch.ops.precision import precision_scope
 from conan_tpu_torch.ops.logmel import (GAN_CLIP, GAN_EPS, _gan_vjp, gan_pad, logmel,
                                         logmel_gan, logmel_gan_reference, logmel_reference)
 from conan_tpu_torch.train.losses import gan_mel_configs
@@ -99,6 +117,18 @@ PEAK_HBM_BYTES = 3.35e12
 LOGMEL_ATOL, LOGMEL_RTOL = 2e-4, 1e-4
 # streaming against offline waveforms (tests/test_streaming_engine.py)
 STREAM_ATOL = 1e-4
+# the captured loop against the eager loop in exact: the same kernels on the
+# same inputs
+CAPTURED_ATOL = 1e-5
+# F0 in Hz, streaming against offline (tests/test_streaming_engine.py:117)
+F0_ATOL, F0_RTOL = 1e-3, 1e-4
+# the denoise on the card against the CPU: fp32 framed DFT products in other
+# orders (tests/test_torch_run_vc.py holds the port to JAX's at 1e-5)
+DENOISE_ATOL = 1e-5
+DENOISE_C = 0.01
+# the flow phase times this many eager chunk steps one by one (after one warm
+# step); its whole eager call, all chunks, is timed as well
+FLOW_EAGER_CHUNKS = 6
 # The training kernels against their plain versions: values as K1 above (fp32
 # sums in another order); gradients (dx and dw of K2 through its autograd
 # Function, dwav of K1's analytic backward) a relative L2 error of 1e-4 per
@@ -107,15 +137,18 @@ STREAM_ATOL = 1e-4
 # differ in their fp32 rounding.
 GRAD_REL = 1e-4
 # The card's train step (kernels K1 and K2, cuDNN) against the CPU's (plain
-# versions) from the same state and batch: loss terms rtol 1e-4, gradient
-# leaves a relative L2 error of 1e-3 (fp32 sums in other orders through the
-# generator, the MPD and the MSD). The CPU step runs with oneDNN off: ATen's
-# oneDNN fp32 convolution backward moves the MSD's first-layer weight
-# gradients some 1e-3 from a float64 step where cuDNN stays within 1.2e-6
-# (tests/test_torch_vocoder_train.py runs its port side the same way). Even
-# so a D leaf came within 6% of 1e-3, so a leaf past 1e-3 from the CPU's fp32
-# is held instead to 1e-3 from the same step run in float64 on the CPU.
-STEP_RTOL, STEP_GRAD_REL = 1e-4, 1e-3
+# versions, oneDNN off) from the same state and batch: loss terms rtol 1e-4.
+# Gradient leaves are held to the same step run in float64 on the CPU: each
+# leaf's relative L2 error within 1e-3, or within 4x the CPU fp32 step's worst
+# leaf where that is larger. At random init the mel loss's gradient is
+# ill-conditioned enough that any fp32 step leaves some leaves past 1e-3 on
+# many batches: over seeds 0-5 and one more batch, the CPU's fp32 step went
+# past it on 3 of 7 (up to 2.05e-3), oneDNN's on 3, the card's on 4 (up to
+# 2.85e-3, and at most 2.01x the CPU's worst leaf on the same batch), and
+# rounding only the generator's output to fp32 in a float64 step moved a
+# leaf 1.38e-3 (tools/torch_kernel_lab.py step; the card's float64 step is
+# 1.4e-7 from the CPU's). A wrong gradient is off by far more.
+STEP_RTOL, STEP_GRAD_REL, STEP_FP32_FACTOR = 1e-4, 1e-3, 4
 TRAIN_B, TRAIN_STEPS, CHECK_B = 18, 5, 2
 
 
@@ -361,6 +394,17 @@ def compare_grad(name: str, got, want) -> float:
     return err
 
 
+def train_batch(hp, rng: np.random.Generator, dev: torch.device) -> dict:
+    """The train step's batch of TRAIN_B synthesized wavs, as
+    VocoderDataset.collate cuts it: max_samples // hop = 25 mel frames and
+    their 25 · 320 = 8000 samples, the mels from the serving K1."""
+    n_frames = hp["max_samples"] // hp["hop_size"]
+    wavs = torch.from_numpy(np.stack([synth_wav(rng, n_frames * hp["hop_size"] / SR)
+                                      for _ in range(TRAIN_B)])).to(dev)
+    mels = logmel(wavs, MelConfig.from_hparams(hp))[:, :n_frames].contiguous()
+    return {"mels": mels, "wavs": wavs}
+
+
 def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[dict]:
     """Phase 5: the vocoder GAN train step at production width. Returns the
     kernels line's entries of the training kernels."""
@@ -368,14 +412,9 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
     shipped = hp["train_precision"]
     hp.update(train_precision="highest", max_updates=TRAIN_STEPS, tb_log_interval=1, seed=seed)
     task = VocoderTask(hp)
-    # the batch, as VocoderDataset.collate cuts it: max_samples // hop = 25 mel
-    # frames and their 25 · 320 = 8000 samples, the mels from the serving K1
-    n_frames = hp["max_samples"] // hp["hop_size"]
-    wavs = torch.from_numpy(np.stack([synth_wav(rng, n_frames * hp["hop_size"] / SR)
-                                      for _ in range(TRAIN_B)])).to(dev)
-    mels = logmel(wavs, MelConfig.from_hparams(hp))[:, :n_frames].contiguous()
-    batch = {"mels": mels, "wavs": wavs}
-    T = wavs.shape[1]
+    batch = train_batch(hp, rng, dev)
+    wavs = batch["wavs"]
+    n_frames, T = batch["mels"].shape[1], wavs.shape[1]
     mlp = hp["mel_loss_param"]
     gan_cfgs = gan_mel_configs(hp["audio_sample_rate"], mlp["mel_bin"], mlp["fft_sizes"],
                                mlp["hop_sizes"], mlp["win_lengths"])
@@ -524,34 +563,36 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
     if loss_err > STEP_RTOL or float(m_gpu["skipped"]) or float(m_cpu["skipped"]):
         fail(f"card step losses {m_gpu} != CPU step losses {m_cpu} (rtol {STEP_RTOL})")
     # the optimizer's first moment after a first step is (1 - b1) · the clipped
-    # gradient, leaf by leaf
+    # gradient, leaf by leaf; both fp32 steps against the float64 one
+    with torch.backends.mkldnn.flags(enabled=False):
+        new_64, _ = task_cpu.train_step(
+            tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(),
+                     state0), {k: v.cpu().double() for k, v in small.items()})
     mu = {name: {opt: tree_leaves(st[opt]["mu"]) for opt in ("opt_g", "opt_d")}
-          for name, st in (("card", new_gpu), ("cpu", new_cpu))}
-    errs = {opt: [rel_l2(a.cpu(), b) for a, b in zip(mu["card"][opt], mu["cpu"][opt])]
-            for opt in ("opt_g", "opt_d")}
-    worst = {opt: max(range(len(e)), key=e.__getitem__) for opt, e in errs.items()}
-    past = [(opt, i) for opt in errs for i, e in enumerate(errs[opt]) if e > STEP_GRAD_REL]
-    f64_note = ""
+          for name, st in (("card", new_gpu), ("cpu", new_cpu), ("f64", new_64))}
+    errs = {name: {opt: [rel_l2(a.cpu(), b) for a, b in zip(mu[name][opt], mu["f64"][opt])]
+                   for opt in ("opt_g", "opt_d")} for name in ("card", "cpu")}
+    worst = {name: {opt: max(range(len(e)), key=e.__getitem__) for opt, e in errs[name].items()}
+             for name in errs}
+    cpu_worst = max(max(e) for e in errs["cpu"].values())
+    limit = max(STEP_GRAD_REL, STEP_FP32_FACTOR * cpu_worst)
+    past = [f"{opt} leaf {i} {tuple(mu['f64'][opt][i].shape)} {e:.3g}"
+            for opt, es in errs["card"].items() for i, e in enumerate(es) if e > limit]
     if past:
-        with torch.backends.mkldnn.flags(enabled=False):
-            new_64, _ = task_cpu.train_step(
-                tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(),
-                         state0), {k: v.cpu().double() for k, v in small.items()})
-        notes = []
-        for opt, i in past:
-            e_64 = rel_l2(mu["card"][opt][i].cpu(), tree_leaves(new_64[opt]["mu"])[i])
-            notes.append(f"{opt} leaf {i} {tuple(mu['cpu'][opt][i].shape)}: vs CPU fp32 "
-                         f"{errs[opt][i]:.3g}, vs CPU float64 {e_64:.3g}")
-            if e_64 > STEP_GRAD_REL:
-                fail(f"card gradient leaf off the CPU's float64 step: {notes[-1]} "
-                     f"(limit {STEP_GRAD_REL})")
-        f64_note = "; held to the float64 CPU step instead: " + "; ".join(notes)
+        fail(f"card gradient leaves off the CPU's float64 step past {limit:.3g} (the CPU's fp32 "
+             f"step's worst leaf {cpu_worst:.3g}): {'; '.join(past)}")
     print(f"train check: one step at B={CHECK_B} on the card ({t_gpu:.2f} s) against the same "
           f"step on the CPU with device='cpu' ({t_cpu:.2f} s, plain versions, oneDNN off): "
-          f"loss terms max rel diff {loss_err:.3g} (rtol {STEP_RTOL}); gradient leaves max "
-          f"rel L2 G {max(errs['opt_g']):.3g}, D {max(errs['opt_d']):.3g} over "
-          f"{len(errs['opt_g'])} + {len(errs['opt_d'])} leaves (limit {STEP_GRAD_REL}; "
-          f"worst G leaf {worst['opt_g']}, D leaf {worst['opt_d']}){f64_note}", flush=True)
+          f"loss terms max rel diff {loss_err:.3g} (rtol {STEP_RTOL}); gradient leaves from the "
+          f"CPU's float64 step, max rel L2 over {len(errs['card']['opt_g'])} G + "
+          f"{len(errs['card']['opt_d'])} D leaves: card G "
+          + ", D ".join(f"{errs['card'][o][worst['card'][o]]:.3g} (leaf {worst['card'][o]})"
+                        for o in ("opt_g", "opt_d"))
+          + ", CPU fp32 G "
+          + ", D ".join(f"{errs['cpu'][o][worst['cpu'][o]]:.3g} (leaf {worst['cpu'][o]})"
+                        for o in ("opt_g", "opt_d"))
+          + f"; limit max({STEP_GRAD_REL}, {STEP_FP32_FACTOR} x the CPU fp32 step's worst) "
+          f"{limit:.3g}", flush=True)
 
     # the kernels' times at the step's shapes
     k2_rows = groupconv_times(geoms, gen, dev)
@@ -603,6 +644,262 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
          "bound_route": k2_rows[0]["route"], "geometries": len(geoms),
          "scale1_layer": scale1},
     ]
+
+
+def scan_timings(eng, src: np.ndarray, ref: np.ndarray, bucket_lengths: bool) -> dict:
+    """The captured loop's numbers for one utterance (its graph captured
+    already): ms per replayed chunk by CUDA events (copy in, replay), and
+    under torch.profiler over one stream_scan call the kernels and device ms
+    per chunk and the busy share."""
+    with torch.inference_mode():
+        src_mel = eng.wav_to_mel(src)
+        style = eng._prepare(eng._ref_mel(ref, bucket_lengths))
+        mel_ext, _T, T_pad = eng._source_chunks(src_mel, bucket_lengths)
+        noise = eng._f0_noise(1, T_pad, None, None)
+        chunks, noise_chunks = eng.scan_inputs(mel_ext, noise)
+        state = eng.init_state(1)
+        cap = eng._captured_step(state, chunks[0], style, noise_chunks[0])
+        n = chunks.shape[0]
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(n)]
+        for (a, b), chunk, nc in zip(events, chunks, noise_chunks):
+            a.record()
+            cap.mel.copy_(chunk)
+            cap.noise.copy_(nc)
+            cap.graph.replay()
+            b.record()
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in events]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.stream_scan(state, chunks, style, noise_chunks)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset", "stage:"))]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"chunks": n, "median_ms": float(np.median(ms)),
+            "p90_ms": float(np.percentile(ms, 90)),
+            "kernels_per_chunk": sum(e.count for e in kernels) / n,
+            "device_ms_per_chunk": device_ms / n, "wall_ms_per_chunk": wall_ms / n,
+            "busy": device_ms / wall_ms}
+
+
+def eager_chunk_timings(eng, src: np.ndarray, ref: np.ndarray, n_chunks: int) -> dict:
+    """The eager loop's ms per chunk (CUDA events around each step, after one
+    warm step) and its kernels per chunk (torch.profiler over one step)."""
+    seg, rc = eng.cfg.seg, eng.cfg.rc
+    with torch.inference_mode():
+        src_mel = eng.wav_to_mel(src)
+        style = eng._prepare(eng.wav_to_mel(ref))
+        mel_ext, _T, T_pad = eng._source_chunks(src_mel)
+        noise = eng._f0_noise(1, T_pad, None, None)
+        state = eng.init_state(1)
+        ms = []
+        for i, s in enumerate(range(0, (n_chunks + 1) * seg, seg)):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            _w, _c, state = eng._chunk_step(state, mel_ext[:, s:s + seg + rc], style,
+                                            noise[:, s:s + seg])
+            b.record()
+            torch.cuda.synchronize()
+            if i:
+                ms.append(a.elapsed_time(b))
+        s = (n_chunks + 1) * seg
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng._chunk_step(state, mel_ext[:, s:s + seg + rc], style, noise[:, s:s + seg])
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset", "stage:"))]
+    return {"median_ms": float(np.median(ms)), "kernels_per_chunk": sum(e.count for e in kernels),
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3}
+
+
+def scan_phase(eng, dirs, src: np.ndarray, ref: np.ndarray) -> int:
+    """Phase 4b: the r5 engine through the captured loop. Returns K1's
+    launches on this path."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logmel.launches = 0
+    t0 = time.perf_counter()
+    wav_c, codes_c = eng.infer_once(src, ref, collect_codes=True, use_scan=True,
+                                    bucket_lengths=True)
+    first_s = time.perf_counter() - t0
+    launches = logmel.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    wav_e, codes_e = eng.infer_once(src, ref, collect_codes=True, bucket_lengths=True)
+    wav_o, codes_o = eng.infer_offline(src, ref, collect_codes=True, bucket_lengths=True)
+    if not np.isfinite(wav_c).all() or wav_c.shape != wav_e.shape:
+        fail(f"captured loop: shape {wav_c.shape} / {wav_e.shape} or non-finite waveform")
+    err_e, err_o = float(np.abs(wav_c - wav_e).max()), float(np.abs(wav_c - wav_o).max())
+    if not (np.array_equal(codes_c, codes_e) and np.array_equal(codes_c, codes_o)):
+        fail("captured loop: codes differ from the eager loop's or offline")
+    if err_e > CAPTURED_ATOL or err_o > STREAM_ATOL:
+        fail(f"captured loop: max abs {err_e:.3g} from eager (atol {CAPTURED_ATOL}), "
+             f"{err_o:.3g} from offline (atol {STREAM_ATOL})")
+    if launches != 2:
+        fail(f"infer_once(use_scan=True) launched the logmel kernel {launches} times, not 2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.infer_once(src, ref, use_scan=True, bucket_lengths=True)
+    torch.cuda.synchronize()
+    rtf = (time.perf_counter() - t0) / (len(src) / SR)
+    t = scan_timings(eng, src, ref, bucket_lengths=True)
+    print(f"scan: r5 geometry, exact, B=1, infer_once(use_scan=True, bucket_lengths=True): "
+          f"{t['chunks']} chunks (bucketed), {len(eng._captured)} capture(s), first call "
+          f"{first_s:.2f} s with the capture; vs eager loop max abs {err_e:.3g} (atol "
+          f"{CAPTURED_ATOL}), vs offline {err_o:.3g} (atol {STREAM_ATOL}), codes equal; "
+          f"logmel launches {launches}; replay ms per chunk (CUDA events, copy in + replay) "
+          f"median {t['median_ms']:.3f} p90 {t['p90_ms']:.3f}; RTF {rtf:.4f}; peak memory "
+          f"{peak_gb:.3f} GB; under torch.profiler over one stream_scan: "
+          f"{t['kernels_per_chunk']:.0f} kernels/chunk, device {t['device_ms_per_chunk']:.3f} "
+          f"ms/chunk, wall {t['wall_ms_per_chunk']:.3f} ms/chunk (busy "
+          f"{100 * t['busy']:.1f}%)", flush=True)
+    for rung in ("high", "fast"):
+        e = build_engine(*dirs, serving_precision=rung)
+        wav_e, codes_e = e.infer_once(src, ref, collect_codes=True, bucket_lengths=True)
+        wav_c, codes_c = e.infer_once(src, ref, collect_codes=True, use_scan=True,
+                                      bucket_lengths=True)
+        if not np.array_equal(codes_c, codes_e) or not np.isfinite(wav_c).all():
+            fail(f"captured loop, {rung}: codes differ from its eager loop or non-finite wav")
+        t = scan_timings(e, src, ref, bucket_lengths=True)
+        print(f"scan {rung}: captured vs its eager loop max abs "
+              f"{float(np.abs(wav_c - wav_e).max()):.3g}, codes equal; replay ms per chunk "
+              f"median {t['median_ms']:.3f} p90 {t['p90_ms']:.3f}; "
+              f"{t['kernels_per_chunk']:.0f} kernels/chunk, device "
+              f"{t['device_ms_per_chunk']:.3f} ms/chunk (busy {100 * t['busy']:.1f}%)",
+              flush=True)
+    return launches
+
+
+def flow_phase(seed: int, src: np.ndarray, ref: np.ndarray) -> int:
+    """Phase 4c: the rectified-flow F0 configuration at full width with the
+    r5 Emformer and vocoder, random weights from the seed. The DiffNet's
+    output head is zero at init (as in the reference), which would leave the
+    flow's velocity 0; it gets seeded random weights so that the F0 moves.
+    Returns K1's launches on this path."""
+    hparams = {"conan": load_config(os.path.join(ROOT, "egs", "conan_emformer_flow.yaml")),
+               **{name: load_config(os.path.join(ROOT, "egs", "soak_r5", f"{name}.yaml"))
+                  for name in ("emformer", "vocoder")}}
+    dirs = write_random_checkpoints(os.path.join(ROOT, "build", "chip_smoke_flow_ckpt"),
+                                    hparams, seed=seed)
+    eng = build_engine(*dirs, serving_precision="exact")
+    c = eng.cfg.conan
+    head = eng.p_conan["f0_net"]["out_proj"]
+    head["w"] = 0.3 * torch.randn(head["w"].shape,
+                                  generator=torch.Generator().manual_seed(seed)).to(head["w"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logmel.launches = 0
+    t0 = time.perf_counter()
+    wav_e, codes_e = eng.infer_once(src, ref, collect_codes=True)
+    eager_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wav_c, codes_c = eng.infer_once(src, ref, collect_codes=True, use_scan=True)
+    first_s = time.perf_counter() - t0
+    wav_o, codes_o = eng.infer_offline(src, ref, collect_codes=True)
+    launches = logmel.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (np.array_equal(codes_e, codes_c) and np.array_equal(codes_e, codes_o)):
+        fail("flow: codes of the eager loop, the captured loop and offline differ")
+    err_c, err_o = float(np.abs(wav_c - wav_e).max()), float(np.abs(wav_o - wav_e).max())
+    if not np.isfinite(wav_e).all() or max(err_c, err_o) > STREAM_ATOL:
+        fail(f"flow: captured {err_c:.3g}, offline {err_o:.3g} from the eager loop "
+             f"(atol {STREAM_ATOL})")
+    if launches != 6:
+        fail(f"flow: the logmel kernel launched {launches} times in 3 conversions, not 6")
+    # F0: the chunk loop's against offline, from the same codes and noise
+    seg = eng.cfg.seg
+    with torch.inference_mode():
+        mel_ext, _T, T_pad = eng._source_chunks(eng.wav_to_mel(src))
+        with precision_scope("exact", eng.device):
+            codes = torch.argmax(eng.emformer.apply(eng.p_emformer, mel_ext), dim=-1)
+            style = eng._prepare(eng.wav_to_mel(ref))
+            noise = eng._f0_noise(1, T_pad, None, None)
+            f0_off = eng.conan.decode(eng.p_conan, codes, style, noise)["f0_denorm_pred"]
+            state = eng.conan.init_stream_state(1, eng.device)
+            f0s = []
+            for s in range(0, T_pad, seg):
+                r, state = eng.conan.stream_step(eng.p_conan, state, codes[:, s:s + seg], style,
+                                                 noise[:, s:s + seg])
+                f0s.append(r["f0_denorm_pred"])
+    f0_stream = torch.cat(f0s, 1)
+    voiced = float((f0_off > 0).float().mean())
+    f0_err = float((f0_stream - f0_off).abs().max())
+    if not torch.allclose(f0_stream, f0_off, atol=F0_ATOL, rtol=F0_RTOL):
+        fail(f"flow: streaming F0 {f0_err:.3g} from offline (atol {F0_ATOL}, rtol {F0_RTOL})")
+    eager = eager_chunk_timings(eng, src, ref, n_chunks=FLOW_EAGER_CHUNKS)
+    cap = scan_timings(eng, src, ref, bucket_lengths=False)
+    print(f"flow: egs/conan_emformer_flow.yaml (hidden {c.hidden_size}, DiffNet "
+          f"{c.f0_residual_layers}x{c.f0_residual_channels}, K = {c.f0_k_step} of "
+          f"{c.f0_timesteps}) with the r5 Emformer and vocoder, random weights seed {seed}, "
+          f"exact, B=1: eager loop {eager_s:.2f} s, captured loop first call {first_s:.2f} s "
+          f"with the capture; captured vs eager max abs {err_c:.3g}, offline vs eager "
+          f"{err_o:.3g} (atol {STREAM_ATOL}), codes equal; F0 streaming vs offline max abs "
+          f"{f0_err:.3g} (atol {F0_ATOL}, rtol {F0_RTOL}), voiced {100 * voiced:.1f}% of "
+          f"frames; logmel launches {launches}; eager call {1e3 * eager_s / cap['chunks']:.3f} "
+          f"ms/chunk over its {cap['chunks']} chunks (wall, frontend and style included); "
+          f"eager chunk median over {FLOW_EAGER_CHUNKS} chunks {eager['median_ms']:.3f} ms "
+          f"(CUDA events), {eager['kernels_per_chunk']} kernels/chunk, {eager['device_ms']:.3f} "
+          f"device ms/chunk ({100 * eager['device_ms'] / eager['median_ms']:.1f}% of the "
+          f"median); captured replay median {cap['median_ms']:.3f} ms p90 "
+          f"{cap['p90_ms']:.3f} ms, {cap['kernels_per_chunk']:.0f} kernels/chunk, device "
+          f"{cap['device_ms_per_chunk']:.3f} ms/chunk (busy {100 * cap['busy']:.1f}%); peak "
+          f"memory {peak_gb:.3f} GB", flush=True)
+    return launches
+
+
+def run_vc_phase(eng, dirs, rng: np.random.Generator) -> int:
+    """Phase 4d: run_vc's main with the CLI's argv on two synthesized pairs,
+    the r5 random checkpoints with vocoder_denoise_c set by --hparams.
+    Returns K1's launches on this path."""
+    work = os.path.join(ROOT, "build", "chip_smoke_run_vc")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    pairs = []
+    for i, (s_sec, r_sec) in enumerate(((3.3, 2.0), (1.7, 2.9))):
+        paths = [os.path.join(work, f"{kind}{i}.wav") for kind in ("src", "ref")]
+        for path, sec in zip(paths, (s_sec, r_sec)):
+            run_vc.save_wav(path, synth_wav(rng, sec), SR)
+        pairs.append({"source": paths[0], "reference": paths[1],
+                      "output": os.path.join(work, "out", f"vc{i}.wav")})
+    with open(os.path.join(work, "pairs.json"), "w") as f:
+        json.dump(pairs, f)
+    argv = ["--pairs", os.path.join(work, "pairs.json"), "--conan_dir", dirs[0],
+            "--emformer_dir", dirs[1], "--vocoder_dir", dirs[2],
+            "--hparams", f"vocoder_denoise_c={DENOISE_C}"]
+    logmel.launches = 0
+    t0 = time.perf_counter()
+    try:
+        run_vc.main(argv)
+    except SystemExit as e:
+        fail(f"run_vc exited {e.code}")
+    wall = time.perf_counter() - t0
+    launches = logmel.launches
+    errs = []
+    for pair in pairs:
+        want = eng.infer_once(load_wav(pair["source"], SR), load_wav(pair["reference"], SR),
+                              use_scan=True, bucket_lengths=True)[0]
+        want = np.clip(run_vc.postprocess(want, eng.cfg.mel, DENOISE_C, eng.device), -1, 1)
+        got = load_wav(pair["output"], SR) * (32768 / 32767)
+        if got.shape != want.shape:
+            fail(f"run_vc wrote {got.shape} samples, the engine gives {want.shape}")
+        errs.append(float(np.abs(got - want).max()))
+    if max(errs) > 1.01 / 32767:
+        fail(f"run_vc's wavs differ from the engine's output by {errs} (int16 step "
+             f"{1 / 32767:.3g})")
+    wav = synth_wav(rng, 4.0)
+    card = run_vc.postprocess(wav, eng.cfg.mel, DENOISE_C, eng.device)
+    cpu = run_vc.postprocess(wav, eng.cfg.mel, DENOISE_C, "cpu")
+    den_err = float(np.abs(card - cpu).max())
+    if den_err > DENOISE_ATOL:
+        fail(f"denoise on the card {den_err:.3g} from the CPU's (atol {DENOISE_ATOL})")
+    print(f"run_vc: main on {len(pairs)} pairs (r5 random checkpoints, vocoder_denoise_c "
+          f"{DENOISE_C}): exit 0 in {wall:.2f} s; written wavs vs the engine's use_scan output "
+          f"after postprocess max abs {max(errs):.3g} (int16 step {1 / 32767:.3g}); logmel "
+          f"launches {launches}; denoise (c {DENOISE_C}) of 4 s on the card vs the CPU max abs "
+          f"{den_err:.3g} (atol {DENOISE_ATOL})", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -775,8 +1072,14 @@ def main() -> None:
           f"{sum(e.count for e in kernels) / n_prof:.0f} kernels/chunk; ms/chunk by stage: "
           f"{stages}", flush=True)
 
+    # 4b-4d. the captured loop, the flow configuration, run_vc
+    by_path = {"main": launches, "scan": scan_phase(eng, dirs, src, ref),
+               "flow": flow_phase(args.seed, src, ref),
+               "run_vc": run_vc_phase(eng, dirs, rng)}
+
     kernel = {"name": "logmel", "route": "cuda", "source": "conan_tpu_torch/csrc/logmel.cu",
               "replaces": "conan_tpu/ops/pallas_stft.py:52", "launches": launches,
+              "launches_by_path": by_path,
               "max_abs_err": err, "max_abs_diff": err, "ms": ms,
               "kernel_device_ms": serve_device_ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}

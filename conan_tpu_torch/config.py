@@ -1,12 +1,13 @@
-"""Configuration: the port's own copy of the read side of
-``conan_tpu/config.py`` (``HParams``, ``load_config`` with recursive
-``base_config`` inheritance). The CLI overrides and per-experiment config
-persistence wait for the training slices.
+"""Configuration: the port's own copy of ``conan_tpu/config.py``:
+``HParams``, ``load_config`` with recursive ``base_config`` inheritance, and
+a config with dotted overrides on top (``parse_hparams_overrides``,
+``set_hparams``).
 """
 
 from __future__ import annotations
 
 import os
+import re
 from types import MappingProxyType
 from typing import Any, Iterator, Mapping
 
@@ -79,3 +80,56 @@ def load_config(config_path: str, *, _seen: set[str] | None = None) -> dict:
 
 def _repo_root() -> str:
     return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _set_dotted(d: dict, key: str, value: Any) -> None:
+    parts = key.split(".")
+    for p in parts[:-1]:
+        nxt = d.get(p)
+        if not isinstance(nxt, dict):
+            nxt = {}
+            d[p] = nxt
+        d = nxt
+    d[parts[-1]] = value
+
+
+def _parse_value(v: str) -> Any:
+    """An override's value string → a Python value, by YAML (the reference
+    used ``eval``); scientific notation such as "1e-4", which YAML 1.1 leaves
+    a string, is a float."""
+    v = v.strip()
+    if v == "":
+        return ""
+    if re.fullmatch(r"[-+]?(\d+\.?\d*|\.\d+)[eE][-+]?\d+", v):
+        return float(v)
+    try:
+        return yaml.safe_load(v)
+    except yaml.YAMLError:
+        return v
+
+
+def parse_hparams_overrides(s: str) -> dict:
+    """``"a=1,b.c=[2,3],d=x"`` → a nested dict of overrides; commas inside
+    brackets and braces do not split."""
+    out: dict = {}
+    if not s:
+        return out
+    for part in re.split(r",(?![^\[\]{}()]*[\]}\)])", s):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(f"bad hparams override (need k=v): {part!r}")
+        k, v = part.split("=", 1)
+        _set_dotted(out, k.strip(), _parse_value(v))
+    return out
+
+
+def set_hparams(config: str = "", hparams_str: str = "") -> HParams:
+    """``config`` with its bases (none when empty), then the dotted overrides
+    of ``hparams_str`` on top. The JAX package's experiment half of
+    ``set_hparams`` (``exp_name``, the work dir's saved ``config.yaml``,
+    ``--reset``/``--infer``/``--validate``) and ``hparams_to_json`` wait for
+    the training entry point that will call them (ROADMAP.md)."""
+    cfg = load_config(config) if config else {}
+    return HParams(_deep_update(cfg, parse_hparams_overrides(hparams_str)))

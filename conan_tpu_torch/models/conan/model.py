@@ -3,14 +3,15 @@ content codes + reference style → mel.
 
   content embedding → causal conv proj → + global style vector of the
   reference mel → + VQ prosody aligned onto the content by cross-attention →
-  F0/UV head ("orig": direct regression) → pitch embedding → causal conv
-  decoder → linear mel head.
+  F0/UV head → pitch embedding → causal conv decoder → linear mel head. The
+  F0 head is "orig" (direct regression) or "flow" (rectified flow from an
+  initial noise, ``models/conan/flow.py``).
 
 The reference utterance is whole before streaming starts, so its encoders run
 once (``prepare_style``); the content → mel path is causal and streams chunk
 by chunk with carried conv state (``stream_step``), equal to the matching
-slice of ``apply``. The rectified-flow F0 head (``f0_gen="flow"``) and the
-training losses wait.
+slice of ``apply``; with ``f0_gen="flow"`` the chunk's slice of the
+utterance's initial noise goes in beside its codes. The training losses wait.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from conan_tpu_torch.audio.pitch import denorm_f0, f0_to_coarse
+from conan_tpu_torch.models.conan.flow import (DiffNet, DiffNetConfig, RectifiedFlow,
+                                               ReflowConfig, StreamingRectifiedFlow,
+                                               minmax_denorm_f0)
 from conan_tpu_torch.models.conan.prosody import LocalStyleAdaptor, ProsodyAligner
 from conan_tpu_torch.nn.blocks import (ConvBlocks, PitchPredictor, embedding, init_conv,
                                        init_embedding, init_linear, linear,
@@ -87,10 +91,8 @@ class ConanConfig:
 
 class Conan:
     def __init__(self, cfg: ConanConfig):
-        if cfg.f0_gen != "orig":
-            raise NotImplementedError(
-                f"f0_gen={cfg.f0_gen!r} is not ported yet (ROADMAP.md, modules still "
-                "to port: the flow F0 path); only 'orig' runs in conan_tpu_torch")
+        if cfg.f0_gen not in ("orig", "flow"):
+            raise ValueError(f"f0_gen {cfg.f0_gen!r} is neither 'orig' nor 'flow'")
         self.cfg = cfg
         H = cfg.hidden_size
         self.global_encoder = ConvBlocks(H, H, None, 31, layers_in_block=2, num_layers=5)
@@ -102,6 +104,15 @@ class Conan:
         if cfg.style:
             self.prosody = LocalStyleAdaptor(H, cfg.n_vq)
             self.aligner = ProsodyAligner(num_layers=2, hidden=H, nhead=2)
+        if cfg.f0_gen == "flow":
+            self.f0_net = DiffNet(DiffNetConfig(
+                in_dims=1, encoder_hidden=H, residual_layers=cfg.f0_residual_layers,
+                residual_channels=cfg.f0_residual_channels,
+                dilation_cycle_length=cfg.f0_dilation_cycle_length))
+            self.f0_flow = RectifiedFlow(self.f0_net, ReflowConfig(
+                timesteps=cfg.f0_timesteps, k_step=cfg.f0_k_step,
+                sample_clip=cfg.f0_sample_clip))
+            self.f0_stream = StreamingRectifiedFlow(self.f0_flow)
 
     # ----------------------------------------------------------- params
     def init(self, gen: torch.Generator) -> Params:
@@ -124,6 +135,8 @@ class Conan:
             p["aligner"] = self.aligner.init(gen)
         if cfg.use_spk_id:
             p["spk_id_proj"] = init_embedding(gen, cfg.num_spk, H)
+        if cfg.f0_gen == "flow":
+            p["f0_net"] = self.f0_net.init(gen)
         return p
 
     def init_vq_state(self, gen: torch.Generator) -> Params:
@@ -149,46 +162,71 @@ class Conan:
         return linear(torch.cat([pros, positions.to(pros.dtype)], dim=-1), params["l1"])
 
     # ----------------------------------------------------------- pitch head
-    def _pitch_orig(self, params: Params, pitch_inp: torch.Tensor, content: torch.Tensor,
-                    stream: Stream | None):
-        uv_pred = self.uv_predictor.apply(params["uv_predictor"], pitch_inp, stream=stream)
+    def _pitch(self, params: Params, pitch_inp: torch.Tensor, content: torch.Tensor,
+               s: Stream, noise: torch.Tensor | None):
+        """(f0, uv): "orig" regresses log2-F0; "flow" integrates the rectified
+        flow from ``noise`` [B, T, 1], offline over the whole utterance or,
+        streaming, over the chunk with its K-stacked carries."""
+        uv_pred = self.uv_predictor.apply(params["uv_predictor"], pitch_inp, stream=s)
         uv_b = (uv_pred[:, :, 0] > 0) | (content == self.cfg.silent_token)
-        return uv_pred[:, :, 1], uv_b.float()
+        if self.cfg.f0_gen == "orig":
+            return uv_pred[:, :, 1], uv_b.float()
+        if s.streaming:
+            f0_norm, s.new_state["f0_flow"] = self.f0_stream.step(
+                params["f0_net"], s.state["f0_flow"], pitch_inp, noise)
+        else:
+            f0_norm = self.f0_flow.sample(params["f0_net"], pitch_inp, noise)
+        return minmax_denorm_f0(f0_norm[..., 0], uv_b), uv_b.float()
 
     def _content_embed(self, params: Params, content: torch.Tensor, s: Stream) -> torch.Tensor:
         ce = embedding(torch.clamp(content, min=0), params["content_embedding"])
         ce = s.causal_conv("content_proj", ce, params["content_proj"], weight_norm=False)
         return F.leaky_relu(ce, 0.01)
 
-    def _decode(self, params: Params, pitch_inp: torch.Tensor, content: torch.Tensor,
-                s: Stream) -> torch.Tensor:
-        f0_out, uv_out = self._pitch_orig(params, pitch_inp, content, s)
-        pe = embedding(f0_to_coarse(denorm_f0(f0_out, uv_out)), params["pitch_embed"])
-        dec_inp = pitch_inp + pe
-        x = self.decoder.apply(params["decoder"], dec_inp, torch.ones_like(dec_inp[..., :1]),
-                               stream=s)
-        return linear(x, params["mel_out"])
+    def sample_f0_noise(self, generator: torch.Generator, batch: int, length: int,
+                        device: torch.device | str = "cpu") -> torch.Tensor:
+        """The rectified flow's initial noise for one utterance, [B, length, 1]
+        standard normal, drawn from ``generator`` on the CPU and then moved to
+        ``device``: one seed gives the same noise on every device. (The JAX
+        package draws it from its own key; the port does not reproduce that
+        stream.) A stream slices it chunk by chunk, so streaming and offline
+        integrate from the same x0."""
+        return torch.randn(batch, length, 1, generator=generator).to(device)
 
     # ----------------------------------------------------------- forward
     def apply(self, params: Params, content: torch.Tensor, *, ref: torch.Tensor,
-              vq_state: Params | None = None) -> dict:
+              vq_state: Params | None = None,
+              initial_noise: torch.Tensor | None = None) -> dict:
         """Offline inference over a whole utterance: content [B, T] int codes,
-        ref [B, Tr, 80] reference mel → {"mel_out": [B, T, 80]}."""
-        return self.decode(params, content, self.prepare_style(params, vq_state, ref))
+        ref [B, Tr, 80] reference mel → {"mel_out": [B, T, 80],
+        "f0_denorm_pred": [B, T]}. ``f0_gen="flow"`` needs ``initial_noise``
+        [B, T, 1] (``sample_f0_noise``)."""
+        return self.decode(params, content, self.prepare_style(params, vq_state, ref),
+                           initial_noise=initial_noise)
 
-    def decode(self, params: Params, content: torch.Tensor, style_ctx: dict) -> dict:
+    def decode(self, params: Params, content: torch.Tensor, style_ctx: dict,
+               initial_noise: torch.Tensor | None = None) -> dict:
         """Offline inference against a style context from ``prepare_style``,
         so a caller can prepare the style under another precision than the
         decoding."""
-        return self._forward(params, content, style_ctx, Stream(None))
+        if self.cfg.f0_gen == "flow" and initial_noise is None:
+            raise ValueError("f0_gen='flow' decodes from an initial noise: pass "
+                             "initial_noise (sample_f0_noise)")
+        return self._forward(params, content, style_ctx, Stream(None), initial_noise)
 
     def _forward(self, params: Params, content: torch.Tensor, style_ctx: dict,
-                 s: Stream) -> dict:
+                 s: Stream, noise: torch.Tensor | None) -> dict:
         pitch_inp = self._content_embed(params, content, s) + style_ctx["style"]
         if self.cfg.style:
             pitch_inp = pitch_inp + self.aligner.apply(
                 params["aligner"], pitch_inp, style_ctx["prosody"], style_ctx["prosody_pad"])
-        return {"mel_out": self._decode(params, pitch_inp, content, s)}
+        f0_out, uv_out = self._pitch(params, pitch_inp, content, s, noise)
+        f0_denorm = denorm_f0(f0_out, uv_out)
+        pe = embedding(f0_to_coarse(f0_denorm), params["pitch_embed"])
+        dec_inp = pitch_inp + pe
+        x = self.decoder.apply(params["decoder"], dec_inp, torch.ones_like(dec_inp[..., :1]),
+                               stream=s)
+        return {"mel_out": linear(x, params["mel_out"]), "f0_denorm_pred": f0_denorm}
 
     # ----------------------------------------------------------- streaming
     def prepare_style(self, params: Params, vq_state: Params | None,
@@ -207,12 +245,20 @@ class Conan:
             batch, self.cfg.hidden_size, self.cfg.kernel_size, 1, device=device)}
         st.update(self.uv_predictor.init_state(batch, "pp", device=device))
         st.update(self.decoder.init_state(batch, device=device))
+        if self.cfg.f0_gen == "flow":
+            st["f0_flow"] = self.f0_stream.init_state(batch, device=device)
         return st
 
     def stream_step(self, params: Params, state: State, content_chunk: torch.Tensor,
-                    style_ctx: dict) -> tuple[dict, State]:
-        """One causal chunk step: [B, Tc] codes → ({"mel_out": [B, Tc, 80]},
-        state'). Equals the matching slice of ``apply``: the aligner works per
-        query row and every other op is causal."""
+                    style_ctx: dict, f0_noise: torch.Tensor | None = None
+                    ) -> tuple[dict, State]:
+        """One causal chunk step: [B, Tc] codes → ({"mel_out": [B, Tc, 80],
+        "f0_denorm_pred": [B, Tc]}, state'). Equals the matching slice of
+        ``apply``: the aligner works per query row and every other op is
+        causal. ``f0_noise`` [B, Tc, 1] is this chunk's slice of the
+        utterance's initial noise (``f0_gen="flow"`` only; zeros if None,
+        deterministic but not the distribution the flow was trained from)."""
+        if self.cfg.f0_gen == "flow" and f0_noise is None:
+            f0_noise = torch.zeros(*content_chunk.shape, 1, device=content_chunk.device)
         s = Stream(state)
-        return self._forward(params, content_chunk, style_ctx, s), s.new_state
+        return self._forward(params, content_chunk, style_ctx, s, f0_noise), s.new_state

@@ -6,6 +6,7 @@ inference side: channels-last ``[B, T, C]``, parameters as trees of tensors.
   PitchPredictor                  causal conv F0/UV head
   MultiheadAttention              nn.MultiheadAttention semantics
   positional_embedding            fairseq sinusoidal positions
+  timestep_embedding              the flow denoiser's sinusoidal step embedding
 
 Dropout and the other training-only pieces wait for the training slices.
 """
@@ -262,6 +263,17 @@ def positional_embedding(first_channel: torch.Tensor, dim: int, padding_idx: int
                             max=max_positions - 1)
     table = torch.from_numpy(sinusoidal_positions_table(max_positions, dim, padding_idx))
     return F.embedding(positions, table.to(first_channel.device))
+
+
+def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Diffusion SinusoidalPosEmb: t [N] steps → [N, dim] (sin ∥ cos). Built
+    on ``t``'s device, so it runs inside a captured CUDA graph, where a copy
+    from the host would fail the capture."""
+    half = dim // 2
+    emb = math.log(10000) / (half - 1)
+    emb = torch.exp(torch.arange(half, device=t.device) * -emb)
+    emb = t[:, None].float() * emb[None, :]
+    return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -217,3 +217,82 @@ def test_small_engine_rungs_on_card(tmp_path, rung):
     wav, codes = _small_engine(tmp_path, rung).infer_once(src, ref, collect_codes=True)
     np.testing.assert_array_equal(codes, codes_exact)
     assert wav.dtype == np.float32 and np.isfinite(wav).all()
+
+
+# the captured chunk loop (stream_scan on the card) against the eager loop
+SMALL_FLOW = dict(SMALL, conan=dict(SMALL["conan"], f0_gen="flow", f0_K_step=6,
+                                    f0_residual_layers=2, f0_residual_channels=16))
+
+
+def _engine(tmp_path, f0_gen="orig", serving_precision="exact"):
+    """The small engine; for f0_gen="flow" the denoiser's zero-init output
+    head gets seeded random weights, so that the flow moves the F0."""
+    hp = SMALL_FLOW if f0_gen == "flow" else SMALL
+    dirs = write_random_checkpoints(str(tmp_path / f"ckpt_{f0_gen}"), hp, seed=0)
+    eng = build_engine(*dirs, serving_precision=serving_precision)
+    if f0_gen == "flow":
+        head = eng.p_conan["f0_net"]["out_proj"]
+        head["w"] = 0.3 * torch.randn(head["w"].shape, generator=torch.Generator().manual_seed(1)
+                                      ).to(head["w"].device)
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rung", ["exact", "high", "fast"])
+@pytest.mark.parametrize("f0_gen", ["orig", "flow"])
+def test_captured_loop_equals_eager_on_card(tmp_path, f0_gen, rung):
+    """One capture per shape; the replayed chunks give the eager loop's
+    codes, and in exact its waveform to 1e-5 (the same kernels on the same
+    inputs). In high and fast the codes only: the captured cuBLAS calls may
+    take other algorithms than the eager ones."""
+    _card()
+    eng = _engine(tmp_path, f0_gen, rung)
+    src, ref = _audio()
+    wav, codes = eng.infer_once(src, ref, collect_codes=True)
+    got, got_codes = eng.infer_once(src, ref, collect_codes=True, use_scan=True)
+    assert len(eng._captured) == 1
+    np.testing.assert_array_equal(got_codes, codes)
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    if rung == "exact":
+        np.testing.assert_allclose(got, wav, atol=1e-5)
+        np.testing.assert_allclose(got, eng.infer_offline(src, ref), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f0_gen", ["orig", "flow"])
+def test_captured_loop_resets_state_between_utterances(tmp_path, f0_gen):
+    """A second utterance of the same shape replays the same graph from
+    init_state: it equals a fresh engine's output, not a continuation."""
+    _card()
+    eng = _engine(tmp_path, f0_gen)
+    src, ref = _audio()
+    other = src[::-1].copy()
+    first = eng.infer_once(src, ref, use_scan=True)
+    second = eng.infer_once(other, ref, use_scan=True)
+    assert len(eng._captured) == 1
+    fresh = _engine(tmp_path, f0_gen)
+    np.testing.assert_array_equal(second, fresh.infer_once(other, ref, use_scan=True))
+    np.testing.assert_array_equal(first, eng.infer_once(src, ref, use_scan=True))
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_without_eager_fallback(tmp_path, monkeypatch):
+    """A step that copies from the host fails the capture: stream_scan
+    raises, caches nothing and returns no eager result; the engine then
+    captures the real step as before."""
+    _card()
+    eng = _engine(tmp_path)
+    src, ref = _audio()
+    step = eng._chunk_step
+
+    def step_with_host_copy(*args):
+        wav, codes, state = step(*args)
+        return wav + torch.tensor([0.0], device=wav.device), codes, state
+
+    monkeypatch.setattr(eng, "_chunk_step", step_with_host_copy)
+    with pytest.raises(RuntimeError):
+        eng.infer_once(src, ref, use_scan=True)
+    assert not eng._captured
+    monkeypatch.setattr(eng, "_chunk_step", step)
+    wav = eng.infer_once(src, ref)
+    np.testing.assert_allclose(eng.infer_once(src, ref, use_scan=True), wav, atol=1e-5)

@@ -24,6 +24,9 @@ from conan_tpu.models.vocoder.hifigan import HifiGanGenerator as JHifiGan
 from conan_tpu_torch.checkpoint import load_ckpt_state, params_from_jax
 from conan_tpu_torch.infer.build import build_engine, write_random_checkpoints
 from conan_tpu_torch.infer.streaming import StreamingVoiceConversion
+from conan_tpu_torch.models.conan.model import Conan
+from conan_tpu_torch.models.emformer import EmformerDistillModel
+from conan_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from conan_tpu_torch.ops.precision import precision_scope
 
 from tests.torch_port_util import SMALL, leaf_paths, numpy_params, port_config
@@ -57,6 +60,89 @@ def test_small_engine_matches_jax_and_streams_as_offline(rng):
     # a batch of two streams: each equals its own run
     both = eng.infer_once(np.stack([src, src[::-1].copy()]), np.stack([ref, ref]))
     np.testing.assert_allclose(both[:1], wav, atol=1e-4)
+
+
+def _small_engines(**kw):
+    trees = _small_params()
+    return (JEngine(SMALL, *trees),
+            StreamingVoiceConversion(port_config(SMALL), *[params_from_jax(t, "cpu")
+                                                           for t in trees], device="cpu", **kw))
+
+
+def test_scan_bucketed_matches_jax(rng):
+    """infer_once(use_scan=True, bucket_lengths=True), the batch-conversion
+    call of run_vc, against JAX's same call (its lax.scan over the bucketed
+    source): codes equal, waveform within 1e-4."""
+    jeng, eng = _small_engines()
+    src = (rng.standard_normal(HOP * 13) * 0.1).astype(np.float32)
+    ref = (rng.standard_normal(HOP * 11) * 0.1).astype(np.float32)
+    want, want_codes = jeng.infer_once(src, ref, collect_codes=True, use_scan=True,
+                                       bucket_lengths=True)
+    wav, codes = eng.infer_once(src, ref, collect_codes=True, use_scan=True,
+                                bucket_lengths=True)
+    assert wav.shape == want.shape == (1, 14 * HOP)
+    np.testing.assert_array_equal(codes, want_codes)
+    np.testing.assert_allclose(wav, want, atol=1e-4)
+
+
+def _port_init_engine(seed: int = 1) -> StreamingVoiceConversion:
+    """The SMALL engine with the port's own seeded init (the JAX package's
+    distributions: LayerNorm scales 1 and biases 0)."""
+    gen = torch.Generator().manual_seed(seed)
+    cfg = port_config(SMALL)
+    conan = Conan(cfg.conan)
+    return StreamingVoiceConversion(
+        cfg, EmformerDistillModel(cfg.emformer).init(gen), conan.init(gen),
+        conan.init_vq_state(gen), HifiGanGenerator(cfg.vocoder).init(gen), device="cpu")
+
+
+def test_bucketed_lengths_identical_output(rng):
+    """bucket_lengths pads the reference with zero frames and the scan
+    path's and offline source with edge frames (every source-side op is
+    causal); on the package's own init the output does not change, streaming
+    and offline, as tests/test_streaming_engine.py holds JAX's (1e-6, same
+    init). The zero reference frames are invisible only while the reference
+    encoders' LayerNorm biases are zero: LN of a zero frame is its bias, which
+    the k=31 and k=5 convs of the real frames near the end then read. With
+    other weights both packages' bucketed output moves alike
+    (test_scan_bucketed_matches_jax)."""
+    eng = _port_init_engine()
+    src = (rng.standard_normal(HOP * 13) * 0.1).astype(np.float32)
+    ref = (rng.standard_normal(HOP * 11) * 0.1).astype(np.float32)
+    wav_a, codes_a = eng.infer_once(src, ref, collect_codes=True, use_scan=True)
+    wav_b, codes_b = eng.infer_once(src, ref, collect_codes=True, use_scan=True,
+                                    bucket_lengths=True)
+    np.testing.assert_array_equal(codes_a, codes_b)
+    np.testing.assert_allclose(wav_b, wav_a, atol=1e-6)
+    wav_e = eng.infer_once(src, ref, bucket_lengths=True)       # eager: the ref alone
+    np.testing.assert_allclose(wav_e, wav_a, atol=1e-6)
+    off_a, off_codes_a = eng.infer_offline(src, ref, collect_codes=True)
+    off_b, off_codes_b = eng.infer_offline(src, ref, collect_codes=True, bucket_lengths=True)
+    np.testing.assert_array_equal(off_codes_a, off_codes_b)
+    np.testing.assert_allclose(off_b, off_a, atol=1e-6)
+    assert eng._p2bucket(1) == 64 and eng._p2bucket(64) == 64 and eng._p2bucket(65) == 128
+
+
+def test_two_utterances_in_a_row_equal_fresh_engines(rng):
+    """Each call starts from init_state: a second utterance through the same
+    engine (scan and eager) equals a fresh engine's, and does not continue
+    the first one's state."""
+    srcs = [(rng.standard_normal(HOP * n) * 0.1).astype(np.float32) for n in (13, 9)]
+    ref = (rng.standard_normal(HOP * 11) * 0.1).astype(np.float32)
+    _, eng = _small_engines()
+    for use_scan in (True, False):
+        got = [eng.infer_once(s, ref, use_scan=use_scan, bucket_lengths=True) for s in srcs]
+        for src, wav in zip(srcs, got):
+            _, fresh = _small_engines()
+            np.testing.assert_array_equal(
+                wav, fresh.infer_once(src, ref, use_scan=use_scan, bucket_lengths=True))
+
+
+def test_f0_noise_shape_is_checked(rng):
+    _, eng = _small_engines()
+    src = (rng.standard_normal(HOP * 7) * 0.1).astype(np.float32)
+    with pytest.raises(ValueError, match="f0_noise"):
+        eng.infer_once(src, src, f0_noise=np.zeros((1, 7, 1), np.float32))
 
 
 def _small_hparams():

@@ -185,11 +185,6 @@ def test_conan_prosody_positions_past_the_table_match_jax():
     _close(got, want)
 
 
-def test_conan_flow_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Conan(ConanConfig(hidden_size=64, f0_gen="flow"))
-
-
 # ---------------------------------------------------------------------------
 # HiFi-GAN vocoder
 # ---------------------------------------------------------------------------
@@ -234,9 +229,13 @@ def test_vocoder_variants_not_ported_raise():
 def test_port_init_trees_match_jax():
     gen = torch.Generator().manual_seed(0)
     key = jax.random.PRNGKey(0)
+    flow = dataclasses.replace(SMALL.conan, f0_gen="flow", f0_residual_layers=3,
+                               f0_residual_channels=16)
     pairs = [(EmformerDistillModel(PORT.emformer).init(gen),
               jax.eval_shape(JEmformer(SMALL.emformer).init, key)),
              (Conan(PORT.conan).init(gen), jax.eval_shape(JConan(SMALL.conan).init, key)),
+             (Conan(ConanConfig(**dataclasses.asdict(flow))).init(gen),
+              jax.eval_shape(JConan(flow).init, key)),
              (Conan(PORT.conan).init_vq_state(gen),
               jax.eval_shape(JConan(SMALL.conan).init_vq_state, key)),
              (HifiGanGenerator(PORT.vocoder).init(gen),

@@ -70,3 +70,30 @@ def test_trained_r5_port_matches_jax_and_rungs():
     for rung in ("high", "fast"):
         np.testing.assert_array_equal(out[rung][1], codes)
         assert np.isfinite(out[rung][0]).all()
+
+
+@pytest.mark.slow
+def test_trained_r5_bucketing_moves_the_output():
+    """bucket_lengths (run_vc's setting, in both packages) pads the reference
+    mel with zero frames. The reference encoders' trained LayerNorm biases
+    turn those frames into nonzero rows that the k=31 and k=5 convs of the
+    last real frames read, so the style context, and the waveform, move.
+    Prints the size of the move on 2 s of gt_b0.wav against 1.5 s of
+    gt_b1.wav: the codes do not change (the Emformer does not see the
+    reference), the waveform does."""
+    if not all(os.path.isdir(d) for d in DEPLOY):
+        pytest.skip("the r5 deploy checkpoints are not in this checkout")
+    import chip_smoke
+    from conan_tpu_torch.infer.build import build_engine
+
+    src = chip_smoke.read_wav(os.path.join(WAVS, "gt_b0.wav"))[:32000]
+    ref = chip_smoke.read_wav(os.path.join(WAVS, "gt_b1.wav"))[:24000]
+    eng = build_engine(*DEPLOY, serving_precision="exact", device="cpu")
+    wav, codes = eng.infer_once(src, ref, collect_codes=True, use_scan=True)
+    wav_b, codes_b = eng.infer_once(src, ref, collect_codes=True, use_scan=True,
+                                    bucket_lengths=True)
+    print(json.dumps({"bucketed_vs_unbucketed": {
+        "max_abs": float(np.abs(wav_b - wav).max()), "snr_db": _snr_db(wav_b, wav),
+        "code_flips": int((codes_b != codes).sum())}}))
+    np.testing.assert_array_equal(codes_b, codes)
+    assert np.isfinite(wav_b).all() and np.abs(wav_b - wav).max() > 1e-4
