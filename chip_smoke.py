@@ -46,8 +46,18 @@ and the result line:
               then one step at B = 2 on the card against the same step on
               the CPU in fp32 (losses) and float64 (gradients); then K2 on each grouped geometry beside cuDNN, its
               bound and cuDNN's backward there, and K1's GAN form's times
-  6. {"kernels": [...]}
-  7. {"ok": true, "device": {...}}
+  6. conan_train  the Conan acoustic GAN at production width
+              (egs/soak_r5/conan.yaml, train_precision highest): 24
+              synthesized utterances of 1400-1496 frames binarized by
+              ConanBinarizer (K1 once an utterance; each stored mel held
+              to the plain version on its wav) and batched by
+              build_train_iter (B = 24 at the 1496 rung), Trainer.fit for 8
+              steps with the schedule gates scaled down to cross every phase
+              (k-means hook, VQ, forcing off, discriminator, random
+              references): ms per step, hook time, peak memory, a profiled
+              step; then one small-width step on the card against the CPU's
+  7. {"kernels": [...]}
+  8. {"ok": true, "device": {...}}
 
 The weights are random, made from --seed and written as checkpoint dirs
 under build/; the audio is synthesized from the seed. --trained names the
@@ -78,7 +88,8 @@ from torch.profiler import ProfilerActivity, profile
 from conan_tpu_torch.audio.mel import MelConfig
 from conan_tpu_torch.checkpoint import tree_leaves, tree_map
 from conan_tpu_torch.config import load_config
-from conan_tpu_torch.data.binarizer import load_wav
+from conan_tpu_torch.data.binarizer import ConanBinarizer, load_wav
+from conan_tpu_torch.data.record_store import RecordReader
 from conan_tpu_torch.infer import run_vc
 from conan_tpu_torch.infer.build import build_engine, write_random_checkpoints
 from conan_tpu_torch.models.vocoder.discriminators import DiscriminatorS
@@ -88,7 +99,8 @@ from conan_tpu_torch.ops.precision import precision_scope
 from conan_tpu_torch.ops.logmel import (GAN_CLIP, GAN_EPS, _gan_vjp, gan_pad, logmel,
                                         logmel_gan, logmel_gan_reference, logmel_reference)
 from conan_tpu_torch.train.losses import gan_mel_configs
-from conan_tpu_torch.train.tasks import VocoderTask
+from conan_tpu_torch.train.run import build_task, build_train_iter, use_random_ref_after
+from conan_tpu_torch.train.tasks import ConanTask, VocoderTask
 from conan_tpu_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -150,6 +162,20 @@ GRAD_REL = 1e-4
 # 1.4e-7 from the CPU's). A wrong gradient is off by far more.
 STEP_RTOL, STEP_GRAD_REL, STEP_FP32_FACTOR = 1e-4, 1e-3, 4
 TRAIN_B, TRAIN_STEPS, CHECK_B = 18, 5, 2
+# The conan_train phase: a corpus of 4 speakers x 6 synthesized utterances of
+# 1400-1496 frames, binarized and batched by the port at max_tokens 36000
+# (B = 24 at the ladder's 1496 rung), then CONAN_STEPS steps with the
+# schedule gates scaled down so that they cross every phase: the k-means
+# hook before step 2 and VQ on from it, forcing off from step 2, the
+# discriminator on from step 3, random references from step 5.
+CONAN_SPEAKERS, CONAN_UTTS, CONAN_FRAMES = 4, 6, (1400, 1496)
+CONAN_STEPS = 8
+CONAN_GATES = {"vq_start": 1, "forcing": 2, "disc_start_steps": 3, "random_speaker_steps": 5}
+# its card-vs-CPU check: tests/test_train_steps.py's small width, two of the
+# corpus's utterances cut to 160 frames (references to 128), at a step where
+# every gate is on (VQ, guided attention, discriminator, random reference)
+CONAN_CHECK_HP = {"hidden_size": 32, "nVQ": 16, "mel_disc_hidden_size": 8}
+CONAN_CHECK_FRAMES, CONAN_CHECK_REF, CONAN_CHECK_STEP = 160, 128, 4
 
 
 def fail(msg: str) -> None:
@@ -247,15 +273,17 @@ def library_logmel(wav: torch.Tensor, cfg: MelConfig, window: torch.Tensor,
     return torch.log10(torch.clamp(spec.transpose(1, 2) @ melw, min=1e-6))
 
 
-def synth_wav(rng: np.random.Generator, seconds: float) -> np.ndarray:
+def synth_wav(rng: np.random.Generator, seconds: float, with_f0: bool = False):
     """A voiced-like test signal: harmonics of a gliding 100-220 Hz f0 with
-    a syllable envelope, plus noise."""
+    a syllable envelope, plus noise. With ``with_f0``, (wav, f0 per sample
+    in Hz)."""
     t = np.arange(int(seconds * SR)) / SR
     f0 = 160 + 60 * np.sin(2 * np.pi * rng.uniform(0.2, 0.6) * t + rng.uniform(0, 6))
     phase = 2 * np.pi * np.cumsum(f0) / SR
     voiced = sum(np.sin(k * phase) / k for k in range(1, 20))
     env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t) ** 2
-    return (0.1 * env * voiced + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+    wav = (0.1 * env * voiced + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+    return (wav, f0) if with_f0 else wav
 
 
 def read_wav(path: str) -> np.ndarray:
@@ -644,6 +672,253 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
          "bound_route": k2_rows[0]["route"], "geometries": len(geoms),
          "scale1_layer": scale1},
     ]
+
+
+def conan_corpus(hp, rng: np.random.Generator) -> None:
+    """Write the conan_train corpus where ``hp`` says: each utterance's wav,
+    its F0 contour per frame as ``<wav dir>_f0/<name>_f0.npy``, random
+    content codes 0-99 in ``metadata.json``, and the speaker map."""
+    from scipy.io import wavfile
+
+    hop = hp["hop_size"]
+    wav_dir = os.path.join(hp["processed_data_dir"], "wavs")
+    os.makedirs(wav_dir)
+    os.makedirs(wav_dir + "_f0")
+    items = []
+    for spk in range(CONAN_SPEAKERS):
+        for utt in range(CONAN_UTTS):
+            name = f"spk{spk}_{utt}"
+            n = int(rng.integers(CONAN_FRAMES[0], CONAN_FRAMES[1] + 1))
+            wav, f0 = synth_wav(rng, (n * hop - 1) / SR, with_f0=True)
+            path = os.path.join(wav_dir, f"{name}.wav")
+            wavfile.write(path, SR, wav)
+            np.save(os.path.join(wav_dir + "_f0", f"{name}_f0.npy"),
+                    f0[np.arange(n) * hop].astype(np.float32))
+            items.append({"item_name": name, "wav_fn": path,
+                          "hubert": " ".join(map(str, rng.integers(0, 100, n)))})
+    with open(os.path.join(hp["processed_data_dir"], "metadata.json"), "w") as f:
+        json.dump(items, f)
+    with open(os.path.join(hp["processed_data_dir"], "spker_set.json"), "w") as f:
+        json.dump({f"spk{i}": i for i in range(CONAN_SPEAKERS)}, f)
+
+
+def conan_step_check(hp, batch: dict, dev: torch.device, seed: int) -> None:
+    """One ConanTask step at small width on the card against the same step on
+    the CPU, from one state (the k-means hook run on the card) and one batch,
+    with no generator on either side: dropout off and every crop at frame 0.
+    Loss terms to the CPU's fp32 step at STEP_RTOL; each gradient leaf (the
+    optimizers' first moments, (1 - b1) times the clipped gradient) and each
+    leaf of the new VQ state to the CPU's float64 step within max(1e-3, 4 x
+    the CPU fp32 step's worst leaf), the vocoder check's rule."""
+    hp = dict(hp, **CONAN_CHECK_HP)
+    small = {k: np.ascontiguousarray(batch[k][:CHECK_B, :CONAN_CHECK_FRAMES])
+             for k in ("content", "mels", "f0", "uv")}
+    small["ref_mels"] = np.ascontiguousarray(batch["ref_mels"][:CHECK_B, :CONAN_CHECK_REF])
+    task = ConanTask(hp)
+    state0, done = task.host_hook(task.init_state(torch.Generator().manual_seed(seed + 1)),
+                                  CONAN_CHECK_STEP, small)
+    if not done:
+        fail("conan check: the k-means hook deferred on its batch")
+    state0["step"] = torch.tensor(CONAN_CHECK_STEP, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    new_gpu, m_gpu = task.train_step(state0, small, None, use_random_ref=True)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    task_cpu = ConanTask(hp, device="cpu")
+    t0 = time.perf_counter()
+    with torch.backends.mkldnn.flags(enabled=False):
+        new_cpu, m_cpu = task_cpu.train_step(tree_map(lambda t: t.cpu(), state0), small, None,
+                                             use_random_ref=True)
+        t_cpu = time.perf_counter() - t0
+        new_64, _ = task_cpu.train_step(
+            tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), state0),
+            {k: v.astype(np.float64) if v.dtype.kind == "f" else v for k, v in small.items()},
+            None, use_random_ref=True)
+    off = [k for k in ("vq_loss", "gloss", "a", "d_r") if float(m_cpu[k]) == 0.0]
+    if off:
+        fail(f"conan check: gates off at step {CONAN_CHECK_STEP}: {off}")
+    loss_err = max(abs(float(m_gpu[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1e-30)
+                   for k in m_cpu if k != "skipped")
+    if loss_err > STEP_RTOL or float(m_gpu["skipped"]) or float(m_cpu["skipped"]):
+        fail(f"conan check: card step losses {m_gpu} != CPU step losses {m_cpu} "
+             f"(rtol {STEP_RTOL})")
+    parts = {"G": lambda st: tree_leaves(st["opt_g"]["mu"]),
+             "D": lambda st: tree_leaves(st["opt_d"]["mu"]),
+             "VQ": lambda st: [st["vq_state"][k] for k in ("embedding", "ema_count", "ema_weight")]}
+    errs = {name: {part: [rel_l2(a.cpu(), b) for a, b in zip(leaves(st), leaves(new_64))]
+                   for part, leaves in parts.items()}
+            for name, st in (("card", new_gpu), ("cpu", new_cpu))}
+    cpu_worst = max(max(e) for e in errs["cpu"].values())
+    limit = max(STEP_GRAD_REL, STEP_FP32_FACTOR * cpu_worst)
+    past = [f"{part} leaf {i} {e:.3g}" for part, es in errs["card"].items()
+            for i, e in enumerate(es) if e > limit]
+    if past:
+        fail(f"conan check: card leaves off the CPU's float64 step past {limit:.3g} (the CPU's "
+             f"fp32 step's worst leaf {cpu_worst:.3g}): {'; '.join(past)}")
+    worst = {name: ", ".join(f"{part} {max(es):.3g}" for part, es in e.items())
+             for name, e in errs.items()}
+    print(f"conan_train check: one step at B={CHECK_B} x {CONAN_CHECK_FRAMES} frames (refs "
+          f"{CONAN_CHECK_REF}), hidden {hp['hidden_size']}, nVQ {hp['nVQ']}, step "
+          f"{CONAN_CHECK_STEP} (VQ, guided attention, discriminator and random reference on), "
+          f"dropout off and crops at frame 0 on both sides: card ({t_gpu:.2f} s) vs CPU "
+          f"({t_cpu:.2f} s, oneDNN off) loss terms max rel diff {loss_err:.3g} (rtol "
+          f"{STEP_RTOL}); leaves from the CPU's float64 step, max rel L2 over "
+          + ", ".join(f"{len(es)} {part}" for part, es in errs["card"].items())
+          + f": card {worst['card']}; CPU fp32 {worst['cpu']}; limit max({STEP_GRAD_REL}, "
+          f"{STEP_FP32_FACTOR} x the CPU fp32 step's worst) {limit:.3g}", flush=True)
+
+
+def binarized_mels_check(hp, dev: torch.device, n_items: int) -> tuple[float, list[str]]:
+    """Every mel the binarizer stored (K1 on each whole utterance) against
+    the plain version on the same wav on the card, cut to the record's
+    length, by compare_logmel. Returns the max abs difference and the notes
+    on elements held to float64."""
+    with open(os.path.join(hp["processed_data_dir"], "metadata.json")) as f:
+        wav_fns = {r["item_name"]: r["wav_fn"] for r in json.load(f)}
+    mel_cfg = MelConfig.from_hparams(hp)
+    err, notes, seen = 0.0, [], 0
+    for prefix in ("train", "valid", "test"):
+        store = RecordReader(os.path.join(hp["binary_data_dir"], prefix))
+        for i in range(len(store)):
+            rec = store[i]
+            wav = torch.from_numpy(load_wav(wav_fns[rec["item_name"]],
+                                            hp["audio_sample_rate"])[None]).to(dev)
+            n = rec["len"]
+            e, note = compare_logmel(
+                f"conan_train: binarized mel of {rec['item_name']} ({n} frames)",
+                torch.from_numpy(rec["mel"]).to(dev), logmel_reference(wav, mel_cfg)[0, :n],
+                lambda: logmel_reference(wav.double(), mel_cfg)[0, :n])
+            err, seen = max(err, e), seen + 1
+            notes += [note] if note else []
+        store.close()
+    if seen != n_items:
+        fail(f"conan_train: the record store holds {seen} records for {n_items} utterances")
+    return err, notes
+
+
+def conan_train_phase(seed: int, dev: torch.device) -> int:
+    """Phase 6: the Conan acoustic GAN at full width (egs/soak_r5/conan.yaml,
+    train_precision highest) from a corpus the port binarizes (K1 on every
+    utterance) and batches, through Trainer.fit for CONAN_STEPS steps; then
+    the small-width card-vs-CPU check. Returns K1's launches on this path."""
+    work = os.path.join(ROOT, "build", "chip_smoke_conan_train")
+    shutil.rmtree(work, ignore_errors=True)
+    hp = load_config(os.path.join(ROOT, "egs", "soak_r5", "conan.yaml"))
+    shipped = hp["train_precision"]
+    hp.update(CONAN_GATES, train_precision="highest", max_updates=CONAN_STEPS,
+              tb_log_interval=1, seed=seed,
+              processed_data_dir=os.path.join(work, "processed"),
+              binary_data_dir=os.path.join(work, "binary"))
+    t0 = time.perf_counter()
+    conan_corpus(hp, np.random.default_rng([seed, 6]))
+    synth_s = time.perf_counter() - t0
+    logmel.launches = 0
+    t0 = time.perf_counter()
+    ConanBinarizer(hp).process()
+    torch.cuda.synchronize()
+    binarize_s = time.perf_counter() - t0
+    launches = logmel.launches
+    n_items = CONAN_SPEAKERS * CONAN_UTTS
+    if launches != n_items:
+        fail(f"conan_train: the binarizer launched the logmel kernel {launches} times for "
+             f"{n_items} utterances")
+    k1_err, k1_notes = binarized_mels_check(hp, dev, n_items)
+
+    task, kind = build_task(hp)
+    hooks = []
+    hook = task.host_hook
+
+    def timed_hook(state, step, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = hook(state, step, batch)
+        torch.cuda.synchronize()
+        hooks.append((step, time.perf_counter() - t, out[1]))
+        return out
+
+    task.host_hook = timed_hook
+    train_iter = build_train_iter(hp, kind)
+    events, shapes, last = [], [], {}
+
+    def batches():
+        for _ in range(CONAN_STEPS):
+            last["batch"] = next(train_iter)
+            shapes.append(tuple(last["batch"]["mels"].shape[:2]))
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            yield last["batch"]
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    work_dir = os.path.join(work, "exp")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = Trainer(task, hp, work_dir, use_random_ref_after=use_random_ref_after(hp, kind)
+                    ).fit(batches())
+    train_iter.close()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if int(state["step"]) != CONAN_STEPS or len(records) != CONAN_STEPS:
+        fail(f"conan_train: Trainer.fit ran {int(state['step'])} steps, logged {len(records)}")
+    if set(shapes) != {(n_items, CONAN_FRAMES[1])}:
+        fail(f"conan_train: batches {shapes}, not B={n_items} x T={CONAN_FRAMES[1]}")
+    if not all(np.isfinite(v) for r in records for v in r.values() if isinstance(v, float)):
+        fail(f"conan_train: non-finite training metrics: {records}")
+    skipped = sum(r["skipped"] for r in records)
+    if skipped:
+        fail(f"conan_train: {skipped:.0f} of {CONAN_STEPS} updates skipped")
+    gates = {"vq_loss": CONAN_GATES["vq_start"] + 1, "a": CONAN_GATES["disc_start_steps"],
+             "d_r": CONAN_GATES["disc_start_steps"]}
+    wrong = [k for k, first in gates.items()
+             if any((r[k] != 0.0) != (i >= first) for i, r in enumerate(records))]
+    if wrong or [(s, d) for s, _, d in hooks] != [(CONAN_GATES["vq_start"] + 1, True)] \
+            or float(state["vq_state"]["initialized"]) != 1.0:
+        fail(f"conan_train: schedule gates {wrong} off their phases, or the k-means hook ran "
+             f"{hooks}")
+
+    # one more step under torch.profiler, in the last phase
+    batch = last["batch"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        task.train_step(state, batch, gen, use_random_ref=True)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    last_phase = step_ms[CONAN_GATES["random_speaker_steps"]:]
+    losses = ", ".join(f"{k} {v:.5g}" for k, v in records[-1].items()
+                       if k not in ("step", "prefix", "skipped", "steps_per_s"))
+    print(f"conan_train: egs/soak_r5/conan.yaml at full width (hidden {hp['hidden_size']}, "
+          f"nVQ {hp['nVQ']}, {hp['disc_win_num']}-window mel discriminator of hidden "
+          f"{hp['mel_disc_hidden_size']}), train_precision highest set over the shipped "
+          f"{shipped!r} (fp32, TF32 off), random weights seed {seed}; corpus {n_items} "
+          f"synthesized utterances of {CONAN_FRAMES[0]}-{CONAN_FRAMES[1]} frames in "
+          f"{synth_s:.2f} s, ConanBinarizer (K1 x{launches}) in {binarize_s:.2f} s, its "
+          f"{n_items} stored mels against the plain version on the same wavs: max abs "
+          f"{k1_err:.3g} (atol {LOGMEL_ATOL}, rtol {LOGMEL_RTOL})"
+          + (f", held to float64: {'; '.join(k1_notes)}" if k1_notes else "") + "; "
+          f"build_train_iter batches B x T {shapes[0][0]} x {shapes[0][1]} (max_tokens "
+          f"{hp['max_tokens']}); Trainer.fit {CONAN_STEPS} steps (vq_start "
+          f"{CONAN_GATES['vq_start']}, forcing {CONAN_GATES['forcing']}, disc_start_steps "
+          f"{CONAN_GATES['disc_start_steps']}, random_speaker_steps "
+          f"{CONAN_GATES['random_speaker_steps']}): skipped {skipped:.0f}; ms per step (CUDA "
+          f"events) {[round(x, 3) for x in step_ms]}, median of steps "
+          f"{CONAN_GATES['random_speaker_steps']}-{CONAN_STEPS - 1} (the last phase) "
+          f"{np.median(last_phase):.3f}; k-means hook at step {hooks[0][0]} {hooks[0][1]:.3f} s; "
+          f"peak memory {peak_gb:.3f} GB; one profiled step: wall {wall_ms:.3f} ms, device "
+          f"kernels {device_ms:.3f} ms (busy {100 * device_ms / wall_ms:.1f}%), "
+          f"{sum(e.count for e in kernels)} kernels; largest: "
+          + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                      for e in top)
+          + f"; step {CONAN_STEPS} losses: {losses}", flush=True)
+    conan_step_check(hp, batch, dev, seed)
+    return launches
 
 
 def scan_timings(eng, src: np.ndarray, ref: np.ndarray, bucket_lengths: bool) -> dict:
@@ -1077,6 +1352,10 @@ def main() -> None:
                "flow": flow_phase(args.seed, src, ref),
                "run_vc": run_vc_phase(eng, dirs, rng)}
 
+    # 5. train, 6. conan_train
+    train_kernels = train_phase(args.seed, dev, rng)
+    by_path["conan_train"] = conan_train_phase(args.seed, dev)
+
     kernel = {"name": "logmel", "route": "cuda", "source": "conan_tpu_torch/csrc/logmel.cu",
               "replaces": "conan_tpu/ops/pallas_stft.py:52", "launches": launches,
               "launches_by_path": by_path,
@@ -1084,10 +1363,7 @@ def main() -> None:
               "kernel_device_ms": serve_device_ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
-    # 5. train
-    train_kernels = train_phase(args.seed, dev, rng)
-
-    # 6. kernels line, 7. result line
+    # 7. kernels line, 8. result line
     print(json.dumps({"kernels": [kernel, *train_kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,8 @@ import time
 import numpy as np
 import torch
 
+from conan_tpu_torch.device import resolve_device
+
 log = logging.getLogger("conan_tpu_torch.run_vc")
 
 
@@ -39,18 +41,18 @@ def save_wav(path: str, wav: np.ndarray, sr: int) -> None:
 
 
 def postprocess(wav: np.ndarray, mel_cfg, denoise_c: float,
-                device: str | torch.device = "cpu") -> np.ndarray:
+                device: str | torch.device | None = None) -> np.ndarray:
     """Spectral subtraction after the vocoder when ``denoise_c > 0``, on
-    ``device`` in fp32. The wav is zero-padded to a power-of-two number of
-    hops (at least 64) before the denoise and cut back after it, as the JAX
-    package does; the padding changes the last frames' STFT, so it is part
-    of the result."""
+    ``device`` (None: the CUDA card; raises without one) in fp32. The wav
+    is zero-padded to a power-of-two number of hops (at least 64) before the
+    denoise and cut back after it, as the JAX package does; the padding
+    changes the last frames' STFT, so it is part of the result."""
+    device = resolve_device(device)
     if denoise_c <= 0:
         return wav
     from conan_tpu_torch.audio.denoise import spectral_denoise
     from conan_tpu_torch.ops.precision import precision_scope
 
-    device = torch.device(device)
     n = len(wav)
     hops = max(64, -(-n // mel_cfg.hop))
     bucket = 64

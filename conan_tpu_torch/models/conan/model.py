@@ -11,7 +11,12 @@ The reference utterance is whole before streaming starts, so its encoders run
 once (``prepare_style``); the content → mel path is causal and streams chunk
 by chunk with carried conv state (``stream_step``), equal to the matching
 slice of ``apply``; with ``f0_gen="flow"`` the chunk's slice of the
-utterance's initial noise goes in beside its codes. The training losses wait.
+utterance's initial noise goes in beside its codes.
+
+``apply_train`` is the training forward (``f0_gen="orig"``): the ground-truth
+F0 drives the pitch embedding, the F0 head is held to it by ``fdiff``, and
+the VQ and the aligner's forcing follow the schedule through device bools.
+The flow F0 loss is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -98,11 +103,12 @@ class Conan:
         self.global_encoder = ConvBlocks(H, H, None, 31, layers_in_block=2, num_layers=5)
         self.decoder = ConvBlocks(H, H, cfg.dec_dilations, cfg.dec_kernel_size,
                                   layers_in_block=cfg.layers_in_block,
-                                  post_net_kernel=cfg.dec_post_net_kernel, causal=True)
+                                  post_net_kernel=cfg.dec_post_net_kernel, causal=True,
+                                  dropout=cfg.dropout)
         self.uv_predictor = PitchPredictor(H, n_layers=5, n_chans=128, odim=2,
                                            kernel_size=cfg.predictor_kernel)
         if cfg.style:
-            self.prosody = LocalStyleAdaptor(H, cfg.n_vq)
+            self.prosody = LocalStyleAdaptor(H, cfg.n_vq, cfg.vae_dropout, cfg.lambda_commit)
             self.aligner = ProsodyAligner(num_layers=2, hidden=H, nhead=2)
         if cfg.f0_gen == "flow":
             self.f0_net = DiffNet(DiffNetConfig(
@@ -156,7 +162,10 @@ class Conan:
                        ref: torch.Tensor) -> torch.Tensor:
         """ref mel [B, Tr, 80] → prosody keys [B, ceil(Tr/4), H]: quantized
         prosody + sinusoidal positions, through the concat projection."""
-        pros = self.prosody.apply(params["prosody"], vq_state, ref)
+        return self._prosody_keys(params, self.prosody.apply(params["prosody"], vq_state, ref))
+
+    def _prosody_keys(self, params: Params, pros: torch.Tensor) -> torch.Tensor:
+        """Prosody + sinusoidal positions, through the concat projection."""
         positions = positional_embedding(pros[:, :, 0], self.cfg.hidden_size, padding_idx=0,
                                          max_positions=self.cfg.max_source_positions + 2)
         return linear(torch.cat([pros, positions.to(pros.dtype)], dim=-1), params["l1"])
@@ -227,6 +236,54 @@ class Conan:
         x = self.decoder.apply(params["decoder"], dec_inp, torch.ones_like(dec_inp[..., :1]),
                                stream=s)
         return {"mel_out": linear(x, params["mel_out"]), "f0_denorm_pred": f0_denorm}
+
+    # ----------------------------------------------------------- training
+    def apply_train(self, params: Params, vq_state: Params | None, content: torch.Tensor,
+                    ref: torch.Tensor, f0: torch.Tensor, uv: torch.Tensor, *,
+                    global_step: torch.Tensor, vq_start: int, forcing_steps: int,
+                    generator: torch.Generator | None = None) -> dict:
+        """The training forward: content [B, T] codes (-1 pads), ref
+        [B, Tr, 80], ground-truth log2-F0 and UV [B, T] → {"mel_out",
+        "uv_pred", "fdiff", "f0_denorm_pred", and with style "vq_loss", "ppl",
+        "gloss", "attn", "vq_state"}. The VQ quantizes once ``global_step >
+        vq_start`` and the aligner is forced while ``global_step <
+        forcing_steps``, both decided on the device; the VQ state in the
+        output is the EMA-updated one (not detached). With a ``generator``,
+        dropout as the JAX package trains."""
+        cfg = self.cfg
+        if cfg.f0_gen != "orig":
+            raise NotImplementedError(
+                f"training with f0_gen {cfg.f0_gen!r} is not ported yet (ROADMAP.md, modules "
+                "still to port: the flow F0 loss, with PostnetTask)")
+        ret: dict = {}
+        pitch_inp = self._content_embed(params, content, Stream(None)) \
+            + self.encode_spk_embed(params, ref)
+        if cfg.style:
+            pros, ret["vq_loss"], ret["ppl"], ret["vq_state"] = self.prosody.apply_train(
+                params["prosody"], vq_state, ref, use_vq=global_step > vq_start,
+                generator=generator)
+            pros = self._prosody_keys(params, pros)
+            aligned, ret["gloss"], ret["attn"] = self.aligner.apply_train(
+                params["aligner"], pitch_inp, pros, pitch_inp[:, :, 0] == 0.0,
+                pros[:, :, 0] == 0.0, forcing=global_step < forcing_steps,
+                generator=generator)
+            pitch_inp = pitch_inp + aligned
+        pitch_inp_p = pitch_inp
+        if cfg.predictor_grad != 1.0:
+            pitch_inp_p = pitch_inp.detach() + cfg.predictor_grad * (pitch_inp
+                                                                      - pitch_inp.detach())
+        ret["uv_pred"] = self.uv_predictor.apply(params["uv_predictor"], pitch_inp_p,
+                                                 generator=generator)
+        voiced = (uv == 0).to(pitch_inp.dtype)
+        ret["fdiff"] = (torch.sum(torch.square(ret["uv_pred"][:, :, 1] - f0) * voiced)
+                        / voiced.sum().clamp(min=1.0)) * cfg.lambda_f0
+        f0_denorm = denorm_f0(f0, uv)
+        ret["f0_denorm_pred"] = f0_denorm
+        dec_inp = pitch_inp + embedding(f0_to_coarse(f0_denorm), params["pitch_embed"])
+        x = self.decoder.apply(params["decoder"], dec_inp, torch.ones_like(dec_inp[..., :1]),
+                               generator=generator)
+        ret["mel_out"] = linear(x, params["mel_out"])
+        return ret
 
     # ----------------------------------------------------------- streaming
     def prepare_style(self, params: Params, vq_state: Params | None,

@@ -1,5 +1,6 @@
 """The HiFi-GAN discriminators, MPD and MSD
-(``conan_tpu/models/vocoder/discriminators.py:71-232``).
+(``conan_tpu/models/vocoder/discriminators.py:71-232``), and the multi-window
+mel discriminator of the Conan acoustic GAN (``:258-358``).
 
 Parameter trees and key paths are the JAX package's. Inputs are channels-last
 wavs [B, T, 1]. Every discriminator has ``forward(params, x)`` → (logits
@@ -15,6 +16,14 @@ with ``lax.conv``, outside any Pallas kernel). The MSD's grouped convs go
 through ``ops.conv1d``, which runs kernel K2 on the card. The conditional
 discriminators (``use_cond``) are not ported (ROADMAP.md, modules still to
 port: the vocoder training options).
+
+The mel discriminator (``SingleWindowDisc``, ``MultiWindowDiscriminator``)
+is plain ``F.conv2d`` in NCHW, where the JAX package is channels-last: its
+hidden maps are [B, C, T', M'], and the head's flatten in channels-first
+order is then a plain reshape. Its random parts (each window's crop start,
+``Dropout2d`` over whole channels) are drawn from a ``torch.Generator`` on
+the device; with none, no dropout and every crop starts at frame 0, unless
+``start_frames`` names the starts.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from conan_tpu_torch.nn import inits
+from conan_tpu_torch.nn.blocks import init_linear, linear
 from conan_tpu_torch.nn.module import Params
 from conan_tpu_torch.ops.conv import conv1d, spectral_norm_weight, weight_norm_weight
 
@@ -165,3 +175,101 @@ class MultiScaleDiscriminator(_Multi):
         for _ in self.discs[1:]:
             views.append(_avg_pool1d(views[-1]))
         return views
+
+
+# ---------------------------------------------------------------------------
+# Multi-window mel discriminator (the Conan adversarial mel loss)
+# ---------------------------------------------------------------------------
+
+class SingleWindowDisc:
+    """3 × [conv2d 3×3 stride 2 → leaky ReLU 0.2 → Dropout2d(0.25) → BN] (no
+    BN after the last) + a linear head. BatchNorm uses the batch's statistics
+    (population variance) with eps 0.8, the reference's positional eps."""
+
+    BN_EPS = 0.8
+
+    def __init__(self, time_length: int, freq_length: int = 80, hidden: int = 128):
+        self.t, self.f, self.h = time_length, freq_length, hidden
+        self.ds = (time_length // 8, (freq_length + 7) // 8)
+
+    def init(self, gen: torch.Generator) -> Params:
+        def conv(ci: int, co: int) -> Params:
+            shape = (co, ci, 3, 3)
+            return {"w": inits.kaiming_uniform(gen, shape),
+                    "b": inits.default_bias(gen, (co,), shape)}
+
+        bn = lambda: {"scale": torch.ones(self.h), "bias": torch.zeros(self.h)}  # noqa: E731
+        return {"c0": conv(1, self.h), "c1": conv(self.h, self.h), "c2": conv(self.h, self.h),
+                "bn0": bn(), "bn1": bn(),
+                "out": init_linear(gen, 1, self.h * self.ds[0] * self.ds[1])}
+
+    def _bn(self, x: torch.Tensor, p: Params) -> torch.Tensor:
+        mu = x.mean(dim=(0, 2, 3), keepdim=True)
+        var = x.var(dim=(0, 2, 3), correction=0, keepdim=True)
+        return ((x - mu) * torch.rsqrt(var + self.BN_EPS) * p["scale"][:, None, None]
+                + p["bias"][:, None, None])
+
+    def apply(self, params: Params, x: torch.Tensor,
+              generator: torch.Generator | None = None):
+        """x: [B, 1, T_win, M] → (validity [B, 1], hidden maps [B, C, T', M'])."""
+        hiddens = []
+        for i, name in enumerate(("c0", "c1", "c2")):
+            x = F.leaky_relu(F.conv2d(x, params[name]["w"], params[name]["b"], stride=2,
+                                      padding=1), 0.2)
+            if generator is not None:       # Dropout2d: whole channels
+                keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
+                                  device=x.device) < 0.75
+                x = torch.where(keep, x / 0.75, 0.0)
+            if i < 2:
+                x = self._bn(x, params[f"bn{i}"])
+            hiddens.append(x)
+        return linear(x.reshape(x.shape[0], -1), params["out"]), hiddens
+
+
+class MultiWindowDiscriminator:
+    """Random crops of 32/64/128 frames, one SingleWindowDisc each, their
+    validities summed."""
+
+    def __init__(self, time_lengths=(32, 64, 128), freq_length: int = 80, hidden: int = 128):
+        self.windows = tuple(time_lengths)
+        self.discs = [SingleWindowDisc(t, freq_length, hidden) for t in self.windows]
+
+    def init(self, gen: torch.Generator) -> Params:
+        return {"discs": [d.init(gen) for d in self.discs]}
+
+    def apply(self, params: Params, mel: torch.Tensor,
+              generator: torch.Generator | None = None, *, start_frames=None):
+        """mel [B, T, M] → (summed validity [B, 1], hidden maps, the crop
+        starts used, fit). ``fit`` is a device bool, true only when every
+        window engaged: a window longer than T never does, and one longer
+        than the longest utterance (frames with any nonzero bin) does not;
+        the caller gates the GAN losses on it, as the reference skips them.
+        A crop starts at ``start_frames[i]`` where given, else uniformly in
+        [0, max(len) - w] from ``generator`` (0 with no generator), clamped
+        to [0, T - w] as a dynamic slice is."""
+        B, T, _M = mel.shape
+        max_len = (mel.abs().sum(-1) > 0).sum(-1).max()
+        validity = torch.zeros(B, 1, device=mel.device, dtype=mel.dtype)
+        hiddens, starts = [], []
+        fit = torch.ones((), dtype=torch.bool, device=mel.device)
+        for i, (w, d, p) in enumerate(zip(self.windows, self.discs, params["discs"])):
+            if T < w:
+                starts.append(None)
+                fit = torch.zeros_like(fit)
+                continue
+            fit = fit & (max_len >= w)
+            if start_frames is not None and start_frames[i] is not None:
+                start = torch.as_tensor(start_frames[i], device=mel.device)
+            elif generator is None:
+                start = torch.zeros((), dtype=torch.long, device=mel.device)
+            else:
+                span = torch.clamp(max_len - w, min=0) + 1
+                start = torch.floor(torch.rand((), generator=generator, device=mel.device)
+                                    * span).long()
+            start = torch.clamp(start, 0, T - w)
+            starts.append(start)
+            clip = mel[:, start + torch.arange(w, device=mel.device)]
+            v, hs = d.apply(p, clip[:, None], generator)
+            validity = validity + v
+            hiddens.extend(hs)
+        return validity, hiddens, starts, fit

@@ -8,7 +8,10 @@ inference side: channels-last ``[B, T, C]``, parameters as trees of tensors.
   positional_embedding            fairseq sinusoidal positions
   timestep_embedding              the flow denoiser's sinusoidal step embedding
 
-Dropout and the other training-only pieces wait for the training slices.
+In training, ``dropout`` draws its masks from a ``torch.Generator`` on the
+tensors' device (not ``jax.random``'s stream); with no generator it is the
+identity, as the JAX package's is with ``rng=None``. The modules that drop
+(ConvBlocks, PitchPredictor, MultiheadAttention) take that generator.
 """
 
 from __future__ import annotations
@@ -86,6 +89,16 @@ def init_wn_conv(gen: torch.Generator, out_ch: int, in_ch: int, k: int, *,
             "b": p["b"]}
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Zero each element with probability ``rate`` and scale the rest by
+    1 / (1 - rate), the mask drawn from ``generator``; the identity when
+    ``generator`` is None or ``rate`` is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def nonpadding_mask(x: torch.Tensor) -> torch.Tensor:
     """[B,T,C] → [B,T,1] float mask of frames with any nonzero channel."""
     return (torch.sum(torch.abs(x), dim=-1, keepdim=True) > 0).to(x.dtype)
@@ -106,9 +119,10 @@ class ConvBlocks:
 
     def __init__(self, hidden_size: int, out_dims: int, dilations, kernel_size: int,
                  *, layers_in_block: int = 2, num_layers: int | None = None,
-                 post_net_kernel: int = 3, causal: bool = False):
+                 post_net_kernel: int = 3, causal: bool = False, dropout: float = 0.0):
         if num_layers is not None:
             dilations = [1] * num_layers
+        self.dropout = dropout
         self.hidden = hidden_size
         self.out_dims = out_dims
         self.dilations = tuple(dilations)
@@ -134,8 +148,10 @@ class ConvBlocks:
         return conv1d(x, p["w"], p["b"], dilation=dilation, padding=(pad, pad))
 
     def apply(self, params: Params, x: torch.Tensor, nonpadding: torch.Tensor | None = None,
-              *, stream: Stream | None = None) -> torch.Tensor:
-        """x: [B, T, H] → [B, T, out_dims]."""
+              *, stream: Stream | None = None,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        """x: [B, T, H] → [B, T, out_dims]. With a ``generator`` (training),
+        each block's output is dropped at the ``dropout`` rate."""
         s = stream or Stream(None)
         if nonpadding is None:
             nonpadding = torch.ones_like(x[..., :1]) if s.streaming else nonpadding_mask(x)
@@ -143,7 +159,7 @@ class ConvBlocks:
             for ni, sub in enumerate(block):
                 h = self._conv(s, f"b{bi}.{ni}.c1", layer_norm(x, sub["norm"]), sub["conv1"], d)
                 h = conv1d(F.gelu(h * (self.k ** -0.5)), sub["conv2"]["w"], sub["conv2"]["b"])
-                x = (x + h) * nonpadding
+                x = (x + dropout(h, self.dropout, generator)) * nonpadding
         x = layer_norm(x, params["last_norm"]) * nonpadding
         return self._conv(s, "post", x, params["post"], 1) * nonpadding
 
@@ -209,6 +225,8 @@ class WaveNet:
 # ---------------------------------------------------------------------------
 
 class PitchPredictor:
+    P = 0.1     # dropout rate after each conv, in training
+
     def __init__(self, idim: int, n_layers: int = 5, n_chans: int = 384, odim: int = 2,
                  kernel_size: int = 5):
         self.idim, self.n, self.ch = idim, n_layers, n_chans
@@ -221,11 +239,13 @@ class PitchPredictor:
                 "out": init_linear(gen, self.odim, self.ch)}
 
     def apply(self, params: Params, x: torch.Tensor, *, stream: Stream | None = None,
-              prefix: str = "pp") -> torch.Tensor:
-        """x: [B, T, H] → [B, T, odim]."""
+              prefix: str = "pp", generator: torch.Generator | None = None) -> torch.Tensor:
+        """x: [B, T, H] → [B, T, odim]; with a ``generator``, dropout after
+        each conv."""
         s = stream or Stream(None)
         for i, c in enumerate(params["convs"]):
             x = F.relu(s.causal_conv(f"{prefix}.{i}", x, c, weight_norm=False))
+            x = dropout(x, self.P, generator)
         return linear(layer_norm(x, params["ln"]), params["out"])
 
     def init_state(self, batch: int, prefix: str = "pp",
@@ -283,6 +303,8 @@ def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
 class MultiheadAttention:
     """nn.MultiheadAttention semantics (packed in-projection)."""
 
+    P = 0.1     # dropout rate on the attention probabilities, in training
+
     def __init__(self, dim: int, num_heads: int):
         if dim % num_heads:
             raise ValueError(f"dim {dim} not a multiple of {num_heads} heads")
@@ -294,9 +316,12 @@ class MultiheadAttention:
                 "out": init_linear(gen, self.dim, self.dim)}
 
     def apply(self, params: Params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+              key_padding_mask: torch.Tensor | None = None, *,
+              generator: torch.Generator | None = None, need_weights: bool = False):
         """q: [B,Tq,D], k/v: [B,Tk,D]; key_padding_mask: [B,Tk] True=pad →
-        [B,Tq,D]."""
+        [B,Tq,D], and with ``need_weights`` also the attention probabilities
+        averaged over the heads [B,Tq,Tk]. With a ``generator``, dropout on
+        the probabilities (the averaged ones are taken after it)."""
         D, H = self.dim, self.h
         Dh = D // H
         W, b = params["in_w"], params["in_b"]
@@ -308,6 +333,6 @@ class MultiheadAttention:
         logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * (Dh ** -0.5)
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
-        probs = torch.softmax(logits, dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(B, Tq, D)
-        return linear(o, params["out"])
+        probs = dropout(torch.softmax(logits, dim=-1), self.P, generator)
+        o = linear(torch.einsum("bhqk,bkhd->bqhd", probs, vh).reshape(B, Tq, D), params["out"])
+        return (o, probs.mean(dim=1)) if need_weights else o

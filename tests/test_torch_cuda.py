@@ -296,3 +296,121 @@ def test_failed_capture_raises_without_eager_fallback(tmp_path, monkeypatch):
     monkeypatch.setattr(eng, "_chunk_step", step)
     wav = eng.infer_once(src, ref)
     np.testing.assert_allclose(eng.infer_once(src, ref, use_scan=True), wav, atol=1e-5)
+
+
+# The Conan training step at small width (tests/test_train_steps.py's CONAN_HP
+# sizes over egs/soak_r5/conan.yaml), at a step where every gate is on. The
+# card's step against the CPU's (oneDNN off) from one state and batch, no
+# generator on either side (dropout off, crops at frame 0): loss terms rtol
+# 1e-4 from the CPU's fp32 step; each gradient leaf (the optimizers' first
+# moments) and VQ-state leaf a relative L2 error from the CPU's float64 step
+# within max(1e-3, 4 x the CPU fp32 step's worst), chip_smoke.py's rule.
+CONAN_SMALL = {"hidden_size": 32, "nVQ": 16, "mel_disc_hidden_size": 8, "vq_start": 1,
+               "forcing": 2, "disc_start_steps": 3, "random_speaker_steps": 5,
+               "train_precision": "highest"}
+
+
+def _conan_task(device):
+    import os
+
+    from conan_tpu_torch.config import load_config
+    from conan_tpu_torch.train.tasks import ConanTask
+
+    hp = load_config(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                  "egs", "soak_r5", "conan.yaml"))
+    hp.update(CONAN_SMALL)
+    return ConanTask(hp, device=device)
+
+
+def _conan_batch(B=2, T=160, Tr=128):
+    rng = np.random.default_rng(1)
+    batch = {"content": rng.integers(0, 100, (B, T)),
+             "mels": (rng.standard_normal((B, T, 80)) * 0.5 - 4).astype(np.float32),
+             "ref_mels": (rng.standard_normal((B, Tr, 80)) * 0.5 - 4).astype(np.float32),
+             "f0": (rng.standard_normal((B, T)) * 0.3 + 7.5).astype(np.float32),
+             "uv": (rng.random((B, T)) < 0.2).astype(np.float32)}
+    batch["content"][1, T - 20:] = -1
+    for k in ("mels", "f0", "uv"):
+        batch[k][1, T - 20:] = 0
+    return batch
+
+
+@pytest.mark.cuda
+def test_conan_step_on_card_matches_cpu():
+    from conan_tpu_torch.checkpoint import tree_leaves, tree_map
+
+    dev = _card()
+    task, task_cpu = _conan_task(None), _conan_task("cpu")
+    batch = _conan_batch()
+    state, done = task.host_hook(task.init_state(torch.Generator().manual_seed(0)), 4, batch)
+    assert done
+    state["step"] = torch.tensor(4, dtype=torch.int32, device=dev)
+    new_gpu, m_gpu = task.train_step(state, batch, None, use_random_ref=True)
+    with torch.backends.mkldnn.flags(enabled=False):
+        new_cpu, m_cpu = task_cpu.train_step(tree_map(lambda t: t.cpu(), state), batch, None,
+                                             use_random_ref=True)
+        new_64, _ = task_cpu.train_step(
+            tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), state),
+            {k: v.astype(np.float64) if v.dtype.kind == "f" else v for k, v in batch.items()},
+            None, use_random_ref=True)
+    for k in m_cpu:
+        assert float(m_gpu[k]) == pytest.approx(float(m_cpu[k]), rel=1e-4, abs=0), k
+    assert all(float(m_cpu[k]) != 0 for k in ("vq_loss", "gloss", "a", "d_r"))
+
+    def leaves(st):
+        return (tree_leaves(st["opt_g"]["mu"]) + tree_leaves(st["opt_d"]["mu"])
+                + [st["vq_state"][k] for k in ("embedding", "ema_count", "ema_weight")])
+
+    def errs(st):
+        return [float((a.cpu().double() - b).norm() / b.norm().clamp(min=1e-30))
+                for a, b in zip(leaves(st), leaves(new_64))]
+
+    limit = max(1e-3, 4 * max(errs(new_cpu)))
+    assert max(errs(new_gpu)) <= limit
+
+
+@pytest.mark.cuda
+def test_conan_kmeans_hook_defers_on_too_few_frames():
+    """Fewer nonzero prosody rows than codewords: the hook defers (no
+    k-means, no error) and the codebook stays uninitialized."""
+    _card()
+    task = _conan_task(None)
+    state = task.init_state(torch.Generator().manual_seed(0))
+    tiny = {k: v[:1, :32] for k, v in _conan_batch().items()}      # 8 rows < 16
+    assert task.host_hook(state, 2, tiny) == (None, False)
+    assert float(state["vq_state"]["initialized"]) == 0.0
+    new, done = task.host_hook(state, 3, _conan_batch())
+    assert done and float(new["vq_state"]["initialized"]) == 1.0
+    assert new["vq_state"]["embedding"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_conan_step_draws_on_card():
+    """The training step's own draws from a CUDA generator, as
+    tests/test_torch_conan_train.py checks them on the CPU: dropout keeps
+    1 - rate and scales by 1 / (1 - rate); the mel discriminator's crop
+    starts cover [0, max(len) - w] and Dropout2d drops whole channels at 0.25."""
+    from conan_tpu_torch.checkpoint import tree_map
+    from conan_tpu_torch.models.vocoder.discriminators import MultiWindowDiscriminator
+    from conan_tpu_torch.nn.blocks import dropout
+
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.ones(200_000, device=dev)
+    y = dropout(x, 0.25, gen)
+    assert abs(float((y == 0).float().mean()) - 0.25) < 0.005
+    assert bool(torch.all((y == 0) | (y == 1 / 0.75)))
+    d = MultiWindowDiscriminator((8, 16), 12, 8)
+    p = tree_map(lambda t: t.to(dev), d.init(torch.Generator().manual_seed(1)))
+    mel = torch.randn(4, 40, 12, generator=torch.Generator().manual_seed(3)).to(dev) + 3.0
+    mel[:, 30:] = 0.0                                  # max(len) 30 of T 40
+    starts, dropped = [[], []], []
+    for _ in range(300):
+        _, hs, used, fit = d.apply(p, mel, gen)
+        assert bool(fit)
+        for i, s in enumerate(used):
+            starts[i].append(int(s))
+        dropped.append((hs[2].abs().sum(dim=(2, 3)) == 0).float().mean())
+    for s, w in zip(starts, (8, 16)):
+        assert min(s) == 0 and max(s) == 30 - w
+    assert abs(float(torch.stack(dropped).mean()) - 0.25) < 0.03

@@ -30,6 +30,7 @@ from conan_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
 from conan_tpu_torch.ops.precision import precision_scope
 
 from tests.torch_port_util import SMALL, leaf_paths, numpy_params, port_config
+from tests.torch_port_util import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEPLOY = {name: os.path.join(REPO, "checkpoints", f"soak_r5_{name}", "deploy")

@@ -35,6 +35,7 @@ from conan_tpu_torch.models.conan.model import Conan
 from conan_tpu_torch.nn.blocks import timestep_embedding
 
 from tests.torch_port_util import SMALL, numpy_params, port_config
+from tests.torch_port_util import one_torch_thread  # noqa: F401
 
 FLOW = JStreamingConfig(
     emformer=SMALL.emformer,

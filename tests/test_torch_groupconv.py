@@ -25,6 +25,7 @@ from conan_tpu_torch.ops.groupconv import (GroupConvKernel, _GroupConvFunction,
                                            tf32_split)
 
 from tests.test_pallas_groupconv import MSD_LAYERS
+from tests.torch_port_util import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 2e-4, 1e-4
 GRAD_ATOL, GRAD_RTOL = 5e-4, 1e-3

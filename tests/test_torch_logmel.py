@@ -30,6 +30,7 @@ from conan_tpu_torch.ops import stft as port_stft
 from conan_tpu_torch.ops.logmel import (LogmelGanKernel, LogmelKernel, _LogmelGanFunction,
                                         _mel_bands_np, _twiddles_np, gan_pad, logmel,
                                         logmel_gan, logmel_reference)
+from tests.torch_port_util import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 2e-4, 1e-4
 HOP = 320

@@ -32,6 +32,7 @@ from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerat
 from conan_tpu_torch.nn.module import Stream
 
 from tests.torch_port_util import SMALL, leaf_shapes, numpy_params, port_config
+from tests.torch_port_util import one_torch_thread  # noqa: F401
 
 PORT = port_config(SMALL)
 

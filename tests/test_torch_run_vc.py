@@ -32,6 +32,7 @@ from conan_tpu_torch.data.binarizer import load_wav
 from conan_tpu_torch.infer import run_vc
 from conan_tpu_torch.infer.build import build_engine, write_random_checkpoints
 from conan_tpu_torch.utils.async_save import AsyncSaver
+from tests.torch_port_util import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR, HOP = 16000, 320
@@ -82,7 +83,7 @@ def test_run_vc_main_writes_the_engine_output(tmp_path, rng):
     for pair in (pairs[0], pairs[2]):
         want = eng.infer_once(load_wav(pair["source"], SR), load_wav(pair["reference"], SR),
                               use_scan=True, bucket_lengths=True)[0]
-        want = run_vc.postprocess(want, eng.cfg.mel, 0.01)
+        want = run_vc.postprocess(want, eng.cfg.mel, 0.01, device="cpu")
         sr, got = wavfile.read(pair["output"])
         assert sr == SR and got.dtype == np.int16 and got.shape == want.shape
         np.testing.assert_allclose(got / 32767, np.clip(want, -1, 1), atol=1.01 / 32767)
@@ -144,7 +145,7 @@ def test_run_vc_hparams_override_the_checkpoint_config(tmp_path, rng, monkeypatc
     eng = build(*dirs, serving_precision="fast", device="cpu")
     want = eng.infer_once(load_wav(str(src), SR), load_wav(str(ref), SR), use_scan=True,
                           bucket_lengths=True)[0]
-    want = run_vc.postprocess(want, eng.cfg.mel, 0.02)
+    want = run_vc.postprocess(want, eng.cfg.mel, 0.02, device="cpu")
     np.testing.assert_allclose(wavfile.read(out)[1] / 32767, np.clip(want, -1, 1),
                                atol=1.01 / 32767)
 
@@ -159,9 +160,19 @@ def test_denoise_and_postprocess_match_jax(rng, n):
                            win_length=1024)
     assert got.shape == want.shape == (1, (n // 320) * 320)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
-    np.testing.assert_allclose(run_vc.postprocess(wav, MelConfig(), 0.02),
+    np.testing.assert_allclose(run_vc.postprocess(wav, MelConfig(), 0.02, device="cpu"),
                                jax_postprocess(wav, JMelConfig(), 0.02), atol=1e-5)
-    assert run_vc.postprocess(wav, MelConfig(), 0.0) is wav
+    assert run_vc.postprocess(wav, MelConfig(), 0.0, device="cpu") is wav
+
+
+def test_postprocess_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a card")
+    wav = np.zeros(HOP * 64, np.float32)
+    for c in (0.02, 0.0):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_vc.postprocess(wav, MelConfig(), c)
+    assert run_vc.postprocess(wav, MelConfig(), 0.0, device="cpu") is wav
 
 
 def test_config_overrides_match_jax():

@@ -97,3 +97,117 @@ def test_trained_r5_bucketing_moves_the_output():
         "code_flips": int((codes_b != codes).sum())}}))
     np.testing.assert_array_equal(codes_b, codes)
     assert np.isfinite(wav_b).all() and np.abs(wav_b - wav).max() > 1e-4
+
+
+@pytest.mark.slow
+def test_trained_r5_conan_step_matches_jax():
+    """One ConanTask step from the r5 deploy generator and VQ state (the
+    discriminator random, from numpy) on gt_b0.wav and gt_b1.wav, in both
+    packages on the CPU in fp32: content codes from the trained Emformer (the
+    port's engine), mels from the port's frontend, F0 a flat 150 Hz on the
+    frames louder than the utterance's median (there is no pitch tracker in
+    the port), at step 150 of the deploy config's schedule (VQ on, forcing
+    off, guided attention and discriminator on). Dropout off and crops at
+    frame 0 on both sides (tests/torch_port_util.py:jax_conan_step_fns).
+    Prints the loss terms' largest relative difference and each tree's worst
+    gradient leaf, port against JAX and each against the port's float64
+    step. Holds the losses to rtol 1e-4 and the port's leaves to its float64
+    step within max(1e-3, 4 x JAX's worst leaf from it), chip_smoke.py's
+    rule for the card's step: on trained weights an fp32 step's worst leaf
+    is past 1e-3 from another's."""
+    if not all(os.path.isdir(d) for d in DEPLOY):
+        pytest.skip("the r5 deploy checkpoints are not in this checkout")
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from conan_tpu.train.tasks import ConanTask as JConanTask
+
+    import chip_smoke
+    from conan_tpu_torch.checkpoint import (load_ckpt_state, params_from_jax, tree_leaves,
+                                            tree_map)
+    from conan_tpu_torch.config import load_config
+    from conan_tpu_torch.infer.build import build_engine
+    from conan_tpu_torch.train.tasks import ConanTask
+    from tests.torch_port_util import jax_conan_step_fns, numpy_params
+
+    hp = load_config(os.path.join(DEPLOY[0], "config.yaml"))
+    hp.update(train_precision="highest")
+    step = 150
+    assert hp["forcing"] < step < hp["random_speaker_steps"] and step > hp["disc_start_steps"]
+    wavs = [chip_smoke.read_wav(os.path.join(WAVS, f"gt_b{i}.wav")) for i in (0, 1)]
+    eng = build_engine(*DEPLOY, serving_precision="exact", device="cpu")
+    codes = [eng.infer_once(w, wavs[1 - i], collect_codes=True)[1][0]
+             for i, w in enumerate(wavs)]
+    mels = [eng.wav_to_mel(w)[0].numpy() for w in wavs]
+    n = [min(len(c), len(m)) for c, m in zip(codes, mels)]
+    T = max(n)
+    batch = {"content": np.full((2, T), -1, np.int64), "mels": np.zeros((2, T, 80), np.float32),
+             "f0": np.zeros((2, T), np.float32), "uv": np.zeros((2, T), np.float32)}
+    for i in range(2):
+        energy = mels[i][:n[i]].mean(-1)
+        voiced = energy > np.median(energy)
+        batch["content"][i, :n[i]] = codes[i][:n[i]]
+        batch["mels"][i, :n[i]] = mels[i][:n[i]]
+        batch["f0"][i, :n[i]] = np.where(voiced, np.log2(150.0), 0.0)
+        batch["uv"][i, :n[i]] = ~voiced
+    state_np = load_ckpt_state(DEPLOY[0])
+    pg_np = jax.tree.map(np.asarray, state_np["params_g"])
+    vq_np = jax.tree.map(np.asarray, state_np["vq_state"])
+    assert float(vq_np["initialized"]) == 1.0
+    jtask = JConanTask(hp)
+    pd_np = numpy_params(jtask.mel_disc.init, 2)
+    gen, disc = jax_conan_step_fns(jtask)
+    key = jax.random.PRNGKey(0)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (_, (gl_j, out_j)), grads_g_j = gen(pg_np, pd_np, vq_np, jbatch, jnp.int32(step), key, None,
+                                        False)
+    (_, (dl_j, _)), grads_d_j = disc(pd_np, jbatch["mels"],
+                                     jax.lax.stop_gradient(out_j["mel_out"]), key)
+
+    task = ConanTask(hp, device="cpu")
+
+    def port_grads(dtype):
+        """The port's loss terms and gradients in ``dtype``, as its step
+        takes them (oneDNN off, as the CPU side of chip_smoke.py's check)."""
+        def to(tree):
+            return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                            params_from_jax(tree, "cpu"))
+
+        pg, pd = to(pg_np), to(pd_np)
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in task._batch(batch, False).items()}
+        leaves_g = [t.requires_grad_(True) for t in tree_leaves(pg)]
+        with torch.backends.mkldnn.flags(enabled=False):
+            gtot, gl, out = task._gen_losses(pg, to(pd_np), to(vq_np), b, torch.tensor(step),
+                                             None, False)
+            grads_g = torch.autograd.grad(gtot, leaves_g)
+            leaves_d = [t.requires_grad_(True) for t in tree_leaves(pd)]
+            dtot, dl, _ = task._disc_losses(pd, b["mels"], out["mel_out"].detach(), None)
+            grads_d = torch.autograd.grad(dtot, leaves_d)
+        return {k: float(v.detach()) for k, v in {**gl, **dl}.items()}, {"G": grads_g,
+                                                                          "D": grads_d}
+
+    losses, grads = port_grads(torch.float32)
+    _, grads_64 = port_grads(torch.float64)
+    want = {k: float(v) for k, v in {**gl_j, **dl_j}.items()}
+    jax_grads = {"G": jax.tree.leaves(grads_g_j), "D": jax.tree.leaves(grads_d_j)}
+
+    def rel(g, w):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+    def worst(a, b):
+        """Each tree's worst leaf: (relative L2 error, leaf index)."""
+        return {t: max((rel(x, y), i) for i, (x, y) in enumerate(zip(a[t], b[t]))) for t in a}
+
+    loss_rel = max(abs(losses[k] - want[k]) / abs(want[k]) for k in want if want[k] != 0)
+    port_64, jax_64 = worst(grads, grads_64), worst(jax_grads, grads_64)
+    print(json.dumps({"conan_step_frames": n, "losses": losses, "loss_max_rel_diff": loss_rel,
+                      "worst_leaf_port_vs_jax": worst(grads, jax_grads),
+                      "worst_leaf_from_float64": {"port": port_64, "jax": jax_64}}))
+    assert all(losses[k] != 0 for k in ("vq_loss", "gloss", "a"))
+    assert loss_rel < 1e-4
+    # both fp32 steps against the port's float64 one, chip_smoke.py's rule
+    limit = max(1e-3, 4 * max(e for e, _ in jax_64.values()))
+    assert max(e for e, _ in port_64.values()) <= limit

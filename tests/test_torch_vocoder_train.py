@@ -55,6 +55,7 @@ from conan_tpu_torch.train.trainer import Trainer
 
 from tests.test_train_steps import VOC_HP
 from tests.torch_port_util import leaf_shapes, numpy_params
+from tests.torch_port_util import one_torch_thread  # noqa: F401
 
 B, FRAMES, HOP = 2, 8, 320
 

@@ -14,6 +14,8 @@ import math
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from conan_tpu.infer.streaming import StreamingConfig
 from conan_tpu.models.conan.model import ConanConfig
@@ -34,6 +36,19 @@ SMALL = StreamingConfig(
     conan=ConanConfig(hidden_size=64),
     vocoder=HifiGanConfig(upsample_initial_channel=32),
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """PyTorch on one intra-op thread for a module's tests (autouse where a
+    test module imports it). The suite runs its files in parallel workers,
+    each of which would otherwise start an OpenMP pool as wide as the
+    machine; six such pools on eight cores made small PyTorch ops on the CPU
+    one to two orders of magnitude slower than in a lone process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def numpy_params(init_fn, seed: int):
@@ -76,3 +91,21 @@ def leaf_shapes(tree, prefix: str = "") -> dict[str, tuple]:
         return {p: s for i, v in enumerate(tree)
                 for p, s in leaf_shapes(v, f"{prefix}/{i}").items()}
     return {prefix: tuple(tree.shape)}
+
+
+def jax_conan_step_fns(jtask):
+    """JAX's ConanTask generator and discriminator losses with their
+    gradients, jitted, with the step's random parts fixed as the port's step
+    runs them without a generator: dropout off (``rng=None`` into the model)
+    and every mel-discriminator crop at frame 0. The two ``apply`` methods
+    are wrapped on this task instance only; nothing in the package changes.
+    Returns (gen, disc): ``gen(pg, pd, vq_state, batch, step, key, None,
+    use_random_ref)`` and ``disc(pd, mels, mel_p, key)``, each →
+    ((loss, aux), grads)."""
+    model_apply, disc_apply = jtask.model.apply, jtask.mel_disc.apply
+    jtask.model.apply = lambda *a, **k: model_apply(*a, **{**k, "rng": None})
+    jtask.mel_disc.apply = lambda pd, mel, rng, train=False, start_frames=None: disc_apply(
+        pd, mel, rng, train=False, start_frames=[0] * len(jtask.mel_disc.windows))
+    gen = jax.jit(jax.value_and_grad(jtask._gen_losses, has_aux=True), static_argnums=(6, 7))
+    disc = jax.jit(jax.value_and_grad(jtask._disc_losses, has_aux=True))
+    return gen, disc
