@@ -56,8 +56,20 @@ and the result line:
               (k-means hook, VQ, forcing off, discriminator, random
               references): ms per step, hook time, peak memory, a profiled
               step; then one small-width step on the card against the CPU's
-  7. {"kernels": [...]}
-  8. {"ok": true, "device": {...}}
+  7. emformer_train  the Emformer distillation at production width
+              (egs/soak_r5/emformer.yaml, train_precision highest) through
+              the port's CLIs: 36 synthesized utterances of 480-500 frames
+              (4 of them the valid split) binarized by run_binarize.main
+              (K1 once an utterance, each stored mel held to the plain
+              version), train.run.main for 20 steps (B = 16 x 530 input
+              frames; validation and a checkpoint every 10), again to 30
+              (resumed at 20), --validate; the engine built from the
+              trained work dir (streaming against offline); the step timed
+              at B = 16 x 528 frames (ms, peak memory, a profiled step) and
+              at the longest rung, B = 2 x 3000 (its mask's build time);
+              then one small-width step on the card against the CPU's
+  8. {"kernels": [...]}
+  9. {"ok": true, "device": {...}}
 
 The weights are random, made from --seed and written as checkpoint dirs
 under build/; the audio is synthesized from the seed. --trained names the
@@ -69,6 +81,7 @@ Imports nothing of JAX or conan_tpu.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -176,6 +189,21 @@ CONAN_GATES = {"vq_start": 1, "forcing": 2, "disc_start_steps": 3, "random_speak
 # every gate is on (VQ, guided attention, discriminator, random reference)
 CONAN_CHECK_HP = {"hidden_size": 32, "nVQ": 16, "mel_disc_hidden_size": 8}
 CONAN_CHECK_FRAMES, CONAN_CHECK_REF, CONAN_CHECK_STEP = 160, 128, 4
+# The emformer_train phase: 4 training speakers x 8 synthesized utterances of
+# 480-500 frames and 4 of a valid speaker, binarized and trained through the
+# port's CLIs on egs/soak_r5/emformer.yaml: max_tokens 8000 and max_sentences
+# 16 pack B = 16 at the ladder's 528 rung (530 input frames with the
+# lookahead). EMF_STEPS steps with a validation and a checkpoint every
+# EMF_VAL_EVERY, then a resumed run to EMF_RESUMED; the step timed at that
+# shape (EMF_WARM warm, EMF_TIMED by CUDA events) and at the longest rung,
+# B x T = EMF_LONG (max_frames; 8000 tokens cap B at 2).
+EMF_SPEAKERS, EMF_UTTS, EMF_VALID_UTTS, EMF_FRAMES = 4, 8, 4, (480, 500)
+EMF_STEPS, EMF_RESUMED, EMF_VAL_EVERY = 20, 30, 10
+EMF_WARM, EMF_TIMED, EMF_LONG = 3, 10, (2, 3000)
+# its card-vs-CPU check: 2 layers of FFN 64 over the corpus's mels, two
+# utterances cut to 32 segments
+EMF_CHECK = {"num_layers": 2, "ffn_dim": 64}
+EMF_CHECK_FRAMES = 128
 
 
 def fail(msg: str) -> None:
@@ -202,18 +230,24 @@ def kernel_device_ms(fn, key: str, iters: int = 20) -> float:
     warm one: the mean over the launches the profiler recorded (it may miss
     one at the window's edge). Beside ``cuda_ms``, which times the whole
     wrapper call (its other launches and, for a kernel of a few µs, the
-    host), this is the kernel alone."""
+    host), this is the kernel alone. A profiler window that recorded fewer
+    than half the launches (once, one recorded none of a K2 geometry's 20)
+    is taken again, twice at most, with a note; then it fails."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key]
-    count = sum(e.count for e in evs)
-    if not iters // 2 <= count <= iters:
-        fail(f"profiler saw {count} launches of {key} in {iters} calls")
-    return sum(e.self_device_time_total for e in evs) / 1e3 / count
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and key in e.key]
+        count = sum(e.count for e in evs)
+        if iters // 2 <= count <= iters:
+            return sum(e.self_device_time_total for e in evs) / 1e3 / count
+        print(f"kernel_device_ms: profiler window {attempt + 1} saw {count} launches of {key} "
+              f"in {iters} calls", flush=True)
+    fail(f"profiler saw {count} launches of {key} in {iters} calls, three windows running")
 
 
 def logmel_bound_ms(B: int, T: int, n_frames: int, cfg: MelConfig,
@@ -768,7 +802,8 @@ def conan_step_check(hp, batch: dict, dev: torch.device, seed: int) -> None:
           f"{STEP_FP32_FACTOR} x the CPU fp32 step's worst) {limit:.3g}", flush=True)
 
 
-def binarized_mels_check(hp, dev: torch.device, n_items: int) -> tuple[float, list[str]]:
+def binarized_mels_check(hp, dev: torch.device, n_items: int, phase: str = "conan_train"
+                         ) -> tuple[float, list[str]]:
     """Every mel the binarizer stored (K1 on each whole utterance) against
     the plain version on the same wav on the card, cut to the record's
     length, by compare_logmel. Returns the max abs difference and the notes
@@ -785,14 +820,14 @@ def binarized_mels_check(hp, dev: torch.device, n_items: int) -> tuple[float, li
                                             hp["audio_sample_rate"])[None]).to(dev)
             n = rec["len"]
             e, note = compare_logmel(
-                f"conan_train: binarized mel of {rec['item_name']} ({n} frames)",
+                f"{phase}: binarized mel of {rec['item_name']} ({n} frames)",
                 torch.from_numpy(rec["mel"]).to(dev), logmel_reference(wav, mel_cfg)[0, :n],
                 lambda: logmel_reference(wav.double(), mel_cfg)[0, :n])
             err, seen = max(err, e), seen + 1
             notes += [note] if note else []
         store.close()
     if seen != n_items:
-        fail(f"conan_train: the record store holds {seen} records for {n_items} utterances")
+        fail(f"{phase}: the record store holds {seen} records for {n_items} utterances")
     return err, notes
 
 
@@ -918,6 +953,259 @@ def conan_train_phase(seed: int, dev: torch.device) -> int:
                       for e in top)
           + f"; step {CONAN_STEPS} losses: {losses}", flush=True)
     conan_step_check(hp, batch, dev, seed)
+    return launches
+
+
+def emformer_corpus(hp, rng: np.random.Generator) -> list[str]:
+    """Write the emformer_train corpus where ``hp`` says: EMF_SPEAKERS x
+    EMF_UTTS training utterances and EMF_VALID_UTTS of the valid speaker
+    "val0", each with random codes 0-99 in ``metadata.json``. Returns the
+    wav paths."""
+    from scipy.io import wavfile
+
+    hop = hp["hop_size"]
+    wav_dir = os.path.join(hp["processed_data_dir"], "wavs")
+    os.makedirs(wav_dir)
+    names = [f"spk{s}_{u}" for s in range(EMF_SPEAKERS) for u in range(EMF_UTTS)]
+    names += [f"val0_{u}" for u in range(EMF_VALID_UTTS)]
+    items = []
+    for name in names:
+        n = int(rng.integers(EMF_FRAMES[0], EMF_FRAMES[1] + 1))
+        path = os.path.join(wav_dir, f"{name}.wav")
+        wavfile.write(path, SR, synth_wav(rng, (n * hop - 1) / SR))
+        items.append({"item_name": name, "wav_fn": path,
+                      "hubert": " ".join(map(str, rng.integers(0, 100, n)))})
+    with open(os.path.join(hp["processed_data_dir"], "metadata.json"), "w") as f:
+        json.dump(items, f)
+    return [it["wav_fn"] for it in items]
+
+
+def emformer_step_check(hp, batch: dict, seed: int) -> None:
+    """One EmformerTask step at small width (EMF_CHECK over the shipped
+    geometry) on the card against the same step on the CPU, from one state
+    and two of the corpus's utterances: ce and acc to the CPU's fp32 step at
+    STEP_RTOL; each gradient leaf (the first moments) to the CPU's float64
+    step within max(1e-3, 4 x the CPU fp32 step's worst leaf)."""
+    from conan_tpu_torch.models.emformer import EmformerConfig, EmformerDistillModel
+    from conan_tpu_torch.train.tasks import EmformerTask
+
+    cfg = dataclasses.replace(EmformerConfig.from_hparams(hp), **EMF_CHECK)
+    rc = cfg.right_context_length
+    small = {"mels": np.ascontiguousarray(batch["mels"][:CHECK_B, :EMF_CHECK_FRAMES + rc]),
+             "content": np.ascontiguousarray(batch["content"][:CHECK_B, :EMF_CHECK_FRAMES])}
+    tasks = {}
+    for device in (None, "cpu"):
+        tasks[device] = EmformerTask(hp, device=device)
+        tasks[device].model = EmformerDistillModel(cfg)
+    state0 = tasks[None].init_state(torch.Generator().manual_seed(seed + 2))
+    new_gpu, m_gpu = tasks[None].train_step(state0, small)
+    new_cpu, m_cpu = tasks["cpu"].train_step(tree_map(lambda t: t.cpu(), state0), small)
+    new_64, _ = tasks["cpu"].train_step(
+        tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), state0),
+        dict(small, mels=small["mels"].astype(np.float64)))
+    loss_err = max(abs(float(m_gpu[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1e-30)
+                   for k in ("ce", "acc"))
+    if loss_err > STEP_RTOL or float(m_gpu["skipped"]) or float(m_cpu["skipped"]):
+        fail(f"emformer check: card step {m_gpu} != CPU step {m_cpu} (rtol {STEP_RTOL})")
+    errs = {name: [rel_l2(a.cpu(), b) for a, b in zip(tree_leaves(st["opt"]["mu"]),
+                                                      tree_leaves(new_64["opt"]["mu"]))]
+            for name, st in (("card", new_gpu), ("cpu", new_cpu))}
+    limit = max(STEP_GRAD_REL, STEP_FP32_FACTOR * max(errs["cpu"]))
+    past = [f"leaf {i} {e:.3g}" for i, e in enumerate(errs["card"]) if e > limit]
+    if past:
+        fail(f"emformer check: card leaves off the CPU's float64 step past {limit:.3g}: "
+             + "; ".join(past))
+    print(f"emformer_train check: one step at B={CHECK_B} x {EMF_CHECK_FRAMES} frames of the "
+          f"corpus, {cfg.num_layers} layers of FFN {cfg.ffn_dim} (input {cfg.input_dim}, "
+          f"{cfg.num_heads} heads): card vs CPU ce/acc max rel diff {loss_err:.3g} (rtol "
+          f"{STEP_RTOL}); {len(errs['card'])} gradient leaves from the CPU's float64 step, max "
+          f"rel L2: card {max(errs['card']):.3g}, CPU fp32 {max(errs['cpu']):.3g}; limit "
+          f"{limit:.3g}", flush=True)
+
+
+def emformer_step_times(task, state: dict, batch: dict, n_warm: int, n_timed: int
+                        ) -> tuple[list[float], float]:
+    """ms of ``n_timed`` train steps on ``batch`` by CUDA events after
+    ``n_warm`` untimed ones, and the peak memory of those steps in GB."""
+    for _ in range(n_warm):
+        state, _ = task.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
+    events[0].record()
+    for i in range(n_timed):
+        state, _ = task.train_step(state, batch)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return ([a.elapsed_time(b) for a, b in zip(events, events[1:])],
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def emformer_train_phase(seed: int, dev: torch.device, smi: str, dirs, src: np.ndarray,
+                         ref: np.ndarray) -> int:
+    """Phase 7: the Emformer distillation through the port's CLIs at full
+    width (egs/soak_r5/emformer.yaml, train_precision highest): the binarize
+    CLI (K1 once an utterance), the training CLI with validation, periodic
+    checkpoints, a resumed run and --validate; then the engine serving from
+    the trained work dir; the step's times at the packed shape and at the
+    longest rung; the small-width card-vs-CPU check. Returns K1's launches
+    on this path (the binarizer's and the serving's)."""
+    import contextlib
+    import io
+
+    from conan_tpu_torch.checkpoint import (get_all_checkpoints, get_last_checkpoint,
+                                            params_from_jax)
+    from conan_tpu_torch.data import run_binarize
+    from conan_tpu_torch.models import emformer as emformer_mod
+    from conan_tpu_torch.train import run as train_run
+
+    work = os.path.join(ROOT, "build", "chip_smoke_emformer_train")
+    shutil.rmtree(work, ignore_errors=True)
+    config = os.path.join(ROOT, "egs", "soak_r5", "emformer.yaml")
+    shipped = load_config(config)["train_precision"]
+    corpus = (f"processed_data_dir={work}/processed,binary_data_dir={work}/binary,"
+              f"valid_prefixes=[val0],test_prefixes=[]")
+    hp = load_config(config)
+    hp.update(processed_data_dir=f"{work}/processed", binary_data_dir=f"{work}/binary",
+              valid_prefixes=["val0"], test_prefixes=[], train_precision="highest", seed=seed)
+    t0 = time.perf_counter()
+    emformer_corpus(hp, np.random.default_rng([seed, 7]))
+    synth_s = time.perf_counter() - t0
+    n_items = EMF_SPEAKERS * EMF_UTTS + EMF_VALID_UTTS
+
+    logmel.launches = 0
+    t0 = time.perf_counter()
+    run_binarize.main(["--config", config, "--hparams", corpus])
+    torch.cuda.synchronize()
+    binarize_s = time.perf_counter() - t0
+    bin_launches = logmel.launches
+    if bin_launches != n_items:
+        fail(f"emformer_train: the binarizer launched the logmel kernel {bin_launches} times "
+             f"for {n_items} utterances")
+    k1_err, k1_notes = binarized_mels_check(hp, dev, n_items, "emformer_train")
+    train_iter = build_train_iter(hp, "emformer")
+    packed = [next(train_iter) for _ in range(4)]
+    train_iter.close()
+    shapes = {tuple(b["mels"].shape[:2]) for b in packed}
+    # what max_tokens counts: B x the longest item (its codes before the
+    # collate masked its last rc)
+    rc = hp["right_context"]
+    tokens = [len(b["content"]) * int(((b["content"] != -1).sum(1) + rc).max()) for b in packed]
+
+    exp = os.path.join(work, "exp")
+    argv = ["--config", config, "--exp_name", exp, "--hparams",
+            f"{corpus},train_precision=highest,max_updates={EMF_STEPS},"
+            f"val_check_interval={EMF_VAL_EVERY},num_ckpt_keep=1,tb_log_interval=1,seed={seed}"]
+    t0 = time.perf_counter()
+    train_run.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    first = get_all_checkpoints(exp)
+    t0 = time.perf_counter()
+    train_run.main(["--exp_name", exp, "--hparams", f"max_updates={EMF_RESUMED}"])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_run.main(["--exp_name", exp, "--validate"])
+    validated = json.loads(out.getvalue().strip().splitlines()[-1])
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    tr = [r for r in records if r["prefix"] == "tr"]
+    val = [r for r in records if r["prefix"] == "val"]
+    ckpts = [os.path.basename(p) for p in get_all_checkpoints(exp)]
+    if [os.path.basename(p) for p in first] != [f"model_ckpt_steps_{EMF_STEPS}.ckpt"]:
+        fail(f"emformer_train: the first run left {first}")
+    if [r["step"] for r in tr] != list(range(1, EMF_RESUMED + 1)):
+        fail(f"emformer_train: the runs logged steps {[r['step'] for r in tr]}, not 1-"
+             f"{EMF_RESUMED} (the second resumed at step {EMF_STEPS})")
+    if [r["step"] for r in val] != list(range(EMF_VAL_EVERY, EMF_RESUMED + 1, EMF_VAL_EVERY)):
+        fail(f"emformer_train: validations at {[r['step'] for r in val]}")
+    if ckpts != [f"model_ckpt_steps_{EMF_RESUMED}.ckpt"] or validated["step"] != EMF_RESUMED:
+        fail(f"emformer_train: checkpoints {ckpts}, --validate read step {validated['step']}")
+    bad = [r for r in tr + val if not all(np.isfinite(r[k]) for k in ("ce", "acc"))]
+    skipped = sum(r["skipped"] for r in tr)
+    if bad or skipped:
+        fail(f"emformer_train: {skipped:.0f} updates skipped, non-finite metrics {bad}")
+    if shapes != {(16, 530)}:
+        fail(f"emformer_train: the loader packed B x T_in {shapes}, not 16 x 530")
+
+    # the engine serves from the trained work dir
+    eng = build_engine(dirs[0], exp, dirs[2], serving_precision="exact")
+    wav_s, codes_s = eng.infer_once(src, ref, collect_codes=True)
+    wav_o, codes_o = eng.infer_offline(src, ref, collect_codes=True)
+    torch.cuda.synchronize()
+    launches = logmel.launches
+    serve_err = float(np.abs(wav_s - wav_o).max())
+    if not np.array_equal(codes_s, codes_o) or serve_err > STREAM_ATOL \
+            or not np.isfinite(wav_s).all():
+        fail(f"emformer_train: serving from the trained dir, streaming vs offline max abs "
+             f"{serve_err:.3g}, codes equal {np.array_equal(codes_s, codes_o)}")
+
+    # the step's times at the packed shape, from the trained state
+    task, _ = build_task(hp)
+    ckpt, _ = get_last_checkpoint(exp)
+    state = params_from_jax(ckpt["state"], dev)
+    step_ms, peak_gb = emformer_step_times(task, state, packed[0], EMF_WARM, EMF_TIMED)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        task.train_step(state, packed[0], gen)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+
+    # the longest rung: the mask built once, then the step
+    B, T = EMF_LONG
+    rng = np.random.default_rng([seed, 8])
+    seg = task.cfg.segment_length
+    long_batch = {"mels": (rng.standard_normal((B, T + rc, 80)) - 4).astype(np.float32),
+                  "content": rng.integers(0, 100, (B, T))}
+    long_batch["content"][:, T - rc:] = -1
+    emformer_mod._offline_mask.cache_clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mask = task.model.emformer.offline_mask(T // seg, dev)
+    torch.cuda.synchronize()
+    mask_ms = 1e3 * (time.perf_counter() - t0)
+    long_ms, long_peak_gb = emformer_step_times(task, state, long_batch, 1, 3)
+    n_k = mask.shape[0]
+
+    B_p, T_p = packed[0]["mels"].shape[:2]
+    print(f"emformer_train: {smi}; egs/soak_r5/emformer.yaml at full width "
+          f"({hp['emformer_layers']} layers, input {task.cfg.input_dim}, {task.cfg.num_heads} "
+          f"heads of dim {task.cfg.head_dim}, FFN {task.cfg.ffn_dim}, segment {seg}, left context "
+          f"{task.cfg.left_context_length}, right context {rc}, {task.cfg.output_dim}-way head), "
+          f"train_precision highest set over the shipped {shipped!r}, seed {seed}; corpus "
+          f"{n_items} synthesized utterances of {EMF_FRAMES[0]}-{EMF_FRAMES[1]} frames in "
+          f"{synth_s:.2f} s; run_binarize.main (EmformerBinarizer, K1 x{bin_launches}) in "
+          f"{binarize_s:.2f} s, its {n_items} stored mels against the plain version: max abs "
+          f"{k1_err:.3g} (atol {LOGMEL_ATOL}, rtol {LOGMEL_RTOL})"
+          + (f", held to float64: {'; '.join(k1_notes)}" if k1_notes else "") + "; "
+          f"build_train_iter packs B x T_in {sorted(shapes)} (B x the longest item: {tokens}, "
+          f"max_tokens {hp['max_tokens']}); train.run.main {EMF_STEPS} steps in "
+          f"{train_s:.2f} s, resumed to {EMF_RESUMED} in {resume_s:.2f} s (steps "
+          f"{tr[EMF_STEPS]['step']}-{tr[-1]['step']} logged by the second run), validations at "
+          f"{[r['step'] for r in val]}, checkpoints left {ckpts}, skipped {skipped:.0f}; step "
+          f"1 ce {tr[0]['ce']:.5g} acc {tr[0]['acc']:.4g}, step {EMF_RESUMED} ce "
+          f"{tr[-1]['ce']:.5g} acc {tr[-1]['acc']:.4g}; --validate {json.dumps(validated)}; "
+          f"served from the trained dir: streaming vs offline max abs {serve_err:.3g} (atol "
+          f"{STREAM_ATOL}), codes equal, K1 x{launches} on this path "
+          f"({launches - bin_launches} serving); step at B x T_in {B_p} x {T_p} (n_q = n_k = "
+          f"{(T_p - rc) * (seg + rc) // seg}): "
+          f"ms (CUDA events, {EMF_TIMED} after {EMF_WARM} warm) {[round(x, 3) for x in step_ms]}, "
+          f"median {np.median(step_ms):.3f}; peak memory {peak_gb:.3f} GB; one profiled step: "
+          f"wall {wall_ms:.3f} ms, device kernels {device_ms:.3f} ms (busy "
+          f"{100 * device_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernels; largest: "
+          + "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                      for e in top)
+          + f"; longest rung B x T {B} x {T} (n_q = n_k = {n_k}, mask {n_k * n_k * 4 / 1e6:.1f} "
+          f"MB built in {mask_ms:.3f} ms): step ms {[round(x, 3) for x in long_ms]}, median "
+          f"{np.median(long_ms):.3f}, peak memory {long_peak_gb:.3f} GB", flush=True)
+    emformer_step_check(hp, packed[0], seed)
     return launches
 
 
@@ -1352,9 +1640,10 @@ def main() -> None:
                "flow": flow_phase(args.seed, src, ref),
                "run_vc": run_vc_phase(eng, dirs, rng)}
 
-    # 5. train, 6. conan_train
+    # 5. train, 6. conan_train, 7. emformer_train
     train_kernels = train_phase(args.seed, dev, rng)
     by_path["conan_train"] = conan_train_phase(args.seed, dev)
+    by_path["emformer_train"] = emformer_train_phase(args.seed, dev, smi, dirs, src, ref)
 
     kernel = {"name": "logmel", "route": "cuda", "source": "conan_tpu_torch/csrc/logmel.cu",
               "replaces": "conan_tpu/ops/pallas_stft.py:52", "launches": launches,
@@ -1363,7 +1652,7 @@ def main() -> None:
               "kernel_device_ms": serve_device_ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
-    # 7. kernels line, 8. result line
+    # 8. kernels line, 9. result line
     print(json.dumps({"kernels": [kernel, *train_kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

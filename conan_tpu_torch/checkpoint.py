@@ -55,9 +55,10 @@ def load_ckpt_state(work_dir: str, key_path: str = "", steps: int | None = None)
 
 
 def save_checkpoint(work_dir: str, global_step: int, state, hparams: dict | None = None,
-                    prefix: str = "model_ckpt_steps") -> str:
+                    num_keep: int = 3, prefix: str = "model_ckpt_steps") -> str:
     """Write ``state`` (a tree of tensors or arrays) in the shared format,
-    atomically (``.part`` then rename)."""
+    atomically (``.part`` then rename), then remove all but the newest
+    ``num_keep`` checkpoints of ``prefix`` in ``work_dir``."""
     os.makedirs(work_dir, exist_ok=True)
     path = os.path.join(work_dir, f"{prefix}_{global_step}.ckpt")
     tmp = path + ".part"
@@ -65,6 +66,8 @@ def save_checkpoint(work_dir: str, global_step: int, state, hparams: dict | None
         pickle.dump({"global_step": int(global_step), "state": tree_to_numpy(state),
                      "hparams": dict(hparams) if hparams else None}, f)
     os.replace(tmp, path)
+    for old in get_all_checkpoints(work_dir, prefix)[num_keep:]:
+        os.remove(old)
     return path
 
 
@@ -95,15 +98,20 @@ def tree_unflatten(template, leaves):
 
 
 def tree_to_numpy(tree):
+    """Tensors to numpy arrays; a None leaf (a ConanTask state without
+    style has no ``vq_state``) stays None, as in a JAX tree."""
     return tree_map(lambda x: x.detach().cpu().numpy() if torch.is_tensor(x)
-                    else np.asarray(x), tree)
+                    else None if x is None else np.asarray(x), tree)
 
 
 def params_from_jax(tree, device: str | torch.device):
     """A JAX parameter or state tree (numpy leaves, as in a checkpoint or from
     ``jax.device_get``) → the same tree with torch tensors on ``device``.
-    Float leaves become float32; integer and bool leaves keep their dtype."""
+    Float leaves become float32; integer and bool leaves keep their dtype;
+    None stays None."""
     def leaf(x):
+        if x is None:
+            return None
         a = np.asarray(x)
         if a.dtype.kind == "f":
             a = a.astype(np.float32)

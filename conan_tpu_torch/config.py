@@ -1,11 +1,15 @@
 """Configuration: the port's own copy of ``conan_tpu/config.py``:
-``HParams``, ``load_config`` with recursive ``base_config`` inheritance, and
-a config with dotted overrides on top (``parse_hparams_overrides``,
-``set_hparams``).
+``HParams``, ``load_config`` with recursive ``base_config`` inheritance, a
+config with dotted overrides on top (``parse_hparams_overrides``), and the
+experiment's hparams of the training CLI (``set_hparams``: ``--config``,
+``--exp_name``, ``--hparams``, ``--infer``, ``--validate``, ``--reset``, and
+the work dir's saved ``config.yaml``).
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
 import re
 from types import MappingProxyType
@@ -35,6 +39,17 @@ class HParams(Mapping[str, Any]):
 
     def __repr__(self) -> str:
         return f"HParams({dict(self._d)!r})"
+
+    def to_dict(self) -> dict:
+        """A deep copy as plain nested dicts and lists."""
+        def conv(v):
+            if isinstance(v, Mapping):
+                return {k: conv(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [conv(x) for x in v]
+            return v
+
+        return conv(dict(self._d))
 
 
 def _deep_update(base: dict, new: dict) -> dict:
@@ -125,11 +140,49 @@ def parse_hparams_overrides(s: str) -> dict:
     return out
 
 
-def set_hparams(config: str = "", hparams_str: str = "") -> HParams:
-    """``config`` with its bases (none when empty), then the dotted overrides
-    of ``hparams_str`` on top. The JAX package's experiment half of
-    ``set_hparams`` (``exp_name``, the work dir's saved ``config.yaml``,
-    ``--reset``/``--infer``/``--validate``) and ``hparams_to_json`` wait for
-    the training entry point that will call them (ROADMAP.md)."""
-    cfg = load_config(config) if config else {}
-    return HParams(_deep_update(cfg, parse_hparams_overrides(hparams_str)))
+def set_hparams(config: str = "", hparams_str: str = "", *,
+                work_dir_root: str = "checkpoints", save: bool = True,
+                argv: list[str] | None = None) -> HParams:
+    """The hparams of a run (reference hparams.py:25-131).
+
+    Without ``argv``: ``config`` with its bases (none when empty), then the
+    dotted overrides of ``hparams_str`` on top.
+
+    With ``argv``, the CLI's ``--config/--exp_name/--hparams/--infer/
+    --validate/--reset`` (other arguments are left to the caller): the work
+    dir is ``<work_dir_root>/<exp_name>`` (an absolute ``exp_name`` is the
+    work dir itself). Its saved ``config.yaml`` is the base where it exists,
+    unless ``--reset``; else ``--config``. The overrides go on top, then
+    ``work_dir``, ``exp_name``, ``infer`` and ``validate``. With ``save``,
+    the result is written to the work dir's ``config.yaml`` when there was
+    none or on ``--reset``."""
+    if argv is None:
+        cfg = load_config(config) if config else {}
+        return HParams(_deep_update(cfg, parse_hparams_overrides(hparams_str)))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default=config)
+    ap.add_argument("--exp_name", default="")
+    ap.add_argument("--hparams", default=hparams_str)
+    ap.add_argument("--infer", action="store_true")
+    ap.add_argument("--validate", action="store_true")
+    ap.add_argument("--reset", action="store_true")
+    args, _ = ap.parse_known_args(argv)
+    work_dir = os.path.join(work_dir_root, args.exp_name) if args.exp_name else ""
+    saved = os.path.join(work_dir, "config.yaml") if work_dir else ""
+    if saved and os.path.exists(saved) and not args.reset:
+        with open(saved) as f:
+            cfg = yaml.safe_load(f) or {}
+    else:
+        cfg = load_config(args.config) if args.config else {}
+    _deep_update(cfg, parse_hparams_overrides(args.hparams))
+    cfg.update(work_dir=work_dir, exp_name=args.exp_name, infer=bool(args.infer),
+               validate=bool(args.validate))
+    if save and work_dir and (args.reset or not os.path.exists(saved)):
+        os.makedirs(work_dir, exist_ok=True)
+        with open(saved, "w") as f:
+            yaml.safe_dump(cfg, f, sort_keys=True)
+    return HParams(cfg)
+
+
+def hparams_to_json(hp: HParams) -> str:
+    return json.dumps(hp.to_dict(), sort_keys=True, indent=2)

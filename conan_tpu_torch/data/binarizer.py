@@ -1,4 +1,4 @@
-"""Data preparation for the Conan acoustic model
+"""Data preparation for the Conan acoustic model and the Emformer
 (``conan_tpu/data/binarizer.py``): ``metadata.json`` → a binary record store.
 
 ``ConanBinarizer.process`` splits the items by speaker prefix
@@ -10,7 +10,9 @@ metadata (space-separated); F0 from ``<wav dir>_f0/<name>_f0.npy`` (zeros,
 with a warning, where it is missing). Each mel is one call of the serving
 log-mel frontend, kernel K1 on the card (``device`` None) or its plain
 version on the CPU. An item whose files cannot be read is skipped with a
-warning; an error of the frontend is not caught.
+warning; an error of the frontend is not caught. ``EmformerBinarizer`` is
+the same without F0: no ``f0`` key, each record cut to the shorter of its
+codes and its mel.
 """
 
 from __future__ import annotations
@@ -59,6 +61,8 @@ def split_items(item_names: list[str], valid_prefixes, test_prefixes):
 
 
 class ConanBinarizer:
+    with_f0 = True
+
     def __init__(self, hp, device: str | torch.device | None = None):
         self.hp = hp
         self.device = resolve_device(device)
@@ -83,7 +87,8 @@ class ConanBinarizer:
     def read_item(self, item: dict) -> tuple[np.ndarray, np.ndarray, np.ndarray | None]:
         """The reads that may fail on a bad item: its wav, its content codes
         and its F0 contour (None where ``<wav dir>_f0/<name>_f0.npy`` is
-        missing). Raise OSError or ValueError on an unreadable one."""
+        missing, or the binarizer stores none). Raise OSError or ValueError
+        on an unreadable one."""
         wav_fn = item["wav_fn"]
         wav = load_wav(wav_fn, self.hp["audio_sample_rate"])
         hubert = item["hubert"]
@@ -91,7 +96,8 @@ class ConanBinarizer:
                    if isinstance(hubert, str) else np.asarray(hubert, np.int64))
         f0_path = os.path.join(os.path.dirname(wav_fn) + "_f0",
                                os.path.basename(wav_fn).replace(".wav", "_f0.npy"))
-        return wav, content, np.load(f0_path) if os.path.exists(f0_path) else None
+        has_f0 = self.with_f0 and os.path.exists(f0_path)
+        return wav, content, np.load(f0_path) if has_f0 else None
 
     def process_item(self, item: dict, wav: np.ndarray, content: np.ndarray,
                      f0: np.ndarray | None) -> dict:
@@ -100,14 +106,17 @@ class ConanBinarizer:
         hp = self.hp
         mel = wav2mel_frontend(torch.from_numpy(wav[None]).to(self.device),
                                self.mel_cfg)[0].cpu().numpy()
-        if f0 is None:
+        if self.with_f0 and f0 is None:
             log.warning("no f0 for %s: storing zeros", item["item_name"])
             f0 = np.zeros(mel.shape[0], np.float32)
-        n = min(len(content), mel.shape[0], len(f0))
-        return {"item_name": item["item_name"], "mel": mel[:n].astype(np.float32),
-                "wav": wav[:n * hp["hop_size"]].astype(np.float32), "hubert": content[:n],
-                "spk_id": int(self.spker_map.get(item["item_name"].split("_", 1)[0], 0)),
-                "len": int(n), "f0": np.asarray(f0[:n], np.float32)}
+        n = min(len(content), mel.shape[0], *([len(f0)] if self.with_f0 else []))
+        rec = {"item_name": item["item_name"], "mel": mel[:n].astype(np.float32),
+               "wav": wav[:n * hp["hop_size"]].astype(np.float32), "hubert": content[:n],
+               "spk_id": int(self.spker_map.get(item["item_name"].split("_", 1)[0], 0)),
+               "len": int(n)}
+        if self.with_f0:
+            rec["f0"] = np.asarray(f0[:n], np.float32)
+        return rec
 
     def process(self) -> None:
         items = self.load_metadata()
@@ -132,3 +141,9 @@ class ConanBinarizer:
             np.save(f"{self.binary_dir}/{prefix}_lengths.npy", np.asarray(lengths))
             np.save(f"{self.binary_dir}/{prefix}_spk_ids.npy", np.asarray(spk_ids))
             log.info("%s: %d items", prefix, len(lengths))
+
+
+class EmformerBinarizer(ConanBinarizer):
+    """ConanBinarizer without F0 (conan_binarizer.py:424-488)."""
+
+    with_f0 = False

@@ -5,6 +5,9 @@
                   log-normalized with the unvoiced gaps interpolated
   ConanDataset    + the content codes; ``collate`` pads codes with -1 (the
                   value the model masks), mels, F0 and UV with 0
+  EmformerDataset + the content codes; ``collate`` pads mels to whole
+                  segments plus the right-context lookahead, and masks to -1
+                  the codes with no real lookahead
   VocoderDataset  random crops of ``max_samples`` // hop frames and their wav
 
 Sizes come from ``<prefix>_lengths.npy``. Random choices (references, crops)
@@ -110,6 +113,39 @@ class ConanDataset(SpeechDataset):
             "mel_lengths": np.asarray([s["mel"].shape[0] for s in samples], np.int64),
             "spk_ids": np.asarray([s["spk_id"] for s in samples], np.int64),
         }
+
+
+class EmformerDataset(SpeechDataset):
+    """mel and the teacher's codes (tasks/Emformer/dataset.py). Its items
+    still draw a same-speaker reference, as every SpeechDataset's do, so the
+    generator's later draws stay the JAX package's."""
+
+    def __getitem__(self, index: int) -> dict:
+        sample = super().__getitem__(index)
+        content = np.asarray(self._get_item(index)["hubert"], np.int64)
+        T = min(len(content), sample["mel"].shape[0])
+        sample["content"] = content[:T]
+        sample["mel"] = sample["mel"][:T]
+        return sample
+
+    def collate(self, samples: list[dict], target_len: int | None = None,
+                seg: int = 4, rc: int = 2) -> dict:
+        """mels padded with 0 to ⌈T/seg⌉·seg + rc frames (T the target length,
+        else the longest mel), content codes with -1 to ⌈T/seg⌉·seg. The last
+        ``rc`` codes of every sample (after the crop to ⌈T/seg⌉·seg + rc) are
+        -1 too: their lookahead would read padding, not audio (the
+        reference's ``content[:, :-right_context]`` cut, made per sample)."""
+        T = target_len or max(s["mel"].shape[0] for s in samples)
+        T_utt = -(-T // seg) * seg
+        contents = []
+        for s in samples:
+            c = np.asarray(s["content"]).copy()
+            if rc > 0:
+                c[max(min(len(c), T_utt + rc) - rc, 0):] = -1
+            contents.append(c)
+        return {"nsamples": len(samples),
+                "mels": collate_2d([s["mel"] for s in samples], 0.0, T_utt + rc),
+                "content": collate_1d(contents, -1, T_utt)}
 
 
 class VocoderDataset:

@@ -11,7 +11,10 @@ Segment s queries attend to utterance[s·seg−L .. (s+1)·seg) ∥ rc block s.
 
 The offline forward is the dense masked attention over [hard-copied
 right-context blocks ∥ utterance] (the JAX package's oracle path,
-``_offline_mask``/``_attention``); its banded TPU layout is left out. The
+``_offline_mask``/``_attention``, ``banded=False``); its banded TPU layout
+is left out. It is also the training forward: the mask is built on the
+device once per length and cached, and its additive -1e8 gives the softmax
+an exact zero gradient at every masked key. The
 streaming ``step`` carries a left-context K/V cache of L frames per layer and
 a count of valid cache slots. Head dim is 10, so attention is a plain fp32
 matmul and softmax; the engine runs this model in fp32 on every rung.
@@ -20,9 +23,9 @@ matmul and softmax; the engine runs this model in fp32 on every rung.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
-import numpy as np
 import torch
 
 from conan_tpu_torch.nn import inits
@@ -58,6 +61,23 @@ class EmformerConfig:
         return self.input_dim // self.num_heads
 
 
+@functools.lru_cache(maxsize=16)
+def _offline_mask(seg: int, rc: int, L: int, n_segs: int, device: torch.device) -> torch.Tensor:
+    T, nrc = n_segs * seg, n_segs * rc
+    i_rc = torch.arange(nrc, device=device)
+    i_utt = torch.arange(T, device=device)
+    q_seg = torch.cat([i_rc // max(rc, 1), i_utt // seg])          # each row's segment
+    k_is_rc = torch.cat([torch.ones(nrc, dtype=torch.bool, device=device),
+                         torch.zeros(T, dtype=torch.bool, device=device)])
+    k_pos = torch.cat([torch.zeros(nrc, dtype=torch.long, device=device), i_utt])
+    qs = q_seg[:, None]
+    allowed_rc = k_is_rc[None, :] & (q_seg[None, :] == qs)
+    allowed_utt = (~k_is_rc[None, :]) & (k_pos[None, :] >= qs * seg - L) \
+        & (k_pos[None, :] < (qs + 1) * seg)
+    zero = torch.zeros((), device=device)
+    return torch.where(allowed_rc | allowed_utt, zero, torch.full((), NEG_INF, device=device))
+
+
 class Emformer:
     def __init__(self, cfg: EmformerConfig):
         self.cfg = cfg
@@ -79,21 +99,14 @@ class Emformer:
         return {"layers": layers}
 
     # ----------------------------------------------------------- offline
-    def _offline_mask(self, n_segs: int) -> np.ndarray:
-        """[n_q, n_k] additive mask; rows and columns ordered
-        [rc blocks (n_segs·rc) ∥ utterance (n_segs·seg)]."""
+    def offline_mask(self, n_segs: int, device: torch.device | str) -> torch.Tensor:
+        """[n_q, n_k] additive fp32 mask (0 allowed, NEG_INF not); rows and
+        columns ordered [rc blocks (n_segs·rc) ∥ utterance (n_segs·seg)].
+        Built on ``device`` from index comparisons and cached per
+        (geometry, n_segs, device): at 3000 frames it is 4500² fp32, 81 MB."""
         cfg = self.cfg
-        seg, rc, L = cfg.segment_length, cfg.right_context_length, cfg.left_context_length
-        T = n_segs * seg
-        nrc = n_segs * rc
-        q_seg = np.concatenate([np.arange(nrc) // max(rc, 1), np.arange(T) // seg])
-        k_is_rc = np.concatenate([np.ones(nrc, bool), np.zeros(T, bool)])
-        k_pos = np.concatenate([np.zeros(nrc), np.arange(T)])  # utterance positions only
-        qs = q_seg[:, None]
-        allowed_rc = k_is_rc[None, :] & (q_seg[None, :] == qs)
-        allowed_utt = ((~k_is_rc[None, :]) & (k_pos[None, :] >= qs * seg - L)
-                       & (k_pos[None, :] < (qs + 1) * seg))
-        return np.where(allowed_rc | allowed_utt, 0.0, NEG_INF).astype(np.float32)
+        return _offline_mask(cfg.segment_length, cfg.right_context_length,
+                             cfg.left_context_length, n_segs, torch.device(device))
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         B, T, _ = x.shape
@@ -132,9 +145,10 @@ class Emformer:
         x = mel[:, :T]
         if rc > 0:
             # hard-copied right-context blocks: block s = input[(s+1)·seg : +rc]
-            idx = (np.arange(n_segs)[:, None] + 1) * seg + np.arange(rc)[None, :]
-            x = torch.cat([mel[:, torch.from_numpy(idx.reshape(-1)).to(mel.device)], x], 1)
-        bias = torch.from_numpy(self._offline_mask(n_segs)).to(mel.device)
+            idx = ((torch.arange(n_segs, device=mel.device)[:, None] + 1) * seg
+                   + torch.arange(rc, device=mel.device)[None, :])
+            x = torch.cat([mel[:, idx.reshape(-1)], x], 1)
+        bias = self.offline_mask(n_segs, mel.device)
         if lengths is not None:
             utt_hi = lengths + (T - torch.max(lengths))
             key_valid = torch.arange(T, device=mel.device)[None, :] < utt_hi[:, None]

@@ -10,6 +10,8 @@
   multi-resolution STFT         stft_loss.py: spectral convergence and
                                 log-magnitude L1, the clamp under the sqrt
   LSGAN and feature matching    hifigan_causal.py:494-531
+  distillation CE and accuracy  Emformer.py:15-46, over the codes that are
+                                not -1
 """
 
 from __future__ import annotations
@@ -166,3 +168,22 @@ def feature_loss(fmap_r: list, fmap_g: list) -> torch.Tensor:
         for rl, gl in zip(dr, dg):
             loss = loss + torch.mean(torch.abs(rl - gl))
     return loss * 2.0
+
+
+def distillation_loss(logits: torch.Tensor, codes: torch.Tensor, mask: torch.Tensor,
+                      temperature: float = 1.0) -> torch.Tensor:
+    """The mean over ``mask`` of -log softmax(logits / temperature)[code].
+    Codes are clamped to 0 before the gather (a -1 pad gathers code 0 and is
+    then masked), as the JAX package's ``take_along_axis`` reads them."""
+    logp = torch.log_softmax(logits / temperature, dim=-1)
+    nll = -torch.gather(logp, -1, torch.clamp(codes, min=0)[..., None])[..., 0]
+    m = mask.to(logits.dtype)
+    return torch.sum(nll * m) / m.sum().clamp(min=1.0)
+
+
+def distillation_accuracy(logits: torch.Tensor, codes: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """The share of argmax(logits) == code over ``mask``, in fp32."""
+    m = mask.to(torch.float32)
+    hit = (torch.argmax(logits, dim=-1) == codes).to(torch.float32)
+    return torch.sum(hit * m) / m.sum().clamp(min=1.0)

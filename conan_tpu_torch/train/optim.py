@@ -41,6 +41,20 @@ def step_lr_schedule(lr: float, step_size: int, gamma: float):
     return lambda step: lr * gamma ** torch.floor(step / step_size)
 
 
+def emformer_distill_schedule(lr: float, warmup_steps: int = 20000,
+                              warmup_init_lr: float = 1e-7, lr_decay: float = 0.995,
+                              decay_interval: int = 2500, min_lr: float = 1e-6):
+    """The Emformer distillation's LambdaLR (tasks/Emformer/Emformer.py:474-491):
+    linear from ``warmup_init_lr`` to ``lr`` over ``warmup_steps``, then
+    lr · lr_decay^floor((step - warmup) / decay_interval), at least ``min_lr``."""
+    def f(step):
+        warm = warmup_init_lr + (lr - warmup_init_lr) * (step / warmup_steps)
+        n_decays = torch.floor(torch.clamp(step - warmup_steps, min=0) / decay_interval)
+        decayed = torch.clamp(lr * lr_decay ** n_decays, min=min_lr)
+        return torch.where(step < warmup_steps, warm, decayed)
+    return f
+
+
 def build_schedule(hp):
     """The generator's schedule named by ``hp["scheduler"]`` (none, warmup,
     rsqrt, step_lr), as tasks/tts/speech_base.py:156-165 selects it."""

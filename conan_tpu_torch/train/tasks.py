@@ -1,5 +1,6 @@
-"""The GAN training tasks (``conan_tpu/train/tasks.py``): ``VocoderTask``
-(:54-219) and ``ConanTask`` (:223-373).
+"""The training tasks (``conan_tpu/train/tasks.py``): the GANs ``VocoderTask``
+(:54-219) and ``ConanTask`` (:223-373), and ``EmformerTask`` (:429-475),
+the content extractor's distillation.
 
 Each ``train_step`` is one functional step over a state tree with the JAX
 package's key paths: the generator update, then the discriminator update on
@@ -27,6 +28,10 @@ VQ losses, and the EMA codebook carried in the state (``vq_state``). Its
 mels come from the binarizer, where K1 made them; the step itself runs no
 hand-written kernel. The generator's gradients are again taken with respect
 to its own parameters only.
+
+EmformerTask: the offline Emformer and its code head against the teacher's
+codes, the masked CE and accuracy. Its mels too come from the binarizer
+(K1); the step draws nothing at random.
 """
 
 from __future__ import annotations
@@ -38,13 +43,15 @@ import numpy as np
 from conan_tpu_torch.checkpoint import tree_leaves, tree_map, tree_unflatten
 from conan_tpu_torch.device import resolve_device
 from conan_tpu_torch.models.conan.model import Conan, ConanConfig
+from conan_tpu_torch.models.emformer import EmformerConfig, EmformerDistillModel
 from conan_tpu_torch.models.vocoder.discriminators import (MultiPeriodDiscriminator,
                                                            MultiScaleDiscriminator,
                                                            MultiWindowDiscriminator)
 from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
 from conan_tpu_torch.ops.precision import precision_scope
 from conan_tpu_torch.train import losses as L
-from conan_tpu_torch.train.optim import AdamW, build_schedule, step_lr_schedule
+from conan_tpu_torch.train.optim import (AdamW, build_schedule, emformer_distill_schedule,
+                                         step_lr_schedule)
 
 NOT_PORTED = "is not ported yet (ROADMAP.md, modules still to port: {})"
 
@@ -348,3 +355,66 @@ class ConanTask:
         metrics["skipped"] = 1.0 - ok_g.float()
         return {"params_g": params_g, "params_d": params_d, "vq_state": vq_state,
                 "opt_g": opt_g, "opt_d": opt_d, "step": step + 1}, metrics
+
+
+class EmformerTask:
+    """The Emformer distilled from HuBERT codes: temperature-scaled CE times
+    ``lambda_distillation`` over the codes that are not -1, AdamW with global
+    norm clipping and ``emformer_distill_schedule``."""
+
+    def __init__(self, hp, device: str | torch.device | None = None):
+        _refuse_accumulation(hp)
+        self.hp = hp
+        self.device = resolve_device(device)
+        self.precision = training_precision(hp.get("train_precision", "highest"))
+        self.cfg = EmformerConfig.from_hparams(hp)
+        self.model = EmformerDistillModel(self.cfg)
+        sched = emformer_distill_schedule(
+            hp["lr"], hp.get("warmup_steps", 20000), float(hp.get("warmup_init_lr", 1e-7)),
+            hp.get("lr_decay", 0.995), hp.get("decay_interval", 2500),
+            float(hp.get("min_lr", 1e-6)))
+        self.opt = AdamW(sched, b1=hp.get("optimizer_adam_beta1", 0.9),
+                         b2=hp.get("optimizer_adam_beta2", 0.98),
+                         weight_decay=hp.get("weight_decay", 0.0),
+                         clip_norm=hp.get("clip_grad_norm", 1.0))
+
+    def init_state(self, gen: torch.Generator) -> dict:
+        """Random parameters (the JAX package's distributions) on the task's
+        device, with a fresh optimizer state."""
+        p = tree_map(lambda t: t.to(self.device), self.model.init(gen))
+        return {"params": p, "opt": self.opt.init(p),
+                "step": torch.zeros((), dtype=torch.int32, device=self.device)}
+
+    def _loss(self, params, batch: dict):
+        """(CE × lambda_distillation, accuracy) of mels [B, T_in, 80] (the rc
+        lookahead included) against content codes [B, T_utt] (-1 pads and
+        each sample's rc tail, from the collate), both cut to one length. No
+        attention lengths: every key is valid, the -1 codes carry validity."""
+        mel = torch.as_tensor(batch["mels"]).to(self.device)
+        codes = torch.as_tensor(batch["content"]).to(self.device)
+        logits = self.model.apply(params, mel)
+        T = min(logits.shape[1], codes.shape[1])
+        logits, codes = logits[:, :T], codes[:, :T]
+        mask = codes != -1
+        loss = L.distillation_loss(logits, codes, mask,
+                                   float(self.hp.get("distillation_temperature", 1.0)))
+        return (loss * float(self.hp.get("lambda_distillation", 1.0)),
+                L.distillation_accuracy(logits, codes, mask))
+
+    def train_step(self, state: dict, batch: dict, generator: torch.Generator | None = None
+                   ) -> tuple[dict, dict]:
+        """batch: mels [B, T_in, 80] and content [B, T_utt] (tensors or
+        numpy). Returns the new state and the metrics ``ce``, ``acc`` and
+        ``skipped``, 0-dim tensors on the device. The step draws nothing at
+        random; ``generator`` is taken so that the trainer calls every task
+        alike."""
+        with precision_scope(self.precision, self.device):
+            p = _with_grad(state["params"])
+            loss, acc = self._loss(p, batch)
+            grads = _grads(loss, p)
+            ok = _all_finite(grads)
+            upd, opt_new = self.opt.update(tree_unflatten(p, grads), state["opt"],
+                                           state["params"])
+            params, opt = _gated_update(ok, state["params"], upd, opt_new, state["opt"])
+        return ({"params": params, "opt": opt, "step": state["step"] + 1},
+                {"ce": loss.detach(), "acc": acc.detach(), "skipped": 1.0 - ok.float()})

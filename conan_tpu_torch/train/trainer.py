@@ -1,17 +1,25 @@
-"""A minimal training loop (``conan_tpu/train/trainer.py:44-210``).
+"""The training loop (``conan_tpu/train/trainer.py:44-210``).
 
-``Trainer(task, hp, work_dir).fit(train_iter)`` initialises the task's state
-from ``hp["seed"]``, runs ``task.train_step`` on each batch up to
-``max_updates`` with one ``torch.Generator`` on the task's device (seeded
-``seed + 17``) for the steps' random draws, appends the running averages of
-the step metrics to ``<work_dir>/metrics.jsonl`` every ``tb_log_interval``
-steps (reading them back from the device only then), and saves the final
-state as a checkpoint in the JAX package's format. A task with a
+``Trainer(task, hp, work_dir).fit(train_iter, valid_fn)`` starts from the
+newest ``model_ckpt_steps_<N>.ckpt`` in ``work_dir`` (its state and step;
+the batch iterator and the generator restart from their seeds, as the JAX
+package's do), else from a state initialised from ``hp["seed"]``. It runs
+``task.train_step`` on each batch up to ``max_updates`` with one
+``torch.Generator`` on the task's device (seeded ``seed + 17``) for the
+steps' random draws, and appends the running averages of the step metrics
+to ``<work_dir>/metrics.jsonl`` every ``tb_log_interval`` steps (reading
+them back from the device only then). Every ``val_check_interval`` steps it
+runs ``valid_fn(state, step)`` (a ``val`` line; with ``save_best``, a
+``model_ckpt_best`` checkpoint when ``valid_monitor_key`` improves) and
+saves a checkpoint, keeping the newest ``num_ckpt_keep``; once more at the
+end. With ``num_sanity_val_steps`` not 0 it validates once before the first
+step (a ``sanity`` line). The first run in a work dir archives
+``conan_tpu_torch/`` and ``egs/`` as ``codes.zip``. A task with a
 ``host_hook`` (ConanTask's k-means bootstrap) has it run before each step
 from ``vq_start + 1`` on until it reports done. With
 ``use_random_ref_after`` n, the step gets ``use_random_ref=step >= n``.
-Validation, resume and the mesh are not ported (ROADMAP.md, modules still
-to port: the trainer's options).
+TensorBoard, gradient accumulation and the mesh are not ported
+(ROADMAP.md, modules still to port).
 """
 
 from __future__ import annotations
@@ -19,13 +27,14 @@ from __future__ import annotations
 import json
 import logging
 import os
+import shutil
 import time
 from collections import defaultdict
 from collections.abc import Mapping
 
 import torch
 
-from conan_tpu_torch.checkpoint import save_checkpoint
+from conan_tpu_torch.checkpoint import get_last_checkpoint, params_from_jax, save_checkpoint
 
 log = logging.getLogger(__name__)
 
@@ -43,7 +52,46 @@ class Trainer:
         os.makedirs(work_dir, exist_ok=True)
         self.max_updates = self.hp.get("max_updates", 1000000)
         self.tb_log_interval = self.hp.get("tb_log_interval", 100)
+        self.val_check_interval = self.hp.get("val_check_interval", 2000)
+        self.num_ckpt_keep = self.hp.get("num_ckpt_keep", 3)
         self.seed = self.hp.get("seed", 1234)
+        self.valid_monitor_key = self.hp.get("valid_monitor_key", "val_loss")
+        self.save_best = self.hp.get("save_best", False)
+        self._best = float("inf")
+        self._snapshot_code()
+
+    def _snapshot_code(self) -> None:
+        """``codes.zip`` of the port and the configs, once per work dir
+        (reference trainer.py:543-559)."""
+        dst = os.path.join(self.work_dir, "codes.zip")
+        if os.path.exists(dst):
+            return
+        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        tmp = os.path.join(self.work_dir, "_codes_tmp")
+        for name in ("conan_tpu_torch", "egs"):
+            if os.path.isdir(os.path.join(root, name)):
+                shutil.copytree(os.path.join(root, name), os.path.join(tmp, name),
+                                dirs_exist_ok=True,
+                                ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+        shutil.make_archive(dst[:-4], "zip", tmp)
+        shutil.rmtree(tmp)
+
+    @staticmethod
+    def _write(f, step: int, prefix: str, metrics: dict) -> None:
+        f.write(json.dumps({"step": step, "prefix": prefix,
+                            **{k: float(v) for k, v in metrics.items()}}) + "\n")
+        f.flush()
+
+    def _validate(self, f, valid_fn, state: dict, step: int) -> None:
+        vm = valid_fn(state, step)
+        self._write(f, step, "val", vm)
+        log.info("step %d validation: %s", step, " ".join(f"{k}={v:.4f}"
+                                                          for k, v in vm.items()))
+        monitored = vm.get(self.valid_monitor_key, sum(vm.values()) if vm else None)
+        if self.save_best and monitored is not None and monitored < self._best:
+            self._best = monitored
+            save_checkpoint(self.work_dir, step, state, self.hp, num_keep=1,
+                            prefix="model_ckpt_best")
 
     def _log(self, f, step: int, pending: list, seconds: float) -> dict:
         sums: dict = defaultdict(float)
@@ -52,8 +100,7 @@ class Trainer:
                 sums[k] += float(v)
         avg = {k: v / len(pending) for k, v in sums.items()}
         avg["steps_per_s"] = len(pending) / seconds
-        f.write(json.dumps({"step": step, "prefix": "tr", **avg}) + "\n")
-        f.flush()
+        self._write(f, step, "tr", avg)
         if avg.get("skipped", 0.0) > 0:
             log.warning("step %d: %.0f of the last %d updates were SKIPPED (non-finite "
                         "grads)", step, avg["skipped"] * len(pending), len(pending))
@@ -63,15 +110,22 @@ class Trainer:
         vq_start = self.hp.get("vq_start")
         return vq_start is not None and step >= max(int(vq_start), 0) + 1
 
-    def fit(self, train_iter) -> dict:
+    def fit(self, train_iter, valid_fn=None) -> dict:
         """Train on the batches of ``train_iter``; returns the final state."""
-        state = self.task.init_state(torch.Generator().manual_seed(self.seed))
+        ckpt, path = get_last_checkpoint(self.work_dir)
+        if ckpt is not None:
+            log.info("resuming from %s (step %d)", path, ckpt["global_step"])
+            state = params_from_jax(ckpt["state"], self.task.device)
+        else:
+            state = self.task.init_state(torch.Generator().manual_seed(self.seed))
+        step = int(state["step"])
         generator = torch.Generator(device=self.task.device).manual_seed(self.seed + 17)
         hook_done = not hasattr(self.task, "host_hook")
-        step = 0
         pending: list = []
         t_last = time.perf_counter()
         with open(os.path.join(self.work_dir, "metrics.jsonl"), "a") as f:
+            if valid_fn is not None and self.hp.get("num_sanity_val_steps", 0) != 0:
+                self._write(f, step, "sanity", valid_fn(state, step))
             for batch in train_iter:
                 if step >= self.max_updates:
                     break
@@ -90,5 +144,10 @@ class Trainer:
                                                            for k, v in avg.items()))
                     pending.clear()
                     t_last = time.perf_counter()
-        save_checkpoint(self.work_dir, step, state, self.hp)
+                if step % self.val_check_interval == 0:
+                    if valid_fn is not None:
+                        self._validate(f, valid_fn, state, step)
+                    save_checkpoint(self.work_dir, step, state, self.hp,
+                                    num_keep=self.num_ckpt_keep)
+        save_checkpoint(self.work_dir, step, state, self.hp, num_keep=self.num_ckpt_keep)
         return state

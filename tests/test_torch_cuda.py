@@ -414,3 +414,83 @@ def test_conan_step_draws_on_card():
     for s, w in zip(starts, (8, 16)):
         assert min(s) == 0 and max(s) == 30 - w
     assert abs(float(torch.stack(dropped).mean()) - 0.25) < 0.03
+
+
+# The Emformer distillation step at small width (tests/test_torch_emformer_train.py's
+# sizes: 2 layers, input 16, 2 heads, FFN 32, segment 4, left context 8, rc 2,
+# 10 codes), B = 2 of 40 segments: the card's step against the CPU's from one
+# state and batch, with chip_smoke.py's rule (ce and acc rtol 1e-4 from the
+# CPU's fp32 step; each gradient leaf, the first moments, within max(1e-3,
+# 4 x the CPU fp32 step's worst) of the CPU's float64 step).
+EMF_SMALL = dict(input_dim=16, num_heads=2, ffn_dim=32, num_layers=2, segment_length=4,
+                 left_context_length=8, right_context_length=2, output_dim=10)
+EMF_HP = {"emformer_input_dim": 16, "emformer_layers": 2, "chunk_size": 80,
+          "right_context": 2, "emformer_output_dim": 10, "lr": 1e-3, "warmup_steps": 2,
+          "train_precision": "highest"}
+
+
+def _emformer_task(device):
+    from conan_tpu_torch.models.emformer import EmformerConfig, EmformerDistillModel
+    from conan_tpu_torch.train.tasks import EmformerTask
+
+    task = EmformerTask(EMF_HP, device=device)
+    task.model = EmformerDistillModel(EmformerConfig(**EMF_SMALL))
+    return task
+
+
+def _numpy_mask(n_segs: int, seg: int, rc: int, L: int) -> np.ndarray:
+    """The offline attention mask written out in numpy: rows and columns
+    [rc blocks ∥ utterance]; a query of segment s sees rc block s and the
+    utterance frames [s·seg - L, (s+1)·seg)."""
+    T, nrc = n_segs * seg, n_segs * rc
+    q_seg = np.concatenate([np.arange(nrc) // max(rc, 1), np.arange(T) // seg])
+    mask = np.full((nrc + T, nrc + T), -1e8, np.float32)
+    for q, s in enumerate(q_seg):
+        mask[q, s * rc:(s + 1) * rc] = 0.0
+        mask[q, nrc + max(s * seg - L, 0):nrc + (s + 1) * seg] = 0.0
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [(4, 2, 50), (4, 0, 8), (3, 1, 5)])
+def test_emformer_mask_on_card_matches_numpy(geometry):
+    from conan_tpu_torch.models.emformer import EmformerConfig, Emformer
+
+    dev = _card()
+    seg, rc, L = geometry
+    emf = Emformer(EmformerConfig(segment_length=seg, right_context_length=rc,
+                                  left_context_length=L))
+    for n_segs in (1, 7, 132):
+        got = emf.offline_mask(n_segs, dev)
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.cpu().numpy(), _numpy_mask(n_segs, seg, rc, L))
+        assert emf.offline_mask(n_segs, dev) is got
+
+
+@pytest.mark.cuda
+def test_emformer_step_on_card_matches_cpu():
+    from conan_tpu_torch.checkpoint import tree_leaves, tree_map
+
+    dev = _card()
+    task, task_cpu = _emformer_task(None), _emformer_task("cpu")
+    rng = np.random.default_rng(2)
+    T = 40 * 4
+    batch = {"mels": rng.standard_normal((2, T + 2, 16)).astype(np.float32),
+             "content": rng.integers(0, 10, (2, T))}
+    batch["content"][0, T - 2:] = -1
+    batch["content"][1, T - 30:] = -1
+    state = task.init_state(torch.Generator().manual_seed(0))
+    new_gpu, m_gpu = task.train_step(state, batch)
+    new_cpu, m_cpu = task_cpu.train_step(tree_map(lambda t: t.cpu(), state), batch)
+    new_64, _ = task_cpu.train_step(
+        tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), state),
+        dict(batch, mels=batch["mels"].astype(np.float64)))
+    for k in ("ce", "acc"):
+        assert float(m_gpu[k]) == pytest.approx(float(m_cpu[k]), rel=1e-4, abs=0), k
+    assert float(m_gpu["skipped"]) == float(m_cpu["skipped"]) == 0.0
+
+    def errs(st):
+        return [float((a.cpu().double() - b).norm() / b.norm().clamp(min=1e-30))
+                for a, b in zip(tree_leaves(st["opt"]["mu"]), tree_leaves(new_64["opt"]["mu"]))]
+
+    assert max(errs(new_gpu)) <= max(1e-3, 4 * max(errs(new_cpu)))

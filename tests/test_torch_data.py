@@ -1,6 +1,6 @@
-"""The port's Conan data path (binarizer, record store, batching, dataset,
-loader, ``build_train_iter``) and its training loop on those batches,
-against the JAX package's, on the CPU.
+"""The port's Conan and Emformer data paths (binarizers, record store,
+batching, datasets, loader, ``build_train_iter``, the binarize CLI) and its
+training loop on the Conan batches, against the JAX package's, on the CPU.
 
 The corpus: 6 synthesized utterances (harmonics of a gliding F0 with noise,
 0.9-2.0 s) of 3 speakers, random content codes, each with its F0 contour as
@@ -23,7 +23,9 @@ from scipy.io import wavfile
 
 from conan_tpu.data import batching as jbatching
 from conan_tpu.data.binarizer import ConanBinarizer as JConanBinarizer
+from conan_tpu.data.binarizer import EmformerBinarizer as JEmformerBinarizer
 from conan_tpu.data.datasets import ConanDataset as JConanDataset
+from conan_tpu.data.datasets import EmformerDataset as JEmformerDataset
 from conan_tpu.data.record_store import RecordReader as JRecordReader
 from conan_tpu.data.record_store import RecordWriter as JRecordWriter
 from conan_tpu.train.checkpoint import load_ckpt_state as jax_load_ckpt_state
@@ -32,8 +34,9 @@ from conan_tpu.train.tasks import ConanTask as JConanTask
 
 from conan_tpu_torch.checkpoint import tree_leaves, tree_to_numpy
 from conan_tpu_torch.data import batching
-from conan_tpu_torch.data.binarizer import ConanBinarizer, split_items
-from conan_tpu_torch.data.datasets import ConanDataset
+from conan_tpu_torch.data import run_binarize
+from conan_tpu_torch.data.binarizer import ConanBinarizer, EmformerBinarizer, split_items
+from conan_tpu_torch.data.datasets import ConanDataset, EmformerDataset
 from conan_tpu_torch.data.loader import BatchIterator
 from conan_tpu_torch.data.record_store import RecordReader, RecordWriter
 from conan_tpu_torch.train.run import build_task, build_train_iter, use_random_ref_after
@@ -85,18 +88,21 @@ def corpus(tmp_path_factory):
     (processed / "spker_set.json").write_text(json.dumps({f"spk{i}": i for i in range(3)}))
     hps = {}
     for side, cls, kw in (("jax", JConanBinarizer, {}), ("port", ConanBinarizer,
-                                                          {"device": "cpu"})):
+                                                          {"device": "cpu"}),
+                          ("emf_jax", JEmformerBinarizer, {}),
+                          ("emf_port", EmformerBinarizer, {"device": "cpu"})):
         hps[side] = dict(AUDIO_HP, processed_data_dir=str(processed),
                          binary_data_dir=str(root / f"binary_{side}"))
         cls(hps[side], **kw).process()
     return hps
 
 
-def test_binarizer_matches_jax(corpus):
+def _assert_stores_match_jax(got_dir: str, want_dir: str):
+    """The port's store and JAX's: equal records but for the mels, held to
+    the frontend's bound; equal lengths and speaker ids."""
     for prefix, n in (("train", 4), ("valid", 2), ("test", 0)):
-        got = RecordReader(os.path.join(corpus["port"]["binary_data_dir"], prefix))
-        want = JRecordReader(os.path.join(corpus["jax"]["binary_data_dir"], prefix),
-                             use_native=False)
+        got = RecordReader(os.path.join(got_dir, prefix))
+        want = JRecordReader(os.path.join(want_dir, prefix), use_native=False)
         assert len(got) == len(want) == n
         for i in range(n):
             g, w = got[i], want[i]
@@ -106,14 +112,47 @@ def test_binarizer_matches_jax(corpus):
                     np.testing.assert_allclose(g[k], w[k], atol=ATOL, rtol=RTOL)
                 else:
                     np.testing.assert_array_equal(g[k], w[k])
-            assert g["len"] == g["mel"].shape[0] == len(g["hubert"]) == len(g["f0"])
+            assert g["len"] == g["mel"].shape[0] == len(g["hubert"])
         for side in ("lengths", "spk_ids"):
-            np.testing.assert_array_equal(
-                np.load(os.path.join(corpus["port"]["binary_data_dir"], f"{prefix}_{side}.npy")),
-                np.load(os.path.join(corpus["jax"]["binary_data_dir"], f"{prefix}_{side}.npy")))
+            np.testing.assert_array_equal(np.load(os.path.join(got_dir, f"{prefix}_{side}.npy")),
+                                          np.load(os.path.join(want_dir, f"{prefix}_{side}.npy")))
+
+
+def test_binarizer_matches_jax(corpus):
+    _assert_stores_match_jax(corpus["port"]["binary_data_dir"], corpus["jax"]["binary_data_dir"])
+    for prefix in ("train", "valid"):
+        store = RecordReader(os.path.join(corpus["port"]["binary_data_dir"], prefix))
+        assert all(store[i]["len"] == len(store[i]["f0"]) for i in range(len(store)))
     names = ["p231_1", "p100_2", "p334_x", "p100_3"]
     assert split_items(names, ["p231"], ["p334"]) == (["p100_2", "p100_3"], ["p334_x"],
                                                       ["p231_1"])
+
+
+def test_emformer_binarizer_matches_jax(corpus, caplog):
+    """No f0 key, each record as long as the shorter of its codes and mel,
+    and no per-item warning about a missing F0."""
+    _assert_stores_match_jax(corpus["emf_port"]["binary_data_dir"],
+                             corpus["emf_jax"]["binary_data_dir"])
+    store = RecordReader(os.path.join(corpus["emf_port"]["binary_data_dir"], "train"))
+    assert all("f0" not in store[i] for i in range(len(store)))
+    hp = dict(corpus["emf_port"], binary_data_dir=corpus["emf_port"]["binary_data_dir"] + "2")
+    with caplog.at_level("WARNING"):
+        EmformerBinarizer(hp, device="cpu").process()
+    assert not [r for r in caplog.records if "f0" in r.getMessage()]
+
+
+def test_run_binarize_cli(corpus, tmp_path):
+    """``run_binarize.main`` with binarizer_cls emformer (by the reference's
+    class path) and --device cpu writes the store EmformerBinarizer writes."""
+    cfg = tmp_path / "emf.yaml"
+    cfg.write_text(json.dumps(dict(AUDIO_HP,
+                                   binarizer_cls="data_gen.conan_binarizer.EmformerBinarizer",
+                                   processed_data_dir=corpus["emf_port"]["processed_data_dir"])))
+    out = str(tmp_path / "binary")
+    run_binarize.main(["--config", str(cfg), "--hparams", f"binary_data_dir={out}",
+                       "--device", "cpu"])
+    _assert_stores_match_jax(out, corpus["emf_jax"]["binary_data_dir"])
+    assert not os.path.exists(tmp_path / "config.yaml")
 
 
 def test_binarizer_skips_unreadable_items_but_not_frontend_errors(corpus, tmp_path,
@@ -210,6 +249,31 @@ def test_conan_dataset_matches_jax(corpus):
     assert (got_ds.collate(samples, 112)["content"][:, -1] == -1).all()
 
 
+@pytest.mark.parametrize("target_len", [None, 112, 99])
+def test_emformer_dataset_collate_matches_jax(corpus, target_len):
+    """Mels padded to ⌈T/seg⌉·seg + rc, codes with -1 to ⌈T/seg⌉·seg, and
+    the last rc codes of each sample -1 after the crop; the items' draws of
+    a reference keep the generator where JAX's is."""
+    hp = dict(corpus["emf_jax"], max_frames=3000)
+    got_ds = EmformerDataset(hp["binary_data_dir"], "train", hp, seed=5)
+    want_ds = JEmformerDataset(hp["binary_data_dir"], "train", hp, seed=5)
+    order = (2, 0, 3, 1, 0)
+    samples, jsamples = [got_ds[i] for i in order], [want_ds[i] for i in order]
+    for got, want in zip(samples, jsamples):
+        _assert_batches_equal(got, want)
+    for seg, rc in ((4, 2), (3, 0), (4, 5)):
+        got = got_ds.collate(samples, target_len, seg=seg, rc=rc)
+        _assert_batches_equal(got, want_ds.collate(jsamples, target_len, seg=seg, rc=rc))
+        T = target_len or max(s["mel"].shape[0] for s in samples)
+        T_utt = -(-T // seg) * seg
+        assert got["mels"].shape == (len(order), T_utt + rc, 80)
+        assert got["content"].shape == (len(order), T_utt)
+        for s, c in zip(samples, got["content"]):
+            n = min(len(s["content"]), T_utt + rc) - rc
+            np.testing.assert_array_equal(c[:n], s["content"][:n])
+            assert (c[max(n, 0):] == -1).all()
+
+
 def test_batch_iterator_surfaces_producer_errors():
     class Broken:
         sizes = [3, 4, 5]
@@ -248,8 +312,15 @@ def test_build_train_iter_matches_jax(corpus):
         assert got["mels"].shape[1] in batching.BucketLadder(64, 3000).lengths
     got_it.close()
     want_it.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_iter(hp, "emformer")
+    hp = dict(corpus["emf_jax"], max_tokens=400, max_sentences=3, max_frames=3000,
+              chunk_size=80, right_context=2)
+    got_it, want_it = build_train_iter(hp, "emformer"), jax_build_train_iter(hp, "emformer")
+    for _ in range(3):
+        got, want = next(got_it), next(want_it)
+        _assert_batches_equal(got, want)
+        assert got["mels"].shape[1] - 2 in batching.BucketLadder(64, 3000).lengths
+    got_it.close()
+    want_it.close()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_task(dict(hp, task_cls="postnet"), device="cpu")
 
