@@ -24,8 +24,11 @@ and the result line:
               once into a CUDA graph and replayed per chunk:
               infer_once(use_scan=True, bucket_lengths=True) against the
               eager loop (codes equal, 1e-5) and offline (1e-4); replay ms
-              per chunk, RTF, kernels per chunk and busy share, memory; then
-              the "high" and "fast" rungs captured against their eager loops
+              per chunk, RTF, kernels per chunk and busy share, memory, the
+              cost of one more capture (a reference of another length: the
+              reference is never padded); then the "high" and "fast" rungs
+              captured against their eager loops and against exact (SNR dB,
+              max abs, code flips)
   4c. flow    egs/conan_emformer_flow.yaml (the rectified-flow F0 head: a
               10x192 DiffNet, K = 100 Euler steps a chunk) with the r5
               Emformer and vocoder: eager loop, captured loop and offline
@@ -43,11 +46,18 @@ and the result line:
               VocoderTask + Trainer.fit for 5 steps at B = 18: loss terms,
               skipped updates, ms per step, peak memory, kernel launches per
               step against the count the code predicts, and a profiled step;
-              then one step at B = 2 on the card against the same step on
-              the CPU in fp32 (losses) and float64 (gradients); then K2 on each grouped geometry beside cuDNN, its
-              bound and cuDNN's backward there, and K1's GAN form's times
+              then the same batch through Trainer.fit at the shipped rung
+              (train_precision default: bf16 operands, K2-bf16 on the MSD,
+              its launches counted); then one step at B = 2 on the card
+              against the same step on the CPU in fp32 (losses) and float64
+              (gradients), and the "default" and "high" steps against the
+              float64 one; then K2 on each grouped geometry beside cuDNN,
+              its bound and cuDNN's backward there, K2-bf16 on each against
+              its plain version (values, dx, dw) beside cuDNN in bf16, and
+              K1's GAN form's times
   6. conan_train  the Conan acoustic GAN at production width
-              (egs/soak_r5/conan.yaml, train_precision highest): 24
+              (egs/soak_r5/conan.yaml, train_precision highest set over the
+              shipped default): 24
               synthesized utterances of 1400-1496 frames binarized by
               ConanBinarizer (K1 once an utterance; each stored mel held
               to the plain version on its wav) and batched by
@@ -55,7 +65,9 @@ and the result line:
               steps with the schedule gates scaled down to cross every phase
               (k-means hook, VQ, forcing off, discriminator, random
               references): ms per step, hook time, peak memory, a profiled
-              step; then one small-width step on the card against the CPU's
+              step; the last batch at the shipped rung (default); then one
+              small-width step on the card against the CPU's, and at the
+              "default" and "high" rungs against its float64 step
   7. emformer_train  the Emformer distillation at production width
               (egs/soak_r5/emformer.yaml, train_precision highest) through
               the port's CLIs: 36 synthesized utterances of 480-500 frames
@@ -66,16 +78,24 @@ and the result line:
               (resumed at 20), --validate; the engine built from the
               trained work dir (streaming against offline); the step timed
               at B = 16 x 528 frames (ms, peak memory, a profiled step) and
-              at the longest rung, B = 2 x 3000 (its mask's build time);
-              then one small-width step on the card against the CPU's
-  8. {"kernels": [...]}
-  9. {"ok": true, "device": {...}}
+              at the longest rung, B = 2 x 3000 (its mask's build time),
+              and at the shipped rung (default); then one small-width step
+              on the card against the CPU's, and at both rungs
+  8. postnet_train  the mel postnet as shipped (egs/soak_r5/postnet.yaml:
+              a 20x256 DiffNet, train_precision default, no override) on
+              conan_train's corpus and trained work dir: spec_stats, the
+              training CLI for 4 steps and resumed to 6, a step timed on
+              its first batch; then one small-width step on the card
+              against the CPU's, and at both rungs
+  9. {"kernels": [...]}
+  10. {"ok": true, "device": {...}}
 
 The weights are random, made from --seed and written as checkpoint dirs
 under build/; the audio is synthesized from the seed. --trained names the
 stages (conan, emf, voc) that load the trained checkpoints/soak_r5_<stage>/
-deploy weights instead; the audio then is two of the r5 validation wavs.
-Imports nothing of JAX or conan_tpu.
+deploy weights instead; the audio then is two of the r5 validation wavs, and
+the run stops after phase 4b (serving, the rungs against exact), its kernels
+line holding logmel alone. Imports nothing of JAX or conan_tpu.
 """
 
 from __future__ import annotations
@@ -100,15 +120,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from conan_tpu_torch.audio.mel import MelConfig
 from conan_tpu_torch.checkpoint import tree_leaves, tree_map
-from conan_tpu_torch.config import load_config
+from conan_tpu_torch.config import load_config, set_hparams
 from conan_tpu_torch.data.binarizer import ConanBinarizer, load_wav
 from conan_tpu_torch.data.record_store import RecordReader
 from conan_tpu_torch.infer import run_vc
 from conan_tpu_torch.infer.build import build_engine, write_random_checkpoints
 from conan_tpu_torch.models.vocoder.discriminators import DiscriminatorS
 from conan_tpu_torch.ops import native
-from conan_tpu_torch.ops.groupconv import groupconv, grouped_conv1d_reference
-from conan_tpu_torch.ops.precision import precision_scope
+from conan_tpu_torch.ops.groupconv import (groupconv, grouped_conv1d_bf16_reference,
+                                           grouped_conv1d_reference)
+from conan_tpu_torch.ops.precision import precision_scope, rounded_dot, training_scope
 from conan_tpu_torch.ops.logmel import (GAN_CLIP, GAN_EPS, _gan_vjp, gan_pad, logmel,
                                         logmel_gan, logmel_gan_reference, logmel_reference)
 from conan_tpu_torch.train.losses import gan_mel_configs
@@ -123,6 +144,7 @@ STAGES = ("conan", "emf", "voc")  # build_engine's order
 # them, HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # K1 against its plain version: both fp32 over the same window and
 # filterbank, the DFT computed another way (the kernel's radix-2 FFT against
@@ -204,6 +226,38 @@ EMF_WARM, EMF_TIMED, EMF_LONG = 3, 10, (2, 3000)
 # utterances cut to 32 segments
 EMF_CHECK = {"num_layers": 2, "ffn_dim": 64}
 EMF_CHECK_FRAMES = 128
+# K2-bf16 against its plain version (the fp32 grouped conv of the rounded
+# operands): values as K2's (fp32 sums in another order); dx and dw, which
+# cuDNN computes from bf16 operands and returns in bf16, against the same
+# convs in fp32 on the rounded operands with the incoming gradient rounded
+# (precision.rounded_dot): one bf16 rounding of each result, at most 2^-9
+# of an element, about 2^-9 / sqrt(3) = 1.1e-3 in relative L2.
+BF16_GRAD_REL = 4e-3
+# The shipped training rung ("default": bf16 operands) and TF32 ("high")
+# rows of each training phase: RUNG_STEPS steps on the phase's own batch
+# after one warm step. Each phase's small-width check also runs its step at
+# both rungs on the card from the same state and batch and holds it to the
+# CPU's float64 step: the losses' sum, and the gradient leaves as one tree
+# (the first moments), in relative terms within RUNG_BOUND. The bounds are
+# 3-4x the worst of the first card runs of these checks and of the card
+# tests' (tests/test_torch_cuda.py, another width; PERF.md §6). The
+# vocoder's is loose because its gradient at random init is
+# ill-conditioned: the mel loss's 1/mel factors amplify any rounding, and
+# exact DEFAULT arithmetic on the CPU (bf16-rounded operands, fp32 sums)
+# already moves its gradient tree by 0.34 where fp32 moves it by 2.3e-5.
+RUNG_STEPS = 3
+RUNG_BOUND = {
+    "vocoder": {"default": {"loss": 0.03, "tree": 0.7}, "high": {"loss": 1e-4, "tree": 0.05}},
+    "conan": {"default": {"loss": 0.05, "tree": 0.06}, "high": {"loss": 6e-4, "tree": 0.01}},
+    "emformer": {"default": {"loss": 3e-4, "tree": 0.1}, "high": {"loss": 5e-5, "tree": 0.02}},
+    "postnet": {"default": {"loss": 1e-5, "tree": 0.02}, "high": {"loss": 1e-5, "tree": 3e-3}},
+}
+# The postnet_train phase: egs/soak_r5/postnet.yaml as shipped (a 20x256
+# DiffNet over the mel, train_precision default) on conan_train's corpus
+# and trained work dir, after spec_stats: POST_STEPS steps through the
+# training CLI, resumed to POST_RESUMED; its check at the width below.
+POST_STEPS, POST_RESUMED = 4, 6
+POST_CHECK = {"residual_layers": 2, "residual_channels": 16}
 
 
 def fail(msg: str) -> None:
@@ -379,6 +433,143 @@ def groupconv_times(geoms: list[tuple], gen: torch.Generator, dev: torch.device)
     return rows
 
 
+def groupconv_bf16_bound_ms(B: int, T: int, ci: int, co: int, k: int, s: int, g: int,
+                            pad: int) -> tuple[float, str]:
+    """Least time for one grouped conv at the "default" rung, the larger of
+    two: its fp32 input, weights and output once over HBM, and its true
+    FLOPs (the grouped product, no zero padding of the reduction) as one
+    bf16 product at the dense bf16 peak. Returns (ms, "bytes" or
+    "operations")."""
+    t_out = (T + 2 * pad - k) // s + 1
+    flops = 2 * B * t_out * co * (ci // g) * k
+    t_bytes = 4 * (B * T * ci + co * (ci // g) * k + B * t_out * co) / PEAK_HBM_BYTES
+    t_ops = flops / PEAK_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def groupconv_bf16_phase(geoms: list[tuple], gen: torch.Generator, dev: torch.device
+                         ) -> tuple[list[dict], float, float]:
+    """K2-bf16 under the "default" rung on each grouped geometry at B =
+    TRAIN_B: the value against its plain version (max abs, relative L2), dx
+    and dw through its autograd Function against rounded_dot's (relative
+    L2), then its time beside the plain version, cuDNN's F.conv1d on bf16
+    tensors and the bound. Returns the rows, the max abs value error and the
+    worst gradient relative L2."""
+    rows, err, grad_err = [], 0.0, 0.0
+    for scale, t, ci, co, k, s, g, pd in geoms:
+        x = torch.randn(TRAIN_B, t, ci, generator=gen).to(dev)
+        w = ((torch.rand(co, ci // g, k, generator=gen) * 2 - 1) * (3 / (k * ci // g)) ** 0.5
+             ).to(dev)
+        k2 = dict(stride=s, padding=(pd, pd), groups=g)
+        name = f"groupconv_bf16 scale {scale} {ci}->{co} s{s} g{g} T{t}"
+        with training_scope("default", dev):
+            got, got_grads = value_and_grads(lambda xx, ww: groupconv(xx, ww, **k2), x, w)
+        want, want_grads = value_and_grads(lambda xx, ww: rounded_dot(
+            lambda a, b: grouped_conv1d_reference(a, b, **k2), xx, ww), x, w)
+        torch.testing.assert_close(want, grouped_conv1d_bf16_reference(x, w, **k2), rtol=0,
+                                   atol=0)
+        err = max(err, compare(name, got, want, LOGMEL_ATOL, LOGMEL_RTOL))
+        row = {"rel_l2": rel_l2(got, want)}
+        for which, a, b in zip(("dx", "dw"), got_grads, want_grads):
+            row[f"{which}_rel_l2"] = rel_l2(a, b)
+            if row[f"{which}_rel_l2"] > BF16_GRAD_REL:
+                fail(f"{name} {which}: relative L2 {row[f'{which}_rel_l2']:.3g} from the plain "
+                     f"version (limit {BF16_GRAD_REL})")
+            grad_err = max(grad_err, row[f"{which}_rel_l2"])
+        x_cf, w_b = x.transpose(1, 2).contiguous().bfloat16(), w.bfloat16()
+        with torch.no_grad(), training_scope("default", dev):
+            row.update(
+                ms=cuda_ms(lambda: groupconv(x, w, **k2)),
+                kernel_device_ms=kernel_device_ms(lambda: groupconv(x, w, **k2),
+                                                  "groupconv_bf16_kernel"),
+                plain_ms=cuda_ms(lambda: grouped_conv1d_bf16_reference(x, w, **k2)),
+                library_ms=cuda_ms(lambda: F.conv1d(x_cf, w_b, stride=s, padding=pd,
+                                                    groups=g)))
+        row["bound_ms"], row["bound_by"] = groupconv_bf16_bound_ms(TRAIN_B, t, ci, co, k, s,
+                                                                   g, pd)
+        rows.append(row)
+        print(f"train groupconv_bf16 geometry: scale {scale} {ci}->{co} s{s} g{g} B={TRAIN_B} "
+              f"T={t}: vs plain max abs {float((got - want).abs().max()):.3g}, rel L2 "
+              f"{row['rel_l2']:.3g}, dx {row['dx_rel_l2']:.3g}, dw {row['dw_rel_l2']:.3g}; "
+              f"kernel {row['ms']:.4f} ms (device {row['kernel_device_ms']:.4f} ms), cuDNN "
+              f"bf16 F.conv1d {row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4g} ms by {row['bound_by']}", flush=True)
+    return rows, err, grad_err
+
+
+def step_rows(task, state, batch, step_kw: dict, gen=None) -> dict:
+    """RUNG_STEPS steps of ``task`` on ``batch`` from ``state`` after one
+    warm step: ms per step by CUDA events and the peak memory; then one step
+    under torch.profiler: wall and device ms, kernels, the largest; the last
+    step's losses."""
+    state, _ = task.train_step(state, batch, gen, **step_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(RUNG_STEPS + 1)]
+    events[0].record()
+    for i in range(RUNG_STEPS):
+        state, metrics = task.train_step(state, batch, gen, **step_kw)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        task.train_step(state, batch, gen, **step_kw)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    if float(metrics["skipped"]) or not all(np.isfinite(float(v)) for v in metrics.values()):
+        fail(f"{task.precision} steps: skipped or non-finite metrics {metrics}")
+    return {"ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])], "peak_gb": peak_gb,
+            "wall_ms": wall_ms, "device_ms": device_ms,
+            "kernels": sum(e.count for e in kernels),
+            "largest": "; ".join(f"{e.key[:50]} x{e.count} "
+                                 f"{e.self_device_time_total / 1e3:.3f} ms" for e in top),
+            "losses": ", ".join(f"{k} {float(v):.5g}" for k, v in metrics.items()
+                                if k != "skipped")}
+
+
+def step_rows_text(rung: str, r: dict, beside: float | None = None) -> str:
+    return (f"train_precision {rung}: ms per step (CUDA events, {RUNG_STEPS} after 1 warm) "
+            f"{[round(x, 3) for x in r['ms']]}, median {np.median(r['ms']):.3f}"
+            + (f" (highest's {beside:.3f})" if beside is not None else "")
+            + f"; peak memory {r['peak_gb']:.3f} GB; one profiled step: wall "
+            f"{r['wall_ms']:.3f} ms, device kernels {r['device_ms']:.3f} ms (busy "
+            f"{100 * r['device_ms'] / r['wall_ms']:.1f}%), {r['kernels']} kernels; largest: "
+            f"{r['largest']}; losses: {r['losses']}")
+
+
+def rung_check(kind: str, make_task, state0: dict, batch: dict, m_64: dict, leaves_64: list,
+               leaves_of, **step_kw) -> str:
+    """The step at the "default" and "high" rungs on the card from
+    ``state0`` and ``batch`` (no generator) against the CPU's float64 step
+    (metrics ``m_64``, gradient leaves ``leaves_64``; ``leaves_of`` picks a
+    state's): the relative difference of the losses' sum and the relative
+    L2 of the leaves as one tree, each within RUNG_BOUND[kind] (the task's
+    kind); the worst leaf is reported. Returns the text for the phase's
+    check line."""
+    parts = []
+    total_64 = sum(float(v) for k, v in m_64.items() if k != "skipped")
+    flat_64 = torch.cat([b.double().ravel() for b in leaves_64])
+    for rung in ("default", "high"):
+        new, m = make_task(rung).train_step(state0, batch, None, **step_kw)
+        leaves = leaves_of(new)
+        loss = abs(sum(float(v) for k, v in m.items() if k != "skipped") - total_64) / max(
+            abs(total_64), 1e-30)
+        tree = rel_l2(torch.cat([a.cpu().double().ravel() for a in leaves]), flat_64)
+        worst = max(rel_l2(a.cpu(), b) for a, b in zip(leaves, leaves_64))
+        bound = RUNG_BOUND[kind][rung]
+        if float(m["skipped"]) or loss > bound["loss"] or tree > bound["tree"]:
+            fail(f"{kind} check at {rung}: losses' sum {loss:.3g} and gradient tree {tree:.3g} "
+                 f"from the CPU's float64 step (bounds {bound}), skipped {float(m['skipped'])}")
+        parts.append(f"{rung} on the card vs the CPU's float64 step: losses' sum rel diff "
+                     f"{loss:.3g}, gradient tree rel L2 {tree:.3g} (worst of {len(leaves)} "
+                     f"leaves {worst:.3g}; bounds {bound['loss']}, {bound['tree']})")
+    return "; ".join(parts)
+
+
 def value_and_grads(fn, *inputs):
     """fn's output and the gradients of sum(sin(output)) for each input."""
     inputs = [x.detach().clone().requires_grad_(True) for x in inputs]
@@ -392,6 +583,12 @@ def compare(name: str, got, want, atol: float, rtol: float) -> float:
         fail(f"{name} disagrees with its plain version: shapes {tuple(got.shape)} / "
              f"{tuple(want.shape)}, max abs {float((got - want).abs().max()):.3g}")
     return float((got - want).abs().max())
+
+
+def snr_db(got: np.ndarray, want: np.ndarray) -> float:
+    """10 log10 of ``want``'s energy over the difference's."""
+    return float(10 * np.log10(np.sum(want.astype(np.float64) ** 2)
+                               / max(np.sum((got - want).astype(np.float64) ** 2), 1e-30)))
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -472,6 +669,7 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
     kernels line's entries of the training kernels."""
     hp = load_config(os.path.join(ROOT, "egs", "soak_r5", "vocoder.yaml"))
     shipped = hp["train_precision"]
+    hp_shipped = dict(hp, max_updates=RUNG_STEPS + 1, tb_log_interval=1, seed=seed)
     hp.update(train_precision="highest", max_updates=TRAIN_STEPS, tb_log_interval=1, seed=seed)
     task = VocoderTask(hp)
     batch = train_batch(hp, rng, dev)
@@ -580,6 +778,69 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
           f"{k2_launches / TRAIN_STEPS:g} (predicted {k2_pred}); step {TRAIN_STEPS} losses: "
           f"{losses}", flush=True)
 
+    # the shipped rung, as the config is written: K2-bf16 on the MSD
+    n_default = RUNG_STEPS + 1
+    del events[:]
+
+    def default_batches():
+        for _ in range(n_default):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            yield batch
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    task_default = VocoderTask(hp_shipped)
+    work_default = os.path.join(ROOT, "build", "chip_smoke_train_default")
+    shutil.rmtree(work_default, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logmel_gan.launches = groupconv.launches = groupconv.launches_bf16 = 0
+    state_default = Trainer(task_default, hp_shipped, work_default).fit(default_batches())
+    torch.cuda.synchronize()
+    k2_bf16_launches, k2_default_tf32 = groupconv.launches_bf16, groupconv.launches
+    k1_default = logmel_gan.launches
+    default_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    default_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    with open(os.path.join(work_default, "metrics.jsonl")) as f:
+        records_d = [json.loads(line) for line in f]
+    if k2_bf16_launches != k2_pred * n_default or k2_default_tf32 \
+            or k1_default != k1_pred * n_default:
+        fail(f"train_precision {shipped}: launches per step groupconv_bf16 "
+             f"{k2_bf16_launches / n_default}, groupconv (3xTF32) {k2_default_tf32 / n_default}, "
+             f"logmel_gan {k1_default / n_default}; predicted {k2_pred}, 0, {k1_pred}")
+    if sum(r["skipped"] for r in records_d) or not all(
+            np.isfinite(v) for r in records_d for v in r.values() if isinstance(v, float)):
+        fail(f"train_precision {shipped}: skipped updates or non-finite metrics {records_d}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        task_default.train_step(state_default, batch)
+        torch.cuda.synchronize()
+        default_wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels_d = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    default_device_ms = sum(e.self_device_time_total for e in kernels_d) / 1e3
+    bf16_evs = [e for e in kernels_d if "groupconv_bf16_kernel" in e.key]
+    if sum(e.count for e in bf16_evs) != k2_pred:
+        fail(f"train_precision {shipped}: the profiled step ran groupconv_bf16_kernel "
+             f"{sum(e.count for e in bf16_evs)} times, predicted {k2_pred}")
+    top_d = sorted(kernels_d, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"train {shipped}: the same batch through Trainer.fit at the shipped "
+          f"train_precision {shipped!r} (bf16 operands for every dot and conv, K2-bf16 on the "
+          f"MSD), {n_default} steps: ms per step {[round(x, 3) for x in default_ms]}, median "
+          f"after 1 warmup step {np.median(default_ms[1:]):.3f} (highest's "
+          f"{np.median(step_ms[1:]):.3f}); peak memory {default_peak_gb:.3f} GB; launches per "
+          f"step groupconv_bf16 {k2_bf16_launches / n_default:g}, groupconv (3xTF32) "
+          f"{k2_default_tf32 / n_default:g}, logmel_gan {k1_default / n_default:g}; "
+          f"one profiled step: wall {default_wall_ms:.3f} ms, device kernels "
+          f"{default_device_ms:.3f} ms (busy {100 * default_device_ms / default_wall_ms:.1f}%), "
+          f"{sum(e.count for e in kernels_d)} kernels, K2-bf16 x{sum(e.count for e in bf16_evs)} "
+          f"{sum(e.self_device_time_total for e in bf16_evs) / 1e3:.3f} ms; largest: "
+          + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                      for e in top_d)
+          + "; step losses: " + ", ".join(f"{k} {v:.5g}" for k, v in records_d[-1].items()
+                                           if k not in ("step", "prefix", "skipped",
+                                                        "steps_per_s")), flush=True)
+
     # where one step's time goes: torch.profiler over one more step
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -627,7 +888,7 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
     # the optimizer's first moment after a first step is (1 - b1) · the clipped
     # gradient, leaf by leaf; both fp32 steps against the float64 one
     with torch.backends.mkldnn.flags(enabled=False):
-        new_64, _ = task_cpu.train_step(
+        new_64, m_64 = task_cpu.train_step(
             tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(),
                      state0), {k: v.cpu().double() for k, v in small.items()})
     mu = {name: {opt: tree_leaves(st[opt]["mu"]) for opt in ("opt_g", "opt_d")}
@@ -655,6 +916,10 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
                         for o in ("opt_g", "opt_d"))
           + f"; limit max({STEP_GRAD_REL}, {STEP_FP32_FACTOR} x the CPU fp32 step's worst) "
           f"{limit:.3g}", flush=True)
+    both_mu = lambda st: tree_leaves(st["opt_g"]["mu"]) + tree_leaves(st["opt_d"]["mu"])  # noqa: E731
+    print("train rungs: " + rung_check(
+        "vocoder", lambda rung: VocoderTask(dict(hp, train_precision=rung)), state0, small, m_64,
+        both_mu(new_64), both_mu), flush=True)
 
     # the kernels' times at the step's shapes
     k2_rows = groupconv_times(geoms, gen, dev)
@@ -671,6 +936,19 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
           f"discriminator step, 1 with dx in the generator step) forward "
           f"{3 * k2_sum['ms']:.4f} ms, backward "
           f"{2 * k2_sum['bwd_dx_dw_ms'] + k2_sum['bwd_dx_ms']:.4f} ms", flush=True)
+    bf16_rows, bf16_err, bf16_grad_err = groupconv_bf16_phase(geoms, gen, dev)
+    bf16_sum = {key: sum(r[key] for r in bf16_rows)
+                for key in ("ms", "kernel_device_ms", "plain_ms", "library_ms", "bound_ms")}
+    bf16_by = {by: sum(r["bound_ms"] for r in bf16_rows if r["bound_by"] == by)
+               for by in ("bytes", "operations")}
+    print(f"train groupconv_bf16 sums over the {len(geoms)} geometries: values max abs "
+          f"{bf16_err:.3g} (atol {LOGMEL_ATOL}, rtol {LOGMEL_RTOL}), max rel L2 "
+          f"{max(r['rel_l2'] for r in bf16_rows):.3g}; dx/dw max rel L2 {bf16_grad_err:.3g} "
+          f"(limit {BF16_GRAD_REL}); kernel {bf16_sum['ms']:.4f} ms (device "
+          f"{bf16_sum['kernel_device_ms']:.4f} ms), cuDNN bf16 {bf16_sum['library_ms']:.4f} "
+          f"ms, plain {bf16_sum['plain_ms']:.4f} ms, bound {bf16_sum['bound_ms']:.4g} ms "
+          f"(3xTF32 K2 {k2_sum['ms']:.4f} ms, device {k2_sum['kernel_device_ms']:.4f} ms)",
+          flush=True)
     with torch.no_grad():
         k1_ms = k1_device_ms = k1_plain_ms = k1_library_ms = k1_bound_ms = 0.0
         k1_bound = {"bytes": 0.0, "operations": 0.0}
@@ -705,6 +983,15 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
          "bound_by": max(k2_by, key=k2_by.get), "library_ms": k2_sum["library_ms"],
          "bound_route": k2_rows[0]["route"], "geometries": len(geoms),
          "scale1_layer": scale1},
+        {"name": "groupconv_bf16", "route": "cuda", "source": "conan_tpu_torch/csrc/groupconv.cu",
+         "replaces": "conan_tpu/ops/pallas_groupconv.py:56", "launches": k2_bf16_launches,
+         "max_abs_err": bf16_err, "max_abs_diff": bf16_err, "ms": bf16_sum["ms"],
+         "kernel_device_ms": bf16_sum["kernel_device_ms"], "plain_ms": bf16_sum["plain_ms"],
+         "bound_ms": bf16_sum["bound_ms"], "bound_by": max(bf16_by, key=bf16_by.get),
+         "library_ms": bf16_sum["library_ms"], "grad_rel_l2": bf16_grad_err,
+         "geometries": len(geoms),
+         "scale1_layer": {key: bf16_rows[0][key] for key in
+                          ("ms", "kernel_device_ms", "plain_ms", "library_ms", "bound_ms")}},
     ]
 
 
@@ -764,7 +1051,7 @@ def conan_step_check(hp, batch: dict, dev: torch.device, seed: int) -> None:
         new_cpu, m_cpu = task_cpu.train_step(tree_map(lambda t: t.cpu(), state0), small, None,
                                              use_random_ref=True)
         t_cpu = time.perf_counter() - t0
-        new_64, _ = task_cpu.train_step(
+        new_64, m_64 = task_cpu.train_step(
             tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), state0),
             {k: v.astype(np.float64) if v.dtype.kind == "f" else v for k, v in small.items()},
             None, use_random_ref=True)
@@ -800,6 +1087,10 @@ def conan_step_check(hp, batch: dict, dev: torch.device, seed: int) -> None:
           + ", ".join(f"{len(es)} {part}" for part, es in errs["card"].items())
           + f": card {worst['card']}; CPU fp32 {worst['cpu']}; limit max({STEP_GRAD_REL}, "
           f"{STEP_FP32_FACTOR} x the CPU fp32 step's worst) {limit:.3g}", flush=True)
+    gd = lambda st: parts["G"](st) + parts["D"](st)  # noqa: E731
+    print("conan_train rungs: " + rung_check(
+        "conan", lambda rung: ConanTask(dict(hp, train_precision=rung)), state0, small,
+        m_64, gd(new_64), gd, use_random_ref=True), flush=True)
 
 
 def binarized_mels_check(hp, dev: torch.device, n_items: int, phase: str = "conan_train"
@@ -952,6 +1243,11 @@ def conan_train_phase(seed: int, dev: torch.device) -> int:
           + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                       for e in top)
           + f"; step {CONAN_STEPS} losses: {losses}", flush=True)
+    rows = step_rows(ConanTask(dict(hp, train_precision=shipped)), state, batch,
+                     {"use_random_ref": True}, gen)
+    print(f"conan_train {shipped}: the last batch at the shipped rung (bf16 operands for every "
+          f"dot and conv) from the trained state, " + step_rows_text(
+              shipped, rows, float(np.median(last_phase))), flush=True)
     conan_step_check(hp, batch, dev, seed)
     return launches
 
@@ -1000,7 +1296,7 @@ def emformer_step_check(hp, batch: dict, seed: int) -> None:
     state0 = tasks[None].init_state(torch.Generator().manual_seed(seed + 2))
     new_gpu, m_gpu = tasks[None].train_step(state0, small)
     new_cpu, m_cpu = tasks["cpu"].train_step(tree_map(lambda t: t.cpu(), state0), small)
-    new_64, _ = tasks["cpu"].train_step(
+    new_64, m_64 = tasks["cpu"].train_step(
         tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), state0),
         dict(small, mels=small["mels"].astype(np.float64)))
     loss_err = max(abs(float(m_gpu[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1e-30)
@@ -1021,6 +1317,15 @@ def emformer_step_check(hp, batch: dict, seed: int) -> None:
           f"{STEP_RTOL}); {len(errs['card'])} gradient leaves from the CPU's float64 step, max "
           f"rel L2: card {max(errs['card']):.3g}, CPU fp32 {max(errs['cpu']):.3g}; limit "
           f"{limit:.3g}", flush=True)
+
+    def rung_task(rung):
+        task = EmformerTask(dict(hp, train_precision=rung))
+        task.model = EmformerDistillModel(cfg)
+        return task
+
+    mu = lambda st: tree_leaves(st["opt"]["mu"])  # noqa: E731
+    print("emformer_train rungs: " + rung_check("emformer", rung_task, state0, small, m_64,
+                                                mu(new_64), mu), flush=True)
 
 
 def emformer_step_times(task, state: dict, batch: dict, n_warm: int, n_timed: int
@@ -1205,8 +1510,143 @@ def emformer_train_phase(seed: int, dev: torch.device, smi: str, dirs, src: np.n
           + f"; longest rung B x T {B} x {T} (n_q = n_k = {n_k}, mask {n_k * n_k * 4 / 1e6:.1f} "
           f"MB built in {mask_ms:.3f} ms): step ms {[round(x, 3) for x in long_ms]}, median "
           f"{np.median(long_ms):.3f}, peak memory {long_peak_gb:.3f} GB", flush=True)
+    rows = step_rows(build_task(dict(hp, train_precision=shipped))[0], state, packed[0], {}, gen)
+    print(f"emformer_train {shipped}: B x T_in {B_p} x {T_p} at the shipped rung from the "
+          f"trained state, " + step_rows_text(shipped, rows, float(np.median(step_ms))),
+          flush=True)
     emformer_step_check(hp, packed[0], seed)
     return launches
+
+
+def postnet_step_check(hp, batch: dict, seed: int) -> None:
+    """One PostnetTask step at small width (CONAN_CHECK_HP for the frozen
+    Conan, POST_CHECK for the DiffNet, random frozen weights and VQ state) on
+    the card against the same step on the CPU at "highest", from one state
+    and batch, the flow's draws from one CPU generator seeded alike on both
+    sides: the loss to the CPU's fp32 step at STEP_RTOL; each gradient leaf
+    (the first moments) to the CPU's float64 step within max(1e-3, 4 x the
+    CPU fp32 step's worst leaf); then the "default" and "high" rungs."""
+    from conan_tpu_torch.models.conan.model import Conan, ConanConfig
+    from conan_tpu_torch.train.tasks import PostnetTask
+
+    hp = dict(hp, **CONAN_CHECK_HP, **POST_CHECK, train_precision="highest")
+    gen = torch.Generator().manual_seed(seed + 3)
+    conan = Conan(ConanConfig.from_hparams(hp))
+    frozen = tree_map(lambda t: t.numpy(), conan.init(gen))
+    vq = tree_map(lambda t: t.numpy(), conan.init_vq_state(gen))
+    vq["initialized"] = np.ones((), np.float32)
+    small = {k: np.ascontiguousarray(batch[k][:CHECK_B, :CONAN_CHECK_FRAMES])
+             for k in ("content", "mels", "f0", "uv")}
+    small["ref_mels"] = np.ascontiguousarray(batch["ref_mels"][:CHECK_B, :CONAN_CHECK_REF])
+    tasks = {d: PostnetTask(hp, frozen, vq, device=d) for d in (None, "cpu")}
+    draws = tasks["cpu"].postnet.flow.draws
+    for task in tasks.values():        # the same t and x0 on both devices
+        task.postnet.flow.draws = (lambda x1, g: tuple(
+            t.to(x1.device) for t in draws(x1.cpu(), torch.Generator().manual_seed(seed))))
+    state0 = tasks[None].init_state(torch.Generator().manual_seed(seed + 4))
+    new_gpu, m_gpu = tasks[None].train_step(state0, small)
+    cpu_state = tree_map(lambda t: t.cpu(), state0)
+    with torch.backends.mkldnn.flags(enabled=False):
+        new_cpu, m_cpu = tasks["cpu"].train_step(cpu_state, small)
+        new_64, m_64 = tasks["cpu"].train_step(
+            tree_map(lambda t: t.double() if t.is_floating_point() else t, cpu_state),
+            {k: v.astype(np.float64) if v.dtype.kind == "f" else v for k, v in small.items()})
+    loss_err = abs(float(m_gpu["flow"]) - float(m_cpu["flow"])) / abs(float(m_cpu["flow"]))
+    if loss_err > STEP_RTOL or float(m_gpu["skipped"]) or float(m_cpu["skipped"]):
+        fail(f"postnet check: card step {m_gpu} != CPU step {m_cpu} (rtol {STEP_RTOL})")
+    mu = lambda st: tree_leaves(st["opt"]["mu"])  # noqa: E731
+    errs = {name: [rel_l2(a.cpu(), b) for a, b in zip(mu(st), mu(new_64))]
+            for name, st in (("card", new_gpu), ("cpu", new_cpu))}
+    limit = max(STEP_GRAD_REL, STEP_FP32_FACTOR * max(errs["cpu"]))
+    past = [f"leaf {i} {e:.3g}" for i, e in enumerate(errs["card"]) if e > limit]
+    if past:
+        fail(f"postnet check: card leaves off the CPU's float64 step past {limit:.3g}: "
+             + "; ".join(past))
+
+    def rung_task(rung):
+        task = PostnetTask(dict(hp, train_precision=rung), frozen, vq)
+        task.postnet.flow.draws = tasks[None].postnet.flow.draws
+        return task
+
+    rungs = rung_check("postnet", rung_task, state0, small, m_64, mu(new_64), mu)
+    print(f"postnet_train check: one step at B={CHECK_B} x {CONAN_CHECK_FRAMES} frames, frozen "
+          f"Conan hidden {hp['hidden_size']}, DiffNet {hp['residual_layers']}x"
+          f"{hp['residual_channels']}: card vs CPU flow loss rel diff {loss_err:.3g} (rtol "
+          f"{STEP_RTOL}); {len(errs['card'])} gradient leaves from the CPU's float64 step, max "
+          f"rel L2: card {max(errs['card']):.3g}, CPU fp32 {max(errs['cpu']):.3g}; limit "
+          f"{limit:.3g}; {rungs}", flush=True)
+
+
+def postnet_train_phase(seed: int, dev: torch.device, smi: str) -> None:
+    """Phase 8: the mel postnet as shipped (egs/soak_r5/postnet.yaml: a
+    20x256 DiffNet, train_precision default) through the port's CLIs on
+    conan_train's corpus and trained work dir (fs2_ckpt_dir): spec_stats,
+    POST_STEPS steps, resumed to POST_RESUMED; a step timed on the phase's
+    first batch; the small-width card-vs-CPU check."""
+    import contextlib
+    import io
+
+    from conan_tpu_torch.checkpoint import get_all_checkpoints, get_last_checkpoint, \
+        params_from_jax
+    from conan_tpu_torch.data import spec_stats
+    from conan_tpu_torch.train import run as train_run
+
+    conan_work = os.path.join(ROOT, "build", "chip_smoke_conan_train")
+    work = os.path.join(ROOT, "build", "chip_smoke_postnet_train")
+    shutil.rmtree(work, ignore_errors=True)
+    config = os.path.join(ROOT, "egs", "soak_r5", "postnet.yaml")
+    shipped = load_config(config)
+    corpus = (f"binary_data_dir={conan_work}/binary,processed_data_dir={conan_work}/processed,"
+              f"fs2_ckpt_dir={conan_work}/exp")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        spec_stats.main(["--config", config, "--hparams", corpus])
+    stats_s = time.perf_counter() - t0
+    stats = np.load(os.path.join(conan_work, "binary", "spec_stats.npz"))
+    exp = os.path.join(work, "exp")
+    t0 = time.perf_counter()
+    train_run.main(["--config", config, "--exp_name", exp, "--hparams",
+                    f"{corpus},max_updates={POST_STEPS},val_check_interval={POST_STEPS},"
+                    f"num_ckpt_keep=1,tb_log_interval=1,seed={seed}"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_run.main(["--exp_name", exp, "--hparams", f"max_updates={POST_RESUMED}"])
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        tr = [r for r in map(json.loads, f) if r["prefix"] == "tr"]
+    ckpts = [os.path.basename(p) for p in get_all_checkpoints(exp)]
+    if [r["step"] for r in tr] != list(range(1, POST_RESUMED + 1)) \
+            or ckpts != [f"model_ckpt_steps_{POST_RESUMED}.ckpt"]:
+        fail(f"postnet_train: logged steps {[r['step'] for r in tr]}, checkpoints {ckpts}")
+    if sum(r["skipped"] for r in tr) or not all(np.isfinite(r["flow"]) for r in tr):
+        fail(f"postnet_train: skipped updates or non-finite losses {tr}")
+
+    hp = set_hparams(argv=["--exp_name", exp], save=False)
+    task, kind = build_task(hp)
+    if kind != "postnet" or task.precision != shipped["train_precision"] or not np.allclose(
+            task.postnet.cfg.spec_min, stats["spec_min"]):
+        fail(f"postnet_train: the work dir's task is {kind} at {task.precision}, spec_min from "
+             f"spec_stats.npz {np.allclose(task.postnet.cfg.spec_min, stats['spec_min'])}")
+    train_iter = build_train_iter(hp, kind)
+    batch = next(train_iter)
+    train_iter.close()
+    ckpt, _ = get_last_checkpoint(exp)
+    rows = step_rows(task, params_from_jax(ckpt["state"], dev), batch, {},
+                     torch.Generator(device=dev).manual_seed(seed))
+    print(f"postnet_train: {smi}; egs/soak_r5/postnet.yaml as shipped (DiffNet "
+          f"{hp['residual_layers']}x{hp['residual_channels']} over {hp['audio_num_mel_bins']} "
+          f"mels, K_step {hp['K_step']}, train_precision {task.precision}) on conan_train's "
+          f"corpus and trained Conan (fs2_ckpt_dir), seed {seed}: spec_stats in {stats_s:.2f} s "
+          f"(spec_min {float(stats['spec_min'].min()):.3f}..{float(stats['spec_min'].max()):.3f}"
+          f", spec_max {float(stats['spec_max'].min()):.3f}.."
+          f"{float(stats['spec_max'].max()):.3f}); train.run.main {POST_STEPS} steps in "
+          f"{train_s:.2f} s, resumed to {POST_RESUMED} in {resume_s:.2f} s, checkpoints left "
+          f"{ckpts}; flow loss step 1 {tr[0]['flow']:.5g}, step {POST_RESUMED} "
+          f"{tr[-1]['flow']:.5g}; step at B x T {tuple(batch['mels'].shape[:2])}: "
+          + step_rows_text(task.precision, rows), flush=True)
+    postnet_step_check(task.hp, batch, seed)
 
 
 def scan_timings(eng, src: np.ndarray, ref: np.ndarray, bucket_lengths: bool) -> dict:
@@ -1216,7 +1656,7 @@ def scan_timings(eng, src: np.ndarray, ref: np.ndarray, bucket_lengths: bool) ->
     per chunk and the busy share."""
     with torch.inference_mode():
         src_mel = eng.wav_to_mel(src)
-        style = eng._prepare(eng._ref_mel(ref, bucket_lengths))
+        style = eng._prepare(eng.wav_to_mel(ref))
         mel_ext, _T, T_pad = eng._source_chunks(src_mel, bucket_lengths)
         noise = eng._f0_noise(1, T_pad, None, None)
         chunks, noise_chunks = eng.scan_inputs(mel_ext, noise)
@@ -1306,7 +1746,17 @@ def scan_phase(eng, dirs, src: np.ndarray, ref: np.ndarray) -> int:
     t0 = time.perf_counter()
     eng.infer_once(src, ref, use_scan=True, bucket_lengths=True)
     torch.cuda.synchronize()
-    rtf = (time.perf_counter() - t0) / (len(src) / SR)
+    warm_s = time.perf_counter() - t0
+    rtf = warm_s / (len(src) / SR)
+    # the reference is never padded: another reference length is another capture
+    n_captured = len(eng._captured)
+    t0 = time.perf_counter()
+    eng.infer_once(src, ref[:len(ref) - 3 * 320], use_scan=True, bucket_lengths=True)
+    torch.cuda.synchronize()
+    capture_ms = 1e3 * (time.perf_counter() - t0 - warm_s)
+    if len(eng._captured) != n_captured + 1:
+        fail(f"captured loop: a new reference length made {len(eng._captured) - n_captured} "
+             f"captures, not 1")
     t = scan_timings(eng, src, ref, bucket_lengths=True)
     print(f"scan: r5 geometry, exact, B=1, infer_once(use_scan=True, bucket_lengths=True): "
           f"{t['chunks']} chunks (bucketed), {len(eng._captured)} capture(s), first call "
@@ -1317,7 +1767,9 @@ def scan_phase(eng, dirs, src: np.ndarray, ref: np.ndarray) -> int:
           f"{peak_gb:.3f} GB; under torch.profiler over one stream_scan: "
           f"{t['kernels_per_chunk']:.0f} kernels/chunk, device {t['device_ms_per_chunk']:.3f} "
           f"ms/chunk, wall {t['wall_ms_per_chunk']:.3f} ms/chunk (busy "
-          f"{100 * t['busy']:.1f}%)", flush=True)
+          f"{100 * t['busy']:.1f}%); a reference 3 frames shorter: one more capture, "
+          f"{capture_ms:.1f} ms over the warm call", flush=True)
+    wav_x, codes_x = wav_c, codes_c
     for rung in ("high", "fast"):
         e = build_engine(*dirs, serving_precision=rung)
         wav_e, codes_e = e.infer_once(src, ref, collect_codes=True, bucket_lengths=True)
@@ -1326,8 +1778,10 @@ def scan_phase(eng, dirs, src: np.ndarray, ref: np.ndarray) -> int:
         if not np.array_equal(codes_c, codes_e) or not np.isfinite(wav_c).all():
             fail(f"captured loop, {rung}: codes differ from its eager loop or non-finite wav")
         t = scan_timings(e, src, ref, bucket_lengths=True)
-        print(f"scan {rung}: captured vs its eager loop max abs "
-              f"{float(np.abs(wav_c - wav_e).max()):.3g}, codes equal; replay ms per chunk "
+        print(f"scan {rung}: against exact (captured) SNR {snr_db(wav_c, wav_x):.2f} dB, max "
+              f"abs {float(np.abs(wav_c - wav_x).max()):.3g}, code flips "
+              f"{int((codes_c != codes_x).sum())} of {codes_x.size}; captured vs its eager loop "
+              f"max abs {float(np.abs(wav_c - wav_e).max()):.3g}, codes equal; replay ms per chunk "
               f"median {t['median_ms']:.3f} p90 {t['p90_ms']:.3f}; "
               f"{t['kernels_per_chunk']:.0f} kernels/chunk, device "
               f"{t['device_ms_per_chunk']:.3f} ms/chunk (busy {100 * t['busy']:.1f}%)",
@@ -1457,8 +1911,11 @@ def run_vc_phase(eng, dirs, rng: np.random.Generator) -> int:
     den_err = float(np.abs(card - cpu).max())
     if den_err > DENOISE_ATOL:
         fail(f"denoise on the card {den_err:.3g} from the CPU's (atol {DENOISE_ATOL})")
+    audio_s = sum(len(load_wav(p["source"], SR)) for p in pairs) / SR
     print(f"run_vc: main on {len(pairs)} pairs (r5 random checkpoints, vocoder_denoise_c "
-          f"{DENOISE_C}): exit 0 in {wall:.2f} s; written wavs vs the engine's use_scan output "
+          f"{DENOISE_C}; each pair one capture, its reference unpadded): exit 0 in {wall:.2f} "
+          f"s for {audio_s:.2f} s of source (RTF {wall / audio_s:.4f}, captures included); "
+          f"written wavs vs the engine's use_scan output "
           f"after postprocess max abs {max(errs):.3g} (int16 step {1 / 32767:.3g}); logmel "
           f"launches {launches}; denoise (c {DENOISE_C}) of 4 s on the card vs the CPU max abs "
           f"{den_err:.3g} (atol {DENOISE_ATOL})", flush=True)
@@ -1636,14 +2093,15 @@ def main() -> None:
           f"{stages}", flush=True)
 
     # 4b-4d. the captured loop, the flow configuration, run_vc
-    by_path = {"main": launches, "scan": scan_phase(eng, dirs, src, ref),
-               "flow": flow_phase(args.seed, src, ref),
-               "run_vc": run_vc_phase(eng, dirs, rng)}
-
-    # 5. train, 6. conan_train, 7. emformer_train
-    train_kernels = train_phase(args.seed, dev, rng)
-    by_path["conan_train"] = conan_train_phase(args.seed, dev)
-    by_path["emformer_train"] = emformer_train_phase(args.seed, dev, smi, dirs, src, ref)
+    by_path = {"main": launches, "scan": scan_phase(eng, dirs, src, ref)}
+    train_kernels = []
+    if not trained:
+        by_path.update(flow=flow_phase(args.seed, src, ref), run_vc=run_vc_phase(eng, dirs, rng))
+        # 5. train, 6. conan_train, 7. emformer_train, 8. postnet_train
+        train_kernels = train_phase(args.seed, dev, rng)
+        by_path["conan_train"] = conan_train_phase(args.seed, dev)
+        by_path["emformer_train"] = emformer_train_phase(args.seed, dev, smi, dirs, src, ref)
+        postnet_train_phase(args.seed, dev, smi)
 
     kernel = {"name": "logmel", "route": "cuda", "source": "conan_tpu_torch/csrc/logmel.cu",
               "replaces": "conan_tpu/ops/pallas_stft.py:52", "launches": launches,
@@ -1652,7 +2110,7 @@ def main() -> None:
               "kernel_device_ms": serve_device_ms, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
-    # 8. kernels line, 9. result line
+    # 9. kernels line, 10. result line
     print(json.dumps({"kernels": [kernel, *train_kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -73,6 +73,33 @@
 // used because each thread loads its fragments from any shared address,
 // which the per-tap rows need; wgmma with A from registers and B through TMA
 // into a swizzled tile is the next step, since K2 still trails its bound.
+//
+// K2-bf16 (groupconv_bf16_kernel, entry groupconv_forward_bf16) is the same
+// per-group implicit GEMM for the "default" training rung, which the TPU
+// kernel serves by running its dots at the input dtype
+// (pallas_groupconv.py:60-62, 78-98): one bf16 product per multiply-add,
+// fp32 accumulation, fp32 output. x is rounded to bf16 (to nearest even) as
+// it is staged into shared memory: a plain load, two __floats2bfloat162_rn
+// and one 8-byte store per 4 channels, where the tf32 kernel uses cp.async;
+// the weights come pre-rounded by the wrapper (ops/groupconv.py:
+// kernel_weights_bf16) as [G, K*cigp/16, cog, 16] bf16, k-steps of 16
+// channels of one tap, with cig padded with zero channels to cigp, the next
+// multiple of 16 (the MSD's 128 -> 256 layer has cig 8; the staging
+// zero-fills x's padded channels too, so the padding adds only zero
+// products). The product is mma.sync.m16n8k16 bf16 accumulating in fp32
+// registers directly: at bf16's operand rounding (2^-9) the tensor cores'
+// accumulation truncation (~1e-6 over a layer) is below what the rung gives
+// up, so there is no second accumulation level. Fragment columns are
+// permuted alike for A and B (k-slots 2q, 2q+1, 2q+8, 2q+9 of thread q take
+// channels 4q..4q+3), so each thread's A row and B column are one 64-bit
+// shared load; x's row pitch is cigp or cigp + 16 bf16, whichever is 16
+// mod 32, so 8 rows of a fragment fall in distinct bank groups. Tiles and
+// the double-buffered weight slices are the tf32 kernel's. What bounds it
+// on the card: one bf16 product at the dense bf16 peak (989 TFLOP/s)
+// against the fp32 x and y over HBM; at scale 1's first grouped layer the
+// bytes are the larger (chip_smoke.py:groupconv_bound_ms).
+
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -107,7 +134,7 @@ __device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const uint32_t (&a
 }
 
 // 16 bytes global -> shared; zero-filled when !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0)
@@ -298,6 +325,177 @@ int launch(const float* x, const float* w_hi, const float* w_lo, float* y, int B
   return (int)cudaGetLastError();
 }
 
+
+// d += a * b on the tensor cores (m16n8k16, bf16 in, fp32 accumulate)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int BM, int BN, int WM, int WN, int KS, int STAGES>
+__global__ void __launch_bounds__(threads_of<BM, BN, WM, WN>())
+groupconv_bf16_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wq,
+                      float* __restrict__ y, int T, int Ci, int T_out, int Co, int cig,
+                      int cigp, int cog, int K, int stride, int pad_l, int n_co_tiles, int rpp,
+                      int xpitch) {
+  constexpr int THREADS = threads_of<BM, BN, WM, WN>();
+  constexpr int MI = WM / 16, NI = WN / 8;
+  constexpr int W_STAGE = KS * BN * 16;   // bf16 of one stage's weight slice
+  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
+  __nv_bfloat16* xs = smem_bf16;                            // [s][rpp][xpitch]
+  __nv_bfloat16* ws = smem_bf16 + stride * rpp * xpitch;    // [STAGES][KS][BN][16]
+
+  const int g = blockIdx.y / n_co_tiles;
+  const int co0 = (blockIdx.y - g * n_co_tiles) * BN;
+  const int b = blockIdx.z;
+  const int t0 = blockIdx.x * BM;
+  const int W = (BM - 1) * stride + K;
+  const int NKS = K * cigp / 16;     // k-steps
+  const int n_slices = (NKS + KS - 1) / KS;
+
+  const __nv_bfloat16* wg = wq + (size_t)g * NKS * cog * 16;
+  auto load_slice = [&](int i) {
+    __nv_bfloat16* dst = ws + (i % STAGES) * W_STAGE;
+    for (int e = threadIdx.x; e < KS * BN * 2; e += THREADS) {
+      const int ksl = e / (2 * BN), rem = e - ksl * 2 * BN, n = rem >> 1, h = rem & 1;
+      const int ks = i * KS + ksl;
+      const bool ok = ks < NKS && co0 + n < cog;
+      cp_async16(dst + (ksl * BN + n) * 16 + h * 8,
+                 ok ? wg + ((size_t)ks * cog + co0 + n) * 16 + h * 8 : wq, ok);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_slices) load_slice(i);
+    cp_async_commit();
+  }
+
+  // the window, rounded to bf16 on its way in; channels cig..cigp-1 are zero
+  const float* xb = x + (size_t)b * T * Ci + (size_t)g * cig;
+  const int tin0 = t0 * stride - pad_l;
+  const int CQ = cigp / 4;
+  for (int e = threadIdx.x; e < W * CQ; e += THREADS) {
+    const int r = e / CQ, q = e - r * CQ;
+    const int tin = tin0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tin >= 0 && tin < T && q * 4 < cig)
+      v = *reinterpret_cast<const float4*>(xb + (size_t)tin * Ci + q * 4);
+    const int row = (r % stride) * rpp + r / stride;
+    *reinterpret_cast<uint2*>(xs + row * xpitch + q * 4) =
+        make_uint2(bf16x2_bits(v.x, v.y), bf16x2_bits(v.z, v.w));
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wm0 = (warp % (BM / WM)) * WM;
+  const int wn0 = (warp / (BM / WM)) * WN;
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
+
+  // the k-step's channel block c16 and phase, and the shared offset of this
+  // thread's A values: row (j % s)*rpp + j/s + wm0 + gid, column c16 + 4*tig
+  int c16 = 0, phase = 0;
+  int a_off = (wm0 + gid) * xpitch + 4 * tig;
+  const int phase_step = rpp * xpitch;
+
+  for (int i = 0; i < n_slices; ++i) {
+    if (i + STAGES - 1 < n_slices) load_slice(i + STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();   // slice i is in (and, after the barrier, the window)
+    __syncthreads();
+    const __nv_bfloat16* wsi = ws + (i % STAGES) * W_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if (i * KS + kk >= NKS) break;
+      uint32_t a[MI][4], bq[NI][2];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int o = a_off + mi * 16 * xpitch;
+        const uint2 r0 = *reinterpret_cast<const uint2*>(xs + o);
+        const uint2 r1 = *reinterpret_cast<const uint2*>(xs + o + 8 * xpitch);
+        a[mi][0] = r0.x;   // row gid,     k-slots 2tig, 2tig+1 (channels 4tig, 4tig+1)
+        a[mi][1] = r1.x;   // row gid + 8
+        a[mi][2] = r0.y;   // row gid,     k-slots 2tig+8, 2tig+9 (channels 4tig+2, 4tig+3)
+        a[mi][3] = r1.y;   // row gid + 8
+      }
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            wsi + (kk * BN + wn0 + ni * 8 + gid) * 16 + 4 * tig);
+        bq[ni][0] = v.x;   // column gid, k-slots 2tig, 2tig+1
+        bq[ni][1] = v.y;   // column gid, k-slots 2tig+8, 2tig+9
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], a[mi], bq[ni]);
+      c16 += 16;
+      a_off += 16;
+      if (c16 == cigp) {
+        c16 = 0;
+        a_off += phase_step - cigp;
+        if (++phase == stride) {
+          phase = 0;
+          a_off += xpitch - stride * phase_step;
+        }
+      }
+    }
+    __syncthreads();   // slice i is consumed before slice i + STAGES lands in its buffer
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const int n = co0 + wn0 + ni * 8 + 2 * tig;
+      if (n >= cog) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + wm0 + mi * 16 + gid + 8 * h;
+        if (t < T_out)
+          *reinterpret_cast<float2*>(y + ((size_t)b * T_out + t) * Co + (size_t)g * cog + n) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+    }
+}
+
+template <int BM, int BN, int WM, int WN, int KS, int STAGES>
+int launch_bf16(const float* x, const __nv_bfloat16* wq, float* y, int B, int T, int Ci,
+                int T_out, int Co, int groups, int K, int stride, int pad_l, cudaStream_t s) {
+  const int cig = Ci / groups, cog = Co / groups;
+  const int cigp = (cig + 15) / 16 * 16;
+  const long long W = (long long)(BM - 1) * stride + K;
+  const long long rpp = (W + stride - 1) / stride;
+  const int xpitch = (cigp / 16) % 2 ? cigp : cigp + 16;
+  const long long smem = (1LL * stride * rpp * xpitch + 1LL * STAGES * KS * BN * 16) *
+                         (long long)sizeof(__nv_bfloat16);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  auto kernel = groupconv_bf16_kernel<BM, BN, WM, WN, KS, STAGES>;
+  static size_t opted[conan::kMaxDevices] = {};
+  const cudaError_t e = conan::allow_dynamic_smem(kernel, (size_t)smem, opted);
+  if (e != cudaSuccess) return (int)e;
+  const int n_co_tiles = (cog + BN - 1) / BN;
+  const dim3 grid((T_out + BM - 1) / BM, groups * n_co_tiles, B);
+  kernel<<<grid, threads_of<BM, BN, WM, WN>(), smem, s>>>(
+      x, wq, y, T, Ci, T_out, Co, cig, cigp, cog, K, stride, pad_l, n_co_tiles, (int)rpp,
+      xpitch);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x [B, T, Ci] (16-byte aligned); w_hi, w_lo [groups, K*cig/8, cog, 8], the
@@ -327,4 +525,32 @@ extern "C" int groupconv_forward(const float* x, const float* w_hi, const float*
                                       pad_l, s);
   return launch<128, 16, 32, 16, 64, 2>(x, w_hi, w_lo, y, B, T, Ci, T_out, Co, groups, K, stride,
                                      pad_l, s);
+}
+
+// The "default" rung's forward: x [B, T, Ci] fp32 (16-byte aligned), rounded
+// to bf16 in the kernel; wq [groups, K*cigp/16, cog, 16] bf16, the weights
+// rounded and laid out by the wrapper with cigp = cig rounded up to 16 (zero
+// channels past cig); y [B, T_out, Co] fp32. cig and cog multiples of 8;
+// otherwise as groupconv_forward.
+extern "C" int groupconv_forward_bf16(const float* x, const void* wq, float* y, int B, int T,
+                                      int Ci, int T_out, int Co, int groups, int K, int stride,
+                                      int pad_l, void* stream) {
+  if (groups < 1 || Ci % groups || Co % groups || (Ci / groups) % 8 || (Co / groups) % 8 ||
+      K < 1 || stride < 1 || T_out < 1 || B < 1 || B > 65535 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(wq) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int cog = Co / groups;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const auto* w = static_cast<const __nv_bfloat16*>(wq);
+  if (cog >= 64)
+    return launch_bf16<64, 64, 32, 32, 1, 2>(x, w, y, B, T, Ci, T_out, Co, groups, K, stride,
+                                             pad_l, s);
+  if (cog >= 32 && stride <= 2)
+    return launch_bf16<128, 32, 32, 32, 2, 2>(x, w, y, B, T, Ci, T_out, Co, groups, K, stride,
+                                              pad_l, s);
+  if (cog >= 32)
+    return launch_bf16<64, 32, 16, 32, 2, 2>(x, w, y, B, T, Ci, T_out, Co, groups, K, stride,
+                                             pad_l, s);
+  return launch_bf16<128, 16, 32, 16, 4, 2>(x, w, y, B, T, Ci, T_out, Co, groups, K, stride,
+                                            pad_l, s);
 }

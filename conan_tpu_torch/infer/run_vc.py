@@ -10,8 +10,9 @@ one pair at a time, with an error report per pair and an RTF summary:
 
 Each pair runs ``infer_once(use_scan=True, bucket_lengths=True)`` (the
 captured chunk loop on the card), or ``infer_offline(bucket_lengths=True)``
-with ``--offline``; the lengths go onto the power-of-two ladder, so a batch
-of many lengths needs few captures. ``--hparams`` puts dotted overrides on
+with ``--offline``; the source lengths go onto the power-of-two ladder, so a
+batch of many lengths needs few captures (the reference is never padded:
+one capture per distinct reference length). ``--hparams`` puts dotted overrides on
 the acoustic checkpoint's ``config.yaml`` (``vocoder_denoise_c=0.01``,
 ``serving_precision=high``). The device is the CUDA card unless
 ``--device`` names another.

@@ -12,13 +12,15 @@ runs ``stream_scan``, the counterpart of the JAX package's ``lax.scan``: on
 the card the chunk step is captured once into a CUDA graph over static
 buffers and replayed once per chunk, so a chunk costs one graph launch
 instead of hundreds of kernel launches from the host; on the CPU it is the
-same Python loop. ``bucket_lengths=True`` pads the reference and, on the scan
-path, the source to power-of-two lengths, as the JAX package does, so that a
-batch of recordings of many lengths needs few captures. The source padding
-never changes the output (every source-side op is causal); the reference's
-zero frames do where the reference encoders' LayerNorm biases are nonzero,
-as in trained weights: LN turns each zero frame into its bias, which the
-convs of the last real frames read.
+same Python loop. ``bucket_lengths=True`` pads the source, on the scan path,
+to power-of-two lengths, so that a batch of recordings of many lengths needs
+few captures; the padding never changes the output (every source-side op is
+causal and the pad repeats the last frame). The reference is never padded:
+the JAX package pads it too, and its zero frames move the output wherever
+the reference encoders' LayerNorm biases are nonzero, as in trained weights
+(LN turns each zero frame into its bias, which the k=31 and k=5 convs of the
+last real frames read). So each distinct reference length is one more
+capture of the chunk step.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 from torch.profiler import record_function
 
 from conan_tpu_torch.audio.mel import MelConfig, wav2mel_frontend
@@ -181,15 +182,6 @@ class StreamingVoiceConversion:
             b *= 2
         return b
 
-    def _ref_mel(self, ref_wav, bucket_lengths: bool) -> torch.Tensor:
-        """The reference mel, zero-padded to the power-of-two ladder with
-        ``bucket_lengths``."""
-        ref_mel = self.wav_to_mel(ref_wav)
-        if bucket_lengths:
-            T = ref_mel.shape[1]
-            ref_mel = F.pad(ref_mel, (0, 0, 0, self._p2bucket(T) - T))
-        return ref_mel
-
     def _source_chunks(self, src_mel: torch.Tensor, bucket_lengths: bool = False):
         """Pad the source mel so its length is a segment multiple (with
         ``bucket_lengths`` the next rung of the power-of-two ladder), plus the
@@ -235,12 +227,12 @@ class StreamingVoiceConversion:
         is computed up front and consumed chunk by chunk; the reference mel is
         whole before streaming starts. ``use_scan`` runs the chunks through
         ``stream_scan`` (the captured loop on the card), else through the
-        Python loop; ``bucket_lengths`` pads the reference, and on the scan
-        path the source, to the power-of-two ladder (see the module's
-        docstring for what that changes). Returns the wav [B, T·hop] as
+        Python loop; ``bucket_lengths`` pads the source on the scan path to
+        the power-of-two ladder, never the reference (see the module's
+        docstring). Returns the wav [B, T·hop] as
         numpy (and the codes [B, T] with ``collect_codes``)."""
         src_mel = self.wav_to_mel(src_wav)
-        style_ctx = self._prepare(self._ref_mel(ref_wav, bucket_lengths))
+        style_ctx = self._prepare(self.wav_to_mel(ref_wav))
         mel_ext, T, T_pad = self._source_chunks(src_mel, bucket_lengths and use_scan)
         B = src_mel.shape[0]
         chunks, noise_chunks = self.scan_inputs(
@@ -260,10 +252,10 @@ class StreamingVoiceConversion:
                       generator: torch.Generator | None = None, f0_noise=None):
         """Non-streaming composition of the three stages (the equivalence
         check for ``infer_once``, and offline conversion); ``bucket_lengths``
-        pads the reference and the source to the ladder. Returns as
+        pads the source to the ladder, never the reference. Returns as
         ``infer_once`` does."""
         src_mel = self.wav_to_mel(src_wav)
-        ref_mel = self._ref_mel(ref_wav, bucket_lengths)
+        ref_mel = self.wav_to_mel(ref_wav)
         mel_ext, T, T_pad = self._source_chunks(src_mel, bucket_lengths)
         noise = self._f0_noise(src_mel.shape[0], T_pad, generator, f0_noise)
         with precision_scope("exact", self.device):

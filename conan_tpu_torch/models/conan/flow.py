@@ -1,18 +1,22 @@
-"""Rectified-flow F0 head (``conan_tpu/models/conan/flow.py``), inference side.
+"""Rectified flow (``conan_tpu/models/conan/flow.py``): the F0 head and the
+mel postnet's flow.
 
   DiffNet                  WaveNet-style denoiser with strictly causal 2-tap
                            dilated convs; channels-last [B, T, C]
-  RectifiedFlow            straight-line interpolation, fixed-grid Euler
-                           sampling over ``k_step`` of ``timesteps``
+  RectifiedFlow            straight-line interpolation, the velocity loss
+                           (``p_losses``), fixed-grid Euler sampling over
+                           ``k_step`` of ``timesteps`` with optional
+                           classifier-free guidance
   StreamingRectifiedFlow   the same Euler integration chunk by chunk, with
                            each Euler step's denoiser conv carries K-stacked
 
 The Euler loop is a Python loop over K: on the card the engine captures the
 whole chunk step, loop included, into one CUDA graph. The clipping constants
 are the JAX package's float32 arithmetic done once on the host; the step
-indices are made on the device by the same arithmetic. Training (``p_losses``), the reference
-checkpoint mapping (``params_from_torch``) and the mel postnet's
-``norm_spec`` / ``denorm_spec`` wait for the training slices.
+indices are made on the device by the same arithmetic. The loss's draws (a
+step t per item and the noise x0) come from a ``torch.Generator``, or are
+handed in, so that tests can give both packages the same ones. The reference
+checkpoint mapping (``params_from_torch``) is not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +45,14 @@ class DiffNetConfig:
     residual_layers: int = 10
     residual_channels: int = 192
     dilation_cycle_length: int = 4
+
+    @classmethod
+    def mel_from_hparams(cls, hp) -> "DiffNetConfig":
+        return cls(in_dims=hp.get("audio_num_mel_bins", 80),
+                   encoder_hidden=hp["hidden_size"],
+                   residual_layers=hp["residual_layers"],
+                   residual_channels=hp["residual_channels"],
+                   dilation_cycle_length=hp["dilation_cycle_length"])
 
 
 class DiffNet:
@@ -77,7 +89,7 @@ class DiffNet:
 
     def step_bias(self, params: Params, t: torch.Tensor) -> list[torch.Tensor]:
         """t [N] steps → per layer the [N, C] bias added before its conv."""
-        temb = timestep_embedding(t, self.cfg.residual_channels)
+        temb = timestep_embedding(t, self.cfg.residual_channels).to(params["mlp1"]["w"].dtype)
         temb = linear(mish(linear(temb, params["mlp1"])), params["mlp2"])
         return [linear(temb, lp["diff_proj"]) for lp in params["layers"]]
 
@@ -135,6 +147,7 @@ class DiffNet:
 class ReflowConfig:
     timesteps: int = 1000
     k_step: int = 100
+    loss_type: str = "l1"
     sample_clip: bool = True          # hparams['f0_sample_clip']
     qsample_sigma: float = 0.0        # hparams['flow_qsample']=='sig' → 1e-4
 
@@ -173,9 +186,41 @@ class RectifiedFlow:
         tf = (t.float() / self.cfg.timesteps)[:, None, None]
         xt = tf * x1 + (1.0 - tf) * x0
         if self.cfg.qsample_sigma > 0 and generator is not None:
-            noise = torch.randn(xt.shape, generator=generator).to(xt.device)
+            noise = torch.randn(xt.shape, generator=generator,
+                                device=generator.device).to(xt.device)
             xt = xt + self.cfg.qsample_sigma * noise
         return xt
+
+    def draws(self, x1: torch.Tensor, generator: torch.Generator | None):
+        """The loss's random parts for target ``x1`` [B, T, C]: (t [B] int
+        steps uniform in [0, timesteps), x0 [B, T, C] standard normal), drawn
+        from ``generator`` on its device (None: a CPU generator seeded 0),
+        then moved to x1's device."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        dev = generator.device
+        t = torch.randint(0, self.cfg.timesteps, (x1.shape[0],), generator=generator,
+                          device=dev)
+        x0 = torch.randn(x1.shape, generator=generator, device=dev)
+        return t.to(x1.device), x0.to(x1.device)
+
+    def p_losses(self, params: Params, x1: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
+                 x0: torch.Tensor, *, generator: torch.Generator | None = None,
+                 nonpadding: torch.Tensor | None = None) -> torch.Tensor:
+        """The velocity loss: x1 [B, T, C] target, t [B] int steps, cond
+        [B, T, H], x0 [B, T, C] noise (``draws``) → the mean L1 (or L2,
+        ``loss_type``) between x1 - x0 and the denoiser's velocity at
+        x_t = t/T·x1 + (1 - t/T)·x0, over ``nonpadding`` ([B, T] or
+        [B, T, 1]) where given. ``generator`` draws q_sample's noise when
+        ``qsample_sigma`` > 0."""
+        xt = self.q_sample(x1, x0, t, generator)
+        v_pred = self.net.apply(params, xt, t, cond)
+        ut = x1 - x0
+        err = torch.abs(ut - v_pred) if self.cfg.loss_type == "l1" else torch.square(ut - v_pred)
+        if nonpadding is None:
+            return torch.mean(err)
+        m = nonpadding[..., None] if nonpadding.dim() == 2 else nonpadding
+        return torch.sum(err * m) / (torch.sum(m.expand_as(err)) + 1e-8)
 
     def euler_update(self, k: int, x: torch.Tensor, ut: torch.Tensor) -> torch.Tensor:
         """x after Euler step k from velocity ``ut``; with ``sample_clip`` the
@@ -186,17 +231,25 @@ class RectifiedFlow:
             ut = (x_recon - x) / self._denom[k]
         return x + ut / self.cfg.k_step
 
-    def sample(self, params: Params, cond: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+    def sample(self, params: Params, cond: torch.Tensor, x0: torch.Tensor,
+               ucond: torch.Tensor | None = None, cfg_scale: float = 1.0) -> torch.Tensor:
         """Fixed-step Euler from t=0 to 1 over k_step steps. cond [B, T, H],
-        x0 [B, T, C] initial noise → x1 [B, T, C]. (The JAX package's
-        classifier-free guidance and dynamic clip have no caller here and
-        wait for the mel postnet.)"""
+        x0 [B, T, C] initial noise → x1 [B, T, C]. With ``ucond`` (the
+        unconditional condition, [B, T, H]) each step's velocity is the
+        classifier-free guided v_u + cfg_scale · (v_c - v_u). (The JAX
+        package's dynamic clip has no caller and is not ported.)"""
         net = self.net
         bias = net.step_bias(params, self.steps(x0.device))
         cproj = net.cond_projection(params, cond)
+        uproj = None if ucond is None else net.cond_projection(params, ucond)
         x = x0
         for k in range(self.cfg.k_step):
-            x = self.euler_update(k, x, net.denoise(params, x, [b[k:k + 1] for b in bias], cproj))
+            bk = [b[k:k + 1] for b in bias]
+            ut = net.denoise(params, x, bk, cproj)
+            if uproj is not None:
+                v_u = net.denoise(params, x, bk, uproj)
+                ut = v_u + cfg_scale * (ut - v_u)
+            x = self.euler_update(k, x, ut)
         return x
 
 
@@ -246,3 +299,12 @@ def minmax_denorm_f0(x: torch.Tensor, uv: torch.Tensor | None = None) -> torch.T
     if uv is not None:
         y = torch.where(uv > 0, torch.zeros_like(y), y)
     return y
+
+
+def norm_spec(x: torch.Tensor, spec_min: torch.Tensor, spec_max: torch.Tensor) -> torch.Tensor:
+    """Mel → [-1, 1] per bin between the dataset's spec_min and spec_max."""
+    return (x - spec_min) / (spec_max - spec_min) * 2.0 - 1.0
+
+
+def denorm_spec(x: torch.Tensor, spec_min: torch.Tensor, spec_max: torch.Tensor) -> torch.Tensor:
+    return (x + 1.0) / 2.0 * (spec_max - spec_min) + spec_min

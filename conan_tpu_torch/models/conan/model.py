@@ -13,10 +13,10 @@ by chunk with carried conv state (``stream_step``), equal to the matching
 slice of ``apply``; with ``f0_gen="flow"`` the chunk's slice of the
 utterance's initial noise goes in beside its codes.
 
-``apply_train`` is the training forward (``f0_gen="orig"``): the ground-truth
-F0 drives the pitch embedding, the F0 head is held to it by ``fdiff``, and
-the VQ and the aligner's forcing follow the schedule through device bools.
-The flow F0 loss is not ported (ROADMAP.md).
+``apply_train`` is the training forward: the ground-truth F0 drives the
+pitch embedding, the F0 head is held to it by ``fdiff`` ("orig") or by the
+rectified flow's velocity loss ``pflow`` ("flow"), and the VQ and the
+aligner's forcing follow the schedule through device bools.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from conan_tpu_torch.audio.pitch import denorm_f0, f0_to_coarse
 from conan_tpu_torch.models.conan.flow import (DiffNet, DiffNetConfig, RectifiedFlow,
                                                ReflowConfig, StreamingRectifiedFlow,
-                                               minmax_denorm_f0)
+                                               minmax_denorm_f0, minmax_norm_f0)
 from conan_tpu_torch.models.conan.prosody import LocalStyleAdaptor, ProsodyAligner
 from conan_tpu_torch.nn.blocks import (ConvBlocks, PitchPredictor, embedding, init_conv,
                                        init_embedding, init_linear, linear,
@@ -244,17 +244,15 @@ class Conan:
                     generator: torch.Generator | None = None) -> dict:
         """The training forward: content [B, T] codes (-1 pads), ref
         [B, Tr, 80], ground-truth log2-F0 and UV [B, T] → {"mel_out",
-        "uv_pred", "fdiff", "f0_denorm_pred", and with style "vq_loss", "ppl",
-        "gloss", "attn", "vq_state"}. The VQ quantizes once ``global_step >
-        vq_start`` and the aligner is forced while ``global_step <
-        forcing_steps``, both decided on the device; the VQ state in the
-        output is the EMA-updated one (not detached). With a ``generator``,
-        dropout as the JAX package trains."""
+        "decoder_inp", "uv_pred", "fdiff" ("orig") or "pflow" ("flow"),
+        "f0_denorm_pred", and with style "vq_loss", "ppl", "gloss", "attn",
+        "vq_state"}. The VQ quantizes once ``global_step > vq_start`` and the
+        aligner is forced while ``global_step < forcing_steps``, both decided
+        on the device; the VQ state in the output is the EMA-updated one (not
+        detached). With a ``generator``, dropout as the JAX package trains;
+        the flow F0 loss draws its step and noise from it (``f0_flow.draws``;
+        None: a CPU generator seeded 0)."""
         cfg = self.cfg
-        if cfg.f0_gen != "orig":
-            raise NotImplementedError(
-                f"training with f0_gen {cfg.f0_gen!r} is not ported yet (ROADMAP.md, modules "
-                "still to port: the flow F0 loss, with PostnetTask)")
         ret: dict = {}
         pitch_inp = self._content_embed(params, content, Stream(None)) \
             + self.encode_spk_embed(params, ref)
@@ -275,11 +273,19 @@ class Conan:
         ret["uv_pred"] = self.uv_predictor.apply(params["uv_predictor"], pitch_inp_p,
                                                  generator=generator)
         voiced = (uv == 0).to(pitch_inp.dtype)
-        ret["fdiff"] = (torch.sum(torch.square(ret["uv_pred"][:, :, 1] - f0) * voiced)
-                        / voiced.sum().clamp(min=1.0)) * cfg.lambda_f0
+        if cfg.f0_gen == "flow":
+            # the velocity loss on the minmax-normalized log2-F0, voiced frames only
+            x1 = minmax_norm_f0(f0, uv)[..., None]
+            t, x0 = self.f0_flow.draws(x1, generator)
+            ret["pflow"] = self.f0_flow.p_losses(params["f0_net"], x1, t, pitch_inp_p, x0,
+                                                 generator=generator, nonpadding=voiced)
+        else:
+            ret["fdiff"] = (torch.sum(torch.square(ret["uv_pred"][:, :, 1] - f0) * voiced)
+                            / voiced.sum().clamp(min=1.0)) * cfg.lambda_f0
         f0_denorm = denorm_f0(f0, uv)
         ret["f0_denorm_pred"] = f0_denorm
         dec_inp = pitch_inp + embedding(f0_to_coarse(f0_denorm), params["pitch_embed"])
+        ret["decoder_inp"] = dec_inp
         x = self.decoder.apply(params["decoder"], dec_inp, torch.ones_like(dec_inp[..., :1]),
                                generator=generator)
         ret["mel_out"] = linear(x, params["mel_out"])

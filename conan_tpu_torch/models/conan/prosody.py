@@ -18,6 +18,7 @@ summed across replicas.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -27,6 +28,7 @@ from conan_tpu_torch.nn.blocks import (ConvBlocks, MultiheadAttention, WaveNet, 
                                        init_layer_norm, init_linear, layer_norm, linear)
 from conan_tpu_torch.nn import inits
 from conan_tpu_torch.nn.module import Params
+from conan_tpu_torch.ops.precision import dot_at_rung
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +54,7 @@ class VQEmbeddingEMA:
         emb = state["embedding"]
         d = (torch.sum(emb ** 2, 1)[None, None, :]
              + torch.sum(x ** 2, -1, keepdim=True)
-             - 2.0 * torch.einsum("btd,nd->btn", x, emb))
+             - 2.0 * dot_at_rung(functools.partial(torch.einsum, "btd,nd->btn"), x, emb))
         idx = torch.argmin(d, dim=-1)
         return F.embedding(idx, emb), idx
 
@@ -194,7 +196,8 @@ class ProsodyAligner:
         Tk = prosody.shape[1]
         forced_attn = self._forcing_attn(Tq, Tk, src)[None].expand(B, Tq, Tk)
         forcing = (torch.as_tensor(forcing, device=src.device), forced_attn,
-                   torch.einsum("bqk,bkh->bqh", forced_attn, prosody))
+                   dot_at_rung(functools.partial(torch.einsum, "bqk,bkh->bqh"), forced_attn,
+                               prosody))
         out, attn_list = self._layers(params, src, prosody, pros_key_padding_mask, forcing,
                                       generator)
         s_len = torch.sum(1.0 - src_key_padding_mask.to(src.dtype), -1)

@@ -11,14 +11,14 @@ generator's adversarial loss without feature matching) calls ``forward``.
 The MPD's feature maps are channels-first [B, C, T/p, p] (the conv2d layout);
 the MSD's are channels-last [B, T, C].
 
-The MPD's 2-D convs are plain ``F.conv2d`` (the JAX package computes them
-with ``lax.conv``, outside any Pallas kernel). The MSD's grouped convs go
+The MPD's 2-D convs are ``F.conv2d`` at the training rung (``ops.conv.conv2d``;
+the JAX package computes them with ``lax.conv``, outside any Pallas kernel). The MSD's grouped convs go
 through ``ops.conv1d``, which runs kernel K2 on the card. The conditional
 discriminators (``use_cond``) are not ported (ROADMAP.md, modules still to
 port: the vocoder training options).
 
 The mel discriminator (``SingleWindowDisc``, ``MultiWindowDiscriminator``)
-is plain ``F.conv2d`` in NCHW, where the JAX package is channels-last: its
+is ``F.conv2d`` (``ops.conv.conv2d``) in NCHW, where the JAX package is channels-last: its
 hidden maps are [B, C, T', M'], and the head's flatten in channels-first
 order is then a plain reshape. Its random parts (each window's crop start,
 ``Dropout2d`` over whole channels) are drawn from a ``torch.Generator`` on
@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from conan_tpu_torch.nn import inits
 from conan_tpu_torch.nn.blocks import init_linear, linear
 from conan_tpu_torch.nn.module import Params
-from conan_tpu_torch.ops.conv import conv1d, spectral_norm_weight, weight_norm_weight
+from conan_tpu_torch.ops.conv import conv1d, conv2d, spectral_norm_weight, weight_norm_weight
 
 LRELU = 0.1
 
@@ -71,12 +71,12 @@ class DiscriminatorP:
         x = x.reshape(B, C, -1, p)                              # [B, C, T/p, p]
         fmap = []
         for i, c in enumerate(params["convs"]):
-            x = F.conv2d(x, weight_norm_weight(c), c["b"], stride=(self.s if i < 4 else 1, 1),
-                         padding=(2, 0))
+            x = conv2d(x, weight_norm_weight(c), c["b"], stride=(self.s if i < 4 else 1, 1),
+                       padding=(2, 0))
             x = F.leaky_relu(x, LRELU)
             fmap.append(x)
-        x = F.conv2d(x, weight_norm_weight(params["post"]), params["post"]["b"],
-                     padding=(1, 0))
+        x = conv2d(x, weight_norm_weight(params["post"]), params["post"]["b"],
+                   padding=(1, 0))
         fmap.append(x)
         return x.reshape(B, -1), fmap
 
@@ -214,8 +214,8 @@ class SingleWindowDisc:
         """x: [B, 1, T_win, M] → (validity [B, 1], hidden maps [B, C, T', M'])."""
         hiddens = []
         for i, name in enumerate(("c0", "c1", "c2")):
-            x = F.leaky_relu(F.conv2d(x, params[name]["w"], params[name]["b"], stride=2,
-                                      padding=1), 0.2)
+            x = F.leaky_relu(conv2d(x, params[name]["w"], params[name]["b"], stride=2,
+                                    padding=1), 0.2)
             if generator is not None:       # Dropout2d: whole channels
                 keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
                                   device=x.device) < 0.75

@@ -5,14 +5,36 @@ are torch layout ``[out, in, k]``, which is also the JAX package's storage
 layout, so checkpoints map one to one. Dense convs are plain ``F.conv1d``
 calls on a transposed view, as the JAX package leaves them to XLA; grouped
 convs (the MSD's) go through kernel K2 (``ops/groupconv.py``) on the card.
+Every conv reads the training rung at call time (``ops/precision.py``): under
+"default" it takes bf16-rounded operands and adds its bias in fp32.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from conan_tpu_torch.ops.groupconv import groupconv
+from conan_tpu_torch.ops.precision import bf16_dot, bf16_dots
+
+
+def _conv_at_rung(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                  bias_shape: tuple) -> torch.Tensor:
+    """``conv(x, w, b)`` (channels-first), or under the "default" rung the
+    conv of bf16-rounded operands with the bias added in fp32."""
+    if not bf16_dots():
+        return conv(x, w, b)
+    y = bf16_dot(conv, x, w)
+    return y if b is None else y + b.reshape(bias_shape)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+           **kw) -> torch.Tensor:
+    """``F.conv2d`` in NCHW (``kw``: its stride and padding) at the training
+    rung."""
+    return _conv_at_rung(functools.partial(F.conv2d, **kw), x, w, b, (-1, 1, 1))
 
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
@@ -28,7 +50,8 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     y = x.transpose(1, 2)
     if padding[0] or padding[1]:
         y = F.pad(y, tuple(padding))
-    y = F.conv1d(y, w, b, stride=stride, dilation=dilation)
+    y = _conv_at_rung(functools.partial(F.conv1d, stride=stride, dilation=dilation), y, w, b,
+                      (-1, 1))
     return y.transpose(1, 2)
 
 

@@ -11,7 +11,10 @@ package's backward is XLA and not Pallas. On a CUDA tensor each launches the
 hand-written kernel in ``csrc/logmel.cu`` (one launch: framing, window, a
 shared-memory FFT, magnitude, banded mel sum and log); on a CPU tensor each
 runs its plain version (the GAN form's under the same analytic backward).
-There is no other route: any other device raises.
+There is no other route: any other device raises. Both forms, and the GAN
+form's backward, stay fp32 under every training rung (``ops/precision.py``):
+the TPU kernel's body (``pallas_stft.py:34-45``) does not read the precision
+scope, and K1-GAN is a small part of a vocoder step.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from conan_tpu_torch.ops.precision import precision_scope
 from conan_tpu_torch.ops.stft import (_dft_kernel_np, _window_np, frame_count,
                                       mel_filterbank_np, overlap_add, stft_magnitude)
 
@@ -216,7 +220,8 @@ class _LogmelGanFunction(torch.autograd.Function):
         (padded,) = ctx.saved_tensors
         basis, melw = (c.to(padded.dtype)
                        for c in ctx.kernel.dense_constants(ctx.cfg, padded.device))
-        return _gan_vjp(padded, g, ctx.cfg, basis, melw), None, None
+        with precision_scope("exact", padded.device):      # fp32 under every training rung
+            return _gan_vjp(padded, g, ctx.cfg, basis, melw), None, None
 
 
 class LogmelGanKernel(LogmelKernel):

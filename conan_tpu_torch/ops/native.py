@@ -68,4 +68,7 @@ def load() -> ctypes.CDLL:
     # x, w_hi, w_lo, y, B, T, Ci, T_out, Co, groups, K, stride, pad_l, stream
     lib.groupconv_forward.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, I, P]
     lib.groupconv_forward.restype = ctypes.c_int
+    # x, w (bf16), y, B, T, Ci, T_out, Co, groups, K, stride, pad_l, stream
+    lib.groupconv_forward_bf16.argtypes = [P, P, P, I, I, I, I, I, I, I, I, I, P]
+    lib.groupconv_forward_bf16.restype = ctypes.c_int
     return lib

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from conan_tpu_torch.ops.precision import dot_at_rung
+
 
 def _window_np(n_fft: int, win_length: int) -> np.ndarray:
     """[n_fft] float64 periodic Hann window of ``win_length``, zero-padded
@@ -49,15 +51,19 @@ def frame_count(n_samples: int, n_fft: int, hop: int, center: bool) -> int:
 
 def stft_realimag(wav: torch.Tensor, *, n_fft: int, hop: int,
                   win_length: int | None = None, center: bool = True,
-                  pad_mode: str = "constant") -> tuple[torch.Tensor, torch.Tensor]:
+                  pad_mode: str = "constant",
+                  at_rung: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """STFT of ``wav`` [B, T] → (re, im), each [B, frames, n_bins]: framing by
-    ``unfold``, then one [.., n_fft] @ [n_fft, 2·n_bins] matmul."""
+    ``unfold``, then one [.., n_fft] @ [n_fft, 2·n_bins] matmul, at the
+    training rung with ``at_rung`` (the STFT loss's, as JAX's
+    ``_framed_dft`` reads the precision; K1's plain version stays fp32)."""
     win_length = win_length or n_fft
     if center:
         p = n_fft // 2
         wav = F.pad(wav[:, None], (p, p), mode=pad_mode)[:, 0]
     basis = torch.from_numpy(_dft_kernel_np(n_fft, win_length)).to(wav.device, wav.dtype)
-    ri = wav.unfold(-1, n_fft, hop) @ basis                  # [B, F, 2·n_bins]
+    frames = wav.unfold(-1, n_fft, hop)
+    ri = dot_at_rung(torch.matmul, frames, basis) if at_rung else frames @ basis  # [B, F, 2·n_bins]
     n_bins = n_fft // 2 + 1
     return ri[..., :n_bins], ri[..., n_bins:]
 

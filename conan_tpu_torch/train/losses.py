@@ -106,7 +106,7 @@ def _stft_mag_clamped(x: torch.Tensor, n_fft: int, hop: int, win: int) -> torch.
     """sqrt(max(re² + im², 1e-7)): the clamp sits under the sqrt so that the
     backward is finite at silent bins (stft_loss.py:31)."""
     re, im = stft_realimag(x, n_fft=n_fft, hop=hop, win_length=win, center=True,
-                           pad_mode="reflect")
+                           pad_mode="reflect", at_rung=True)
     return torch.sqrt(torch.clamp(re * re + im * im, min=1e-7))
 
 

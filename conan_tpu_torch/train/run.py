@@ -4,8 +4,11 @@
         --exp_name <name> [--hparams k=v,...] [--validate] [--reset] [--device cpu]
 
 The config's ``task_cls`` picks the task (the reference's class paths are
-aliases): ``emformer``, ``conan`` and ``vocoder`` train; ``postnet`` and
-``--infer`` raise NotImplementedError (ROADMAP.md). The run trains in
+aliases): ``emformer``, ``conan``, ``vocoder`` and ``postnet`` (on the frozen
+Conan of ``fs2_ckpt_dir``, with ``spec_min``/``spec_max`` from
+``<binary_data_dir>/spec_stats.npz`` where the config has null: run
+``python -m conan_tpu_torch.data.spec_stats --config ...`` first) train;
+``--infer`` raises NotImplementedError (ROADMAP.md). The run trains in
 ``checkpoints/<exp_name>`` (an absolute ``--exp_name`` is the work dir
 itself) on the CUDA card unless ``--device`` says otherwise, validating on
 the valid split where there is one; ``--validate`` evaluates the newest
@@ -24,6 +27,7 @@ import logging
 import os
 import sys
 
+import numpy as np
 import torch
 
 from conan_tpu_torch.checkpoint import get_last_checkpoint, load_ckpt_state, params_from_jax
@@ -31,7 +35,8 @@ from conan_tpu_torch.config import set_hparams
 from conan_tpu_torch.data.batching import BucketLadder
 from conan_tpu_torch.data.datasets import ConanDataset, EmformerDataset, VocoderDataset
 from conan_tpu_torch.data.loader import BatchIterator
-from conan_tpu_torch.train.tasks import NOT_PORTED, ConanTask, EmformerTask, VocoderTask
+from conan_tpu_torch.train.tasks import (NOT_PORTED, ConanTask, EmformerTask, PostnetTask,
+                                         VocoderTask)
 from conan_tpu_torch.train.trainer import Trainer
 
 log = logging.getLogger("conan_tpu_torch.run")
@@ -43,13 +48,8 @@ TASK_ALIASES = {
     "tasks.vocoder.hifigan.HifiGanTask": "vocoder",
     "conan": "conan", "emformer": "emformer", "vocoder": "vocoder", "postnet": "postnet",
 }
-TASKS = {"conan": ConanTask, "emformer": EmformerTask, "vocoder": VocoderTask}
-
-
-def _ported(kind: str) -> str:
-    if kind not in TASKS:
-        raise NotImplementedError(f"the {kind} task " + NOT_PORTED.format("PostnetTask"))
-    return kind
+TASKS = {"conan": ConanTask, "emformer": EmformerTask, "vocoder": VocoderTask,
+         "postnet": PostnetTask}
 
 
 def build_task(hp, device: str | torch.device | None = None):
@@ -57,7 +57,14 @@ def build_task(hp, device: str | torch.device | None = None):
     kind = TASK_ALIASES.get(hp.get("task_cls", "conan"))
     if kind is None:
         raise ValueError(f"unknown task_cls: {hp.get('task_cls')}")
-    return TASKS[_ported(kind)](hp, device=device), kind
+    if kind != "postnet":
+        return TASKS[kind](hp, device=device), kind
+    pre = load_ckpt_state(hp["fs2_ckpt_dir"])
+    if hp.get("spec_min") is None:
+        stats = np.load(f"{hp['binary_data_dir']}/spec_stats.npz")
+        hp = dict(hp, spec_min=[float(x) for x in stats["spec_min"]],
+                  spec_max=[float(x) for x in stats["spec_max"]])
+    return PostnetTask(hp, pre["params_g"], pre.get("vq_state"), device=device), kind
 
 
 def use_random_ref_after(hp, kind: str) -> int | None:
@@ -75,8 +82,8 @@ def build_train_iter(hp, kind: str):
     """An endless iterator of training batches from the train split under
     ``hp["binary_data_dir"]``. Conan and Emformer batches are padded to the
     bucket ladder's rung (64 up to ``max_frames``), Conan's reference mels to
-    their own, Emformer's mels to whole segments plus the lookahead."""
-    _ported(kind)
+    their own, Emformer's mels to whole segments plus the lookahead; the
+    postnet reads Conan's batches."""
     data_dir = hp["binary_data_dir"]
     if kind == "vocoder":
         ds = VocoderDataset(data_dir, "train", hp)
@@ -136,11 +143,12 @@ def build_valid_fn(hp, task, kind: str):
     the valid split (``eval_max_batches`` caps the batches), or None where
     the split is missing or empty. Emformer items are sorted by length and
     batched by 4 at the ladder's rung; vocoder crops by 4; Conan items one
-    at a time, cut by ``_conan_valid_item``."""
+    at a time, cut by ``_conan_valid_item``. None for the postnet, as in the
+    JAX package."""
     from conan_tpu_torch.train import validation
 
     data_dir = hp["binary_data_dir"]
-    if not os.path.exists(f"{data_dir}/valid_lengths.npy"):
+    if kind == "postnet" or not os.path.exists(f"{data_dir}/valid_lengths.npy"):
         return None
     n_stats = int(hp.get("num_valid_stats", 16))
     max_batches = int(hp.get("eval_max_batches", -1) or -1)

@@ -1,6 +1,11 @@
 """The training tasks (``conan_tpu/train/tasks.py``): the GANs ``VocoderTask``
-(:54-219) and ``ConanTask`` (:223-373), and ``EmformerTask`` (:429-475),
-the content extractor's distillation.
+(:54-219) and ``ConanTask`` (:223-373), ``PostnetTask`` (:381-423), the mel
+postnet's flow on a frozen Conan, and ``EmformerTask`` (:429-475), the
+content extractor's distillation.
+
+Every step runs at the config's ``train_precision`` (``training_scope``:
+"highest" fp32, "high" TF32, "default" bf16 operands for every dot and conv
+with the rest in fp32), as does ``ConanTask``'s k-means hook.
 
 Each ``train_step`` is one functional step over a state tree with the JAX
 package's key paths: the generator update, then the discriminator update on
@@ -29,6 +34,13 @@ mels come from the binarizer, where K1 made them; the step itself runs no
 hand-written kernel. The generator's gradients are again taken with respect
 to its own parameters only.
 
+PostnetTask: the frozen Conan (its parameters and VQ state ride in the
+state under ``frozen``) gives the coarse mel and ``decoder_inp`` without
+gradients, as the JAX package's ``apply(infer=False, global_step=200000)``
+does: ground-truth F0 and UV, the VQ on, the aligner not forced, no dropout,
+its VQ EMA update thrown away. The postnet's velocity loss draws its step
+and noise from the generator.
+
 EmformerTask: the offline Emformer and its code head against the teacher's
 codes, the masked CE and accuracy. Its mels too come from the binarizer
 (K1); the step draws nothing at random.
@@ -40,15 +52,16 @@ import torch
 
 import numpy as np
 
-from conan_tpu_torch.checkpoint import tree_leaves, tree_map, tree_unflatten
+from conan_tpu_torch.checkpoint import params_from_jax, tree_leaves, tree_map, tree_unflatten
 from conan_tpu_torch.device import resolve_device
 from conan_tpu_torch.models.conan.model import Conan, ConanConfig
+from conan_tpu_torch.models.conan.postnet import ConanPostnet, PostnetConfig
 from conan_tpu_torch.models.emformer import EmformerConfig, EmformerDistillModel
 from conan_tpu_torch.models.vocoder.discriminators import (MultiPeriodDiscriminator,
                                                            MultiScaleDiscriminator,
                                                            MultiWindowDiscriminator)
 from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
-from conan_tpu_torch.ops.precision import precision_scope
+from conan_tpu_torch.ops.precision import TRAINING_RUNGS, training_scope
 from conan_tpu_torch.train import losses as L
 from conan_tpu_torch.train.optim import (AdamW, build_schedule, emformer_distill_schedule,
                                          step_lr_schedule)
@@ -56,17 +69,14 @@ from conan_tpu_torch.train.optim import (AdamW, build_schedule, emformer_distill
 NOT_PORTED = "is not ported yet (ROADMAP.md, modules still to port: {})"
 
 
-def training_precision(name: str) -> str:
-    """The serving rung a ``train_precision`` trains at. "highest" (fp32, the
-    JAX package's default when a config names none) is ``exact``; the bf16
-    "default" and "high" rungs are not ported."""
-    if name == "highest":
-        return "exact"
-    if name in ("default", "high"):
-        raise NotImplementedError(f"train_precision {name!r} "
-                                  + NOT_PORTED.format("the bf16 training rung")
-                                  + "; set train_precision: highest")
-    raise ValueError(f"unknown train_precision {name!r}")
+def training_rung(hp) -> str:
+    """The config's ``train_precision`` (``ops/precision.py``
+    ``TRAINING_RUNGS``); "highest" where it names none, the JAX package's
+    default."""
+    name = hp.get("train_precision", "highest")
+    if name not in TRAINING_RUNGS:
+        raise ValueError(f"unknown train_precision {name!r}, not one of {TRAINING_RUNGS}")
+    return name
 
 
 def _gated_update(ok: torch.Tensor, params, updates, opt_new: dict, opt_old: dict):
@@ -116,7 +126,7 @@ class VocoderTask:
         _refuse_accumulation(hp)
         self.hp = hp
         self.device = resolve_device(device)
-        self.precision = training_precision(hp.get("train_precision", "highest"))
+        self.precision = training_rung(hp)
         self.gen = HifiGanGenerator(HifiGanConfig.from_hparams(hp))
         self.mpd = MultiPeriodDiscriminator()
         self.msd = MultiScaleDiscriminator()
@@ -171,7 +181,7 @@ class VocoderTask:
         Returns the new state and the metrics, 0-dim tensors on the device.
         The vocoder step draws nothing at random; ``generator`` is taken so
         that the trainer calls every task alike."""
-        with precision_scope(self.precision, self.device):
+        with training_scope(self.precision, self.device):
             mel = torch.as_tensor(batch["mels"]).to(self.device)
             y = torch.as_tensor(batch["wavs"]).to(self.device)
             # ---- generator
@@ -208,9 +218,6 @@ class ConanTask:
     flips ``use_random_ref`` (the reference changes length)."""
 
     def __init__(self, hp, device: str | torch.device | None = None):
-        if hp["f0_gen"] != "orig":
-            raise NotImplementedError(f"training with f0_gen {hp['f0_gen']!r} " + NOT_PORTED.format(
-                "the flow F0 loss, with PostnetTask"))
         for flag, item in (("use_spk_id", "the speaker-id embedding"),
                            ("use_spk_embed", "pre-extracted speaker embeddings")):
             if hp.get(flag, False):
@@ -218,7 +225,7 @@ class ConanTask:
         _refuse_accumulation(hp)
         self.hp = hp
         self.device = resolve_device(device)
-        self.precision = training_precision(hp.get("train_precision", "highest"))
+        self.precision = training_rung(hp)
         self.cfg = ConanConfig.from_hparams(hp)
         self.model = Conan(self.cfg)
         self.mel_disc = MultiWindowDiscriminator(
@@ -260,7 +267,8 @@ class ConanTask:
         losses: dict = {}
         L.add_mel_losses(out["mel_out"], target, hp.get("mel_losses", "l1:0.5|ssim:0.5"),
                          losses)
-        losses["fdiff"] = out["fdiff"]
+        f0_loss = "pflow" if self.cfg.f0_gen == "flow" else "fdiff"
+        losses[f0_loss] = out[f0_loss]
         losses["uv"] = L.masked_bce_with_logits(out["uv_pred"][:, :, 0], batch["uv"],
                                                 (content != -1).to(target.dtype),
                                                 hp.get("lambda_uv", 1.0))
@@ -304,7 +312,7 @@ class ConanTask:
             return None, True
         if float(state["vq_state"]["initialized"]) != 0.0:
             return None, True          # bootstrapped already
-        with torch.no_grad(), precision_scope(self.precision, self.device):
+        with torch.no_grad(), training_scope(self.precision, self.device):
             ref = torch.as_tensor(batch["mels"]).to(self.device)
             feats = self.model.prosody.pre_vq(state["params_g"]["prosody"], ref)
         flat = feats.reshape(-1, feats.shape[-1]).cpu().numpy()
@@ -321,7 +329,7 @@ class ConanTask:
         and ref_mels [B, Tr, 80] once ``use_random_ref`` (tensors or numpy).
         Returns the new state and the metrics, 0-dim tensors on the device."""
         hp = self.hp
-        with precision_scope(self.precision, self.device):
+        with training_scope(self.precision, self.device):
             b = self._batch(batch, use_random_ref)
             step = state["step"]
             # ---- generator
@@ -357,6 +365,71 @@ class ConanTask:
                 "opt_g": opt_g, "opt_d": opt_d, "step": step + 1}, metrics
 
 
+class PostnetTask:
+    """The mel postnet's rectified flow trained on a frozen Conan: AdamW (b1
+    0.9, b2 0.98, eps 1e-9, ``clip_grad_norm``) on a StepLR of ``lr`` halved
+    every ``decay_steps``; metrics ``flow`` and ``skipped``.
+    ``pretrain_params`` and ``pretrain_vq_state`` are the Conan checkpoint's
+    ``params_g`` and ``vq_state``, numpy trees as a checkpoint holds them."""
+
+    def __init__(self, hp, pretrain_params, pretrain_vq_state,
+                 device: str | torch.device | None = None):
+        _refuse_accumulation(hp)
+        self.hp = hp
+        self.device = resolve_device(device)
+        self.precision = training_rung(hp)
+        self.conan = Conan(ConanConfig.from_hparams(hp))
+        self.frozen = {"conan": params_from_jax(pretrain_params, self.device),
+                       "vq": (None if pretrain_vq_state is None
+                              else params_from_jax(pretrain_vq_state, self.device))}
+        self.postnet = ConanPostnet(PostnetConfig.from_hparams(hp))
+        self.opt = AdamW(step_lr_schedule(hp["lr"], hp.get("decay_steps", 50000), 0.5),
+                         b1=0.9, b2=0.98, eps=1e-9, clip_norm=hp.get("clip_grad_norm", 1.0))
+
+    def init_state(self, gen: torch.Generator) -> dict:
+        """Random postnet parameters (the JAX package's distributions) on the
+        task's device, a fresh optimizer state and the frozen Conan."""
+        p = tree_map(lambda t: t.to(self.device), self.postnet.init(gen))
+        return {"params": p, "opt": self.opt.init(p),
+                "step": torch.zeros((), dtype=torch.int32, device=self.device),
+                "frozen": self.frozen}
+
+    def frozen_forward(self, frozen: dict, batch: dict) -> dict:
+        """The frozen Conan's training forward at step 200000, without
+        gradients (its ``mel_out`` and ``decoder_inp``)."""
+        with torch.no_grad():
+            return self.conan.apply_train(
+                frozen["conan"], frozen["vq"], batch["content"], batch["ref_mels"],
+                batch["f0"], batch["uv"], global_step=torch.tensor(200000, device=self.device),
+                vq_start=self.hp.get("vq_start", 20500),
+                forcing_steps=self.hp.get("forcing", 20000))
+
+    def _loss(self, params, frozen: dict, batch: dict, generator) -> torch.Tensor:
+        out = self.frozen_forward(frozen, batch)
+        t, x0 = self.postnet.flow.draws(self.postnet.target(batch["mels"]), generator)
+        return self.postnet.loss(params, out["mel_out"], out["decoder_inp"], batch["mels"],
+                                 t, x0)
+
+    def train_step(self, state: dict, batch: dict, generator: torch.Generator | None = None
+                   ) -> tuple[dict, dict]:
+        """batch: content [B, T] (-1 pads), mels [B, T, 80], ref_mels
+        [B, Tr, 80], f0 and uv [B, T] (tensors or numpy). Returns the new
+        state and the metrics, 0-dim tensors on the device."""
+        with training_scope(self.precision, self.device):
+            b = {k: torch.as_tensor(batch[k]).to(self.device)
+                 for k in ("content", "mels", "ref_mels", "f0", "uv")}
+            p = _with_grad(state["params"])
+            loss = self._loss(p, state["frozen"], b, generator)
+            grads = _grads(loss, p)
+            ok = _all_finite(grads)
+            upd, opt_new = self.opt.update(tree_unflatten(p, grads), state["opt"],
+                                           state["params"])
+            params, opt = _gated_update(ok, state["params"], upd, opt_new, state["opt"])
+        return ({"params": params, "opt": opt, "step": state["step"] + 1,
+                 "frozen": state["frozen"]},
+                {"flow": loss.detach(), "skipped": 1.0 - ok.float()})
+
+
 class EmformerTask:
     """The Emformer distilled from HuBERT codes: temperature-scaled CE times
     ``lambda_distillation`` over the codes that are not -1, AdamW with global
@@ -366,7 +439,7 @@ class EmformerTask:
         _refuse_accumulation(hp)
         self.hp = hp
         self.device = resolve_device(device)
-        self.precision = training_precision(hp.get("train_precision", "highest"))
+        self.precision = training_rung(hp)
         self.cfg = EmformerConfig.from_hparams(hp)
         self.model = EmformerDistillModel(self.cfg)
         sched = emformer_distill_schedule(
@@ -408,7 +481,7 @@ class EmformerTask:
         ``skipped``, 0-dim tensors on the device. The step draws nothing at
         random; ``generator`` is taken so that the trainer calls every task
         alike."""
-        with precision_scope(self.precision, self.device):
+        with training_scope(self.precision, self.device):
             p = _with_grad(state["params"])
             loss, acc = self._loss(p, batch)
             grads = _grads(loss, p)

@@ -26,13 +26,13 @@ import numpy as np
 import torch
 
 from conan_tpu_torch.audio.pitch import denorm_f0
-from conan_tpu_torch.ops.precision import precision_scope
+from conan_tpu_torch.ops.precision import training_scope
 from conan_tpu_torch.train import losses as L
 
 
 @contextlib.contextmanager
 def _eval_scope(task):
-    with torch.no_grad(), precision_scope(task.precision, task.device):
+    with torch.no_grad(), training_scope(task.precision, task.device):
         yield
 
 

@@ -464,29 +464,34 @@ def test_window_discriminator_draws():
     assert [int(s) for s in used] == [0, 0]
 
 
-@pytest.mark.parametrize("override", [dict(f0_gen="flow"), dict(train_precision="default"),
-                                      dict(train_precision="high"), dict(use_spk_id=True),
+@pytest.mark.parametrize("override", [dict(use_spk_embed=True), dict(train_precision="bf16"),
+                                      dict(train_precision="fast"), dict(use_spk_id=True),
                                       dict(accumulate_grad_batches=2)])
 def test_unported_options_raise(override):
+    """Unported options raise NotImplementedError naming their ROADMAP item;
+    a train_precision outside default/high/highest (the serving ladder's
+    "fast" included) raises ValueError."""
+    if "train_precision" in override:
+        with pytest.raises(ValueError, match="train_precision"):
+            ConanTask(dict(HP, **override), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         ConanTask(dict(HP, **override), device="cpu")
     assert "K2" not in str(e.value)
 
 
 def test_soak_r5_config_builds_and_steps_on_cpu():
-    """egs/soak_r5/conan.yaml at full width: its shipped bf16 rung is
-    refused; at train_precision highest the task steps on the CPU (one
-    utterance of 64 frames, the gates at the config's r5 soak values, step
-    0: before VQ, forced, discriminator off)."""
+    """egs/soak_r5/conan.yaml at full width and its shipped rung
+    (train_precision default): the task steps on the CPU (one utterance of
+    64 frames, the gates at the config's r5 soak values, step 0: before VQ,
+    forced, discriminator off)."""
     import os
 
     from conan_tpu_torch.config import load_config
 
     hp = load_config(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                   "egs", "soak_r5", "conan.yaml"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ConanTask(hp, device="cpu")
-    hp["train_precision"] = "highest"
+    assert hp["train_precision"] == "default"
     task = ConanTask(hp, device="cpu")
     assert (task.cfg.hidden_size, task.cfg.n_vq, len(task.mel_disc.windows)) == (256, 512, 3)
     rng = np.random.default_rng(14)

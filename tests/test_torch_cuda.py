@@ -310,7 +310,7 @@ CONAN_SMALL = {"hidden_size": 32, "nVQ": 16, "mel_disc_hidden_size": 8, "vq_star
                "train_precision": "highest"}
 
 
-def _conan_task(device):
+def _conan_task(device, rung="highest"):
     import os
 
     from conan_tpu_torch.config import load_config
@@ -318,7 +318,7 @@ def _conan_task(device):
 
     hp = load_config(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                   "egs", "soak_r5", "conan.yaml"))
-    hp.update(CONAN_SMALL)
+    hp.update(CONAN_SMALL, train_precision=rung)
     return ConanTask(hp, device=device)
 
 
@@ -429,11 +429,11 @@ EMF_HP = {"emformer_input_dim": 16, "emformer_layers": 2, "chunk_size": 80,
           "train_precision": "highest"}
 
 
-def _emformer_task(device):
+def _emformer_task(device, rung="highest"):
     from conan_tpu_torch.models.emformer import EmformerConfig, EmformerDistillModel
     from conan_tpu_torch.train.tasks import EmformerTask
 
-    task = EmformerTask(EMF_HP, device=device)
+    task = EmformerTask(dict(EMF_HP, train_precision=rung), device=device)
     task.model = EmformerDistillModel(EmformerConfig(**EMF_SMALL))
     return task
 
@@ -494,3 +494,145 @@ def test_emformer_step_on_card_matches_cpu():
                 for a, b in zip(tree_leaves(st["opt"]["mu"]), tree_leaves(new_64["opt"]["mu"]))]
 
     assert max(errs(new_gpu)) <= max(1e-3, 4 * max(errs(new_cpu)))
+
+
+# K2-bf16, the "default" training rung's grouped conv, against its plain
+# version (the fp32 grouped conv of the bf16-rounded operands) on the MSD's
+# 15 grouped geometries of an 8000-sample batch: values as K2's; dx and dw
+# (cuDNN from bf16 operands, a bf16 result) against the same convs in fp32
+# on the rounded operands with the incoming gradient rounded, relative L2
+# within chip_smoke.py's BF16_GRAD_REL (one bf16 rounding of each result)
+def _msd_geometries():
+    from chip_smoke import msd_grouped_geometries
+
+    return msd_grouped_geometries(8000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(15))
+def test_groupconv_bf16_matches_plain_version(index):
+    from chip_smoke import BF16_GRAD_REL, rel_l2
+    from conan_tpu_torch.ops.groupconv import grouped_conv1d_bf16_reference
+    from conan_tpu_torch.ops.precision import rounded_dot, training_scope
+
+    dev = _card()
+    _scale, T, ci, co, k, s, g, pd = _msd_geometries()[index]
+    kernel = GroupConvKernel()
+    rng = np.random.default_rng(index)
+    x = torch.from_numpy(rng.standard_normal((2, T, ci)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((co, ci // g, k)) / np.sqrt(k * ci / g))
+                         .astype(np.float32)).to(dev)
+    conv = dict(stride=s, padding=(pd, pd), groups=g)
+    outs = {}
+    for name, fn in (("kernel", lambda a, b: kernel(a, b, **conv)),
+                     ("plain", lambda a, b: rounded_dot(
+                         lambda aa, bb: grouped_conv1d_reference(aa, bb, **conv), a, b))):
+        xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        with training_scope("default", dev):
+            y = fn(xx, ww)
+            torch.sin(y).sum().backward()
+        outs[name] = (y.detach(), xx.grad, ww.grad)
+    torch.cuda.synchronize()
+    assert kernel.launches_bf16 == 1 and kernel.launches == 0
+    (y, dx, dw), (y_ref, dx_ref, dw_ref) = outs["kernel"], outs["plain"]
+    torch.testing.assert_close(y_ref, grouped_conv1d_bf16_reference(x, w, **conv), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(y, y_ref, atol=2e-4, rtol=1e-4)
+    assert rel_l2(dx, dx_ref) <= BF16_GRAD_REL and rel_l2(dw, dw_ref) <= BF16_GRAD_REL
+
+
+@pytest.mark.cuda
+def test_groupconv_bf16_build_failure_raises(monkeypatch, tmp_path):
+    """No silent route: a K2 library that does not build raises under the
+    "default" rung, and nothing falls back to cuDNN."""
+    from conan_tpu_torch.ops import native
+    from conan_tpu_torch.ops.precision import training_scope
+
+    dev = _card()
+    kernel = GroupConvKernel()
+    x, w = torch.zeros(1, 100, 128, device=dev), torch.zeros(128, 32, 41, device=dev)
+    native.load.cache_clear()
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "LIB_PATH", tmp_path / "libconan_kernels.so")
+    monkeypatch.setattr(native, "_nvcc", lambda: "/bin/false")
+    try:
+        with training_scope("default", dev), pytest.raises(RuntimeError, match="nvcc failed"):
+            kernel(x, w, groups=4)
+    finally:
+        native.load.cache_clear()
+    assert kernel.launches_bf16 == kernel.launches == 0
+
+
+# Each task's step at the "default" (bf16 operands) and "high" (TF32) rungs
+# on the card at small width, against the port's own float64 step on the CPU
+# from the same state and batch: chip_smoke.py's rung_check and RUNG_BOUND
+# (the losses' sum and the gradient leaves as one tree, relative)
+def _rung_case(kind: str):
+    """(make_task(rung, device), state on the card, batch, step kwargs,
+    leaves_of) of one task at small width."""
+    import os
+
+    from conan_tpu_torch.checkpoint import tree_leaves, tree_map
+    from conan_tpu_torch.config import load_config
+    from conan_tpu_torch.models.conan.model import Conan, ConanConfig
+    from conan_tpu_torch.train.tasks import ConanTask, PostnetTask, VocoderTask
+
+    egs = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "egs",
+                       "soak_r5")
+    rng = np.random.default_rng(3)
+    gen = torch.Generator().manual_seed(0)
+    both = lambda st: tree_leaves(st["opt_g"]["mu"]) + tree_leaves(st["opt_d"]["mu"])  # noqa
+    mu = lambda st: tree_leaves(st["opt"]["mu"])  # noqa: E731
+    if kind == "vocoder":
+        hp = dict(load_config(os.path.join(egs, "vocoder.yaml")), upsample_initial_channel=32)
+        make = lambda rung, d: VocoderTask(dict(hp, train_precision=rung), device=d)  # noqa
+        batch = {"mels": (rng.standard_normal((2, 8, 80)) - 4).astype(np.float32),
+                 "wavs": (rng.standard_normal((2, 8 * 320)) * 0.1).astype(np.float32)}
+        return make, make("highest", None).init_state(gen), batch, {}, both
+    if kind == "emformer":
+        make = lambda rung, d: _emformer_task(d, rung)  # noqa: E731
+        T = 40 * 4
+        batch = {"mels": rng.standard_normal((2, T + 2, 16)).astype(np.float32),
+                 "content": rng.integers(0, 10, (2, T))}
+        batch["content"][1, T - 30:] = -1
+        return make, make("highest", None).init_state(gen), batch, {}, mu
+    batch = _conan_batch()
+    if kind == "conan":
+        make = lambda rung, d: _conan_task(d, rung)  # noqa: E731
+        task = make("highest", None)
+        state, _ = task.host_hook(task.init_state(gen), 4, batch)
+        state["step"] = torch.tensor(4, dtype=torch.int32, device=_card())
+        return make, state, batch, {"use_random_ref": True}, both
+    hp = dict(load_config(os.path.join(egs, "postnet.yaml")), **CONAN_SMALL,
+              residual_layers=2, residual_channels=16, spec_min=[-8.0] * 80,
+              spec_max=[1.0] * 80)
+    conan = Conan(ConanConfig.from_hparams(hp))
+    frozen = tree_map(lambda t: t.numpy(), conan.init(gen))
+    vq = tree_map(lambda t: t.numpy(), conan.init_vq_state(gen))
+
+    def make(rung, d):
+        task = PostnetTask(dict(hp, train_precision=rung), frozen, vq, device=d)
+        draws = task.postnet.flow.draws
+        task.postnet.flow.draws = lambda x1, g: tuple(
+            t.to(x1.device) for t in draws(x1.cpu(), torch.Generator().manual_seed(5)))
+        return task
+
+    return make, make("highest", None).init_state(gen), batch, {}, mu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["vocoder", "conan", "emformer", "postnet"])
+def test_rung_steps_on_card_match_float64(kind):
+    from chip_smoke import rung_check
+    from conan_tpu_torch.checkpoint import tree_map
+
+    _card()
+    make, state, batch, kw, leaves_of = _rung_case(kind)
+    with torch.backends.mkldnn.flags(enabled=False):
+        new_64, m_64 = make("highest", "cpu").train_step(
+            tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), state),
+            {k: v.astype(np.float64) if v.dtype.kind == "f" else v for k, v in batch.items()},
+            None, **kw)
+    text = rung_check(kind, lambda rung: make(rung, None), state, batch, m_64, leaves_of(new_64),
+                      leaves_of, **kw)
+    print(text)

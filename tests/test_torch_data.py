@@ -321,8 +321,13 @@ def test_build_train_iter_matches_jax(corpus):
         assert got["mels"].shape[1] - 2 in batching.BucketLadder(64, 3000).lengths
     got_it.close()
     want_it.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_task(dict(hp, task_cls="postnet"), device="cpu")
+    # the postnet reads Conan's batches, as JAX's does
+    hp = _conan_hp(corpus)
+    got_it, want_it = build_train_iter(hp, "postnet"), jax_build_train_iter(hp, "postnet")
+    for _ in range(2):
+        _assert_batches_equal(next(got_it), next(want_it))
+    got_it.close()
+    want_it.close()
 
 
 def test_build_train_iter_vocoder_matches_jax(corpus):

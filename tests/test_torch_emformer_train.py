@@ -258,7 +258,3 @@ def test_emformer_task_steps_match_jax(models):
         state = new
     assert len(tree_leaves(state["opt"]["mu"])) == len(leaf_paths(p_np))
 
-
-def test_train_precision_default_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EmformerTask(dict(HP, train_precision="default"), device="cpu")

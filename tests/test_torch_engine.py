@@ -72,13 +72,14 @@ def _small_engines(**kw):
 
 def test_scan_bucketed_matches_jax(rng):
     """infer_once(use_scan=True, bucket_lengths=True), the batch-conversion
-    call of run_vc, against JAX's same call (its lax.scan over the bucketed
-    source): codes equal, waveform within 1e-4."""
+    call of run_vc, against JAX's lax.scan without bucket_lengths: the port
+    pads only the source (exact), where JAX's bucketing also zero-pads the
+    reference, which moves its output on these weights (nonzero LayerNorm
+    biases). Codes equal, waveform within 1e-4."""
     jeng, eng = _small_engines()
     src = (rng.standard_normal(HOP * 13) * 0.1).astype(np.float32)
     ref = (rng.standard_normal(HOP * 11) * 0.1).astype(np.float32)
-    want, want_codes = jeng.infer_once(src, ref, collect_codes=True, use_scan=True,
-                                       bucket_lengths=True)
+    want, want_codes = jeng.infer_once(src, ref, collect_codes=True, use_scan=True)
     wav, codes = eng.infer_once(src, ref, collect_codes=True, use_scan=True,
                                 bucket_lengths=True)
     assert wav.shape == want.shape == (1, 14 * HOP)
@@ -98,15 +99,11 @@ def _port_init_engine(seed: int = 1) -> StreamingVoiceConversion:
 
 
 def test_bucketed_lengths_identical_output(rng):
-    """bucket_lengths pads the reference with zero frames and the scan
-    path's and offline source with edge frames (every source-side op is
-    causal); on the package's own init the output does not change, streaming
-    and offline, as tests/test_streaming_engine.py holds JAX's (1e-6, same
-    init). The zero reference frames are invisible only while the reference
-    encoders' LayerNorm biases are zero: LN of a zero frame is its bias, which
-    the k=31 and k=5 convs of the real frames near the end then read. With
-    other weights both packages' bucketed output moves alike
-    (test_scan_bucketed_matches_jax)."""
+    """bucket_lengths pads the scan path's and offline source with edge
+    frames (every source-side op is causal) and leaves the reference as it
+    is; on the package's own init the output does not change, streaming and
+    offline, as tests/test_streaming_engine.py holds JAX's (1e-6, same
+    init)."""
     eng = _port_init_engine()
     src = (rng.standard_normal(HOP * 13) * 0.1).astype(np.float32)
     ref = (rng.standard_normal(HOP * 11) * 0.1).astype(np.float32)
@@ -122,6 +119,27 @@ def test_bucketed_lengths_identical_output(rng):
     np.testing.assert_array_equal(off_codes_a, off_codes_b)
     np.testing.assert_allclose(off_b, off_a, atol=1e-6)
     assert eng._p2bucket(1) == 64 and eng._p2bucket(64) == 64 and eng._p2bucket(65) == 128
+
+
+def test_bucketed_reference_is_not_padded_on_nonzero_layernorm_biases(rng):
+    """On weights whose LayerNorm biases are nonzero (seeded numpy, as
+    trained weights have them), bucket_lengths leaves the output as it is:
+    the reference is not padded, so no zero frame becomes an LN bias that
+    the reference encoders' convs read. The scan path, bucketed against
+    unbucketed: codes equal, waveform within 1e-5; offline likewise."""
+    _, eng = _small_engines()
+    ln_bias = eng.p_conan["global_encoder"]["blocks"][0][0]["norm"]["bias"]
+    assert float(ln_bias.abs().max()) > 0.05
+    src = (rng.standard_normal(HOP * 13) * 0.1).astype(np.float32)
+    ref = (rng.standard_normal(HOP * 11) * 0.1).astype(np.float32)
+    wav_a, codes_a = eng.infer_once(src, ref, collect_codes=True, use_scan=True)
+    wav_b, codes_b = eng.infer_once(src, ref, collect_codes=True, use_scan=True,
+                                    bucket_lengths=True)
+    np.testing.assert_array_equal(codes_b, codes_a)
+    np.testing.assert_allclose(wav_b, wav_a, atol=1e-5, rtol=0)
+    off_a = eng.infer_offline(src, ref)
+    off_b = eng.infer_offline(src, ref, bucket_lengths=True)
+    np.testing.assert_allclose(off_b, off_a, atol=1e-5, rtol=0)
 
 
 def test_two_utterances_in_a_row_equal_fresh_engines(rng):

@@ -230,9 +230,15 @@ def test_trainer_fit_writes_metrics_and_checkpoint(setup, tmp_path):
 
 
 @pytest.mark.parametrize("override", [dict(use_fm_loss=True), dict(use_cond_disc=True),
-                                      dict(use_spec_disc=True), dict(train_precision="default"),
-                                      dict(train_precision="high")])
+                                      dict(use_spec_disc=True), dict(train_precision="bf16"),
+                                      dict(train_precision="fast")])
 def test_unported_options_raise(override):
+    """Unported options raise NotImplementedError naming their ROADMAP item;
+    a train_precision outside default/high/highest raises ValueError."""
+    if "train_precision" in override:
+        with pytest.raises(ValueError, match="train_precision"):
+            VocoderTask(dict(VOC_HP, **override), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         VocoderTask(dict(VOC_HP, **override), device="cpu")
 
