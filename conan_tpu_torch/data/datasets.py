@@ -1,8 +1,10 @@
 """Datasets over the binary record store (``conan_tpu/data/datasets.py``).
 
   SpeechDataset   an item's mel, a reference mel of another utterance of the
-                  same speaker (through ``<prefix>_spk_ids.npy``), and its F0
-                  log-normalized with the unvoiced gaps interpolated
+                  same speaker (through ``<prefix>_spk_ids.npy``), its
+                  speaker id, its F0 log-normalized with the unvoiced gaps
+                  interpolated, and with ``use_spk_embed`` its
+                  pre-extracted ``spk_embed`` where the record has one
   ConanDataset    + the content codes; ``collate`` pads codes with -1 (the
                   value the model masks), mels, F0 and UV with 0
   EmformerDataset + the content codes; ``collate`` pads mels to whole
@@ -80,6 +82,11 @@ class SpeechDataset:
         ref_mel = np.asarray(self._get_item(ref_local)["mel"], np.float32)[:max_frames]
         sample = {"id": index, "item_name": item.get("item_name", str(index)),
                   "mel": mel, "ref_mel": ref_mel, "spk_id": spk_id}
+        if hp.get("use_spk_embed", False) and "spk_embed" in item:
+            emb = item["spk_embed"]
+            if isinstance(emb, str):        # metadata stores space-separated floats
+                emb = [float(x) for x in emb.split()]
+            sample["spk_embed"] = np.asarray(emb, np.float32)
         if "f0" in item:
             T = min(mel.shape[0], len(item["f0"]))
             sample["mel"] = mel[:T]
@@ -102,7 +109,9 @@ class ConanDataset(SpeechDataset):
 
     def collate(self, samples: list[dict], target_len: int | None = None,
                 ref_target_len: int | None = None) -> dict:
-        return {
+        """Pads as the module's docstring says; ``spk_embed`` [B, H] where
+        every sample has one (``use_spk_embed``)."""
+        batch = {
             "nsamples": len(samples),
             "item_name": [s["item_name"] for s in samples],
             "content": collate_1d([s["content"] for s in samples], -1, target_len),
@@ -113,6 +122,9 @@ class ConanDataset(SpeechDataset):
             "mel_lengths": np.asarray([s["mel"].shape[0] for s in samples], np.int64),
             "spk_ids": np.asarray([s["spk_id"] for s in samples], np.int64),
         }
+        if all("spk_embed" in s for s in samples):
+            batch["spk_embed"] = np.stack([s["spk_embed"] for s in samples])
+        return batch
 
 
 class EmformerDataset(SpeechDataset):

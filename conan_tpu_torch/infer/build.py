@@ -1,7 +1,10 @@
 """Engine composition from trained checkpoints (``conan_tpu/infer/build.py``).
 
 Three separately trained checkpoint dirs (acoustic model, Emformer, vocoder),
-each with its own ``config.yaml``, in the JAX package's checkpoint format.
+each with its own ``config.yaml``, in the JAX package's checkpoint format,
+and the vocoder registry (``conan_tpu/infer/build.py:24-44``): ``HifiGAN``
+(the causal generator, the one that streams), ``HifiGAN_noncausal`` and
+``HifiGAN_NSF``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,33 @@ from conan_tpu_torch.infer.streaming import StreamingConfig, StreamingVoiceConve
 from conan_tpu_torch.models.conan.model import Conan, ConanConfig
 from conan_tpu_torch.models.emformer import EmformerConfig, EmformerDistillModel
 from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
+from conan_tpu_torch.models.vocoder.hifigan_noncausal import NonCausalHifiGanGenerator
+from conan_tpu_torch.models.vocoder.hifigan_nsf import NsfHifiGanGenerator
+
+VOCODER_REGISTRY: dict[str, type] = {}
+
+
+def register_vocoder(name: str):
+    def deco(cls):
+        VOCODER_REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def get_vocoder_cls(name: str):
+    return VOCODER_REGISTRY[name]
+
+
+register_vocoder("HifiGAN")(HifiGanGenerator)
+register_vocoder("HifiGAN_noncausal")(NonCausalHifiGanGenerator)
+register_vocoder("HifiGAN_NSF")(NsfHifiGanGenerator)
+
+
+def streamable(gen) -> bool:
+    """Whether a generator has a streaming ``step``: the causal one, unless
+    its upsampler is the transposed conv ("nn")."""
+    return isinstance(gen, HifiGanGenerator) and gen.cfg.upsample != "nn"
+
 
 def _load_dir_config(ckpt_dir: str) -> HParams:
     cfg_path = os.path.join(ckpt_dir, "config.yaml")
@@ -35,30 +65,33 @@ def build_engine(conan_dir: str, emformer_dir: str, vocoder_dir: str,
 
     ``serving_precision`` None takes the acoustic checkpoint's
     ``serving_precision`` hparam if it has one, else "exact"; an explicit
-    value, "exact" included, always wins. The acoustic checkpoint's
-    ``vocoder`` hparam must name the causal "HifiGAN", the one vocoder the
-    port has."""
+    value, "exact" included, always wins. The engine streams, so the
+    acoustic checkpoint's ``vocoder`` hparam must name the causal "HifiGAN"
+    and the vocoder's config an upsampler other than "nn"; any other
+    generator raises NotImplementedError as not streamable."""
     device = resolve_device(device)
+    conan_state = load_ckpt_state(conan_dir)
     hp_conan = hp or _load_dir_config(conan_dir)
     vocoder = hp_conan.get("vocoder") or "HifiGAN"
-    if vocoder != "HifiGAN":
-        raise NotImplementedError(f"vocoder {vocoder!r} is not ported yet "
-                                  "(ROADMAP.md, modules still to port: RMVPE and the other "
-                                  "vocoders)")
     hp_emf = _load_dir_config(emformer_dir)
     hp_voc = _load_dir_config(vocoder_dir)
+    voc_cfg = HifiGanConfig.from_hparams(hp_voc) if "upsample_rates" in hp_voc \
+        else HifiGanConfig()
+    if not streamable(get_vocoder_cls(vocoder)(voc_cfg)):
+        raise NotImplementedError(
+            f"vocoder {vocoder!r} (upsample {voc_cfg.upsample!r}) is not streamable: the "
+            "engine's chunk step needs the causal HifiGAN with a 'shuffle' or 'zero' "
+            "upsampler")
     cfg = StreamingConfig(
         mel=MelConfig.from_hparams(hp_conan) if "hop_size" in hp_conan else MelConfig(),
         emformer=(EmformerConfig.from_hparams(hp_emf)
                   if "emformer_layers" in hp_emf else EmformerConfig()),
         conan=(ConanConfig.from_hparams(hp_conan)
                if "hidden_size" in hp_conan else ConanConfig()),
-        vocoder=(HifiGanConfig.from_hparams(hp_voc)
-                 if "upsample_rates" in hp_voc else HifiGanConfig()),
+        vocoder=voc_cfg,
     )
     if serving_precision is None:
         serving_precision = str(hp_conan.get("serving_precision") or "exact")
-    conan_state = load_ckpt_state(conan_dir)
     vq_state = conan_state.get("vq_state")
     return StreamingVoiceConversion(
         cfg,

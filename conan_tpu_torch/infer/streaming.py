@@ -26,6 +26,7 @@ capture of the chunk step.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 from torch.profiler import record_function
@@ -220,6 +221,39 @@ class StreamingVoiceConversion:
         return chunks, noise.reshape(B, T_pad // seg, seg, 1).transpose(0, 1).contiguous()
 
     @torch.inference_mode()
+    def stream_mels(self, src_mel: torch.Tensor, ref_mel: torch.Tensor, use_scan: bool = False,
+                    bucket_lengths: bool = False, generator: torch.Generator | None = None,
+                    f0_noise=None):
+        """``infer_once`` from mels on the device (src [B, T, 80], ref
+        [B, Tr, 80]): (wav [B, T·hop], codes [B, T]), tensors on the device."""
+        style_ctx = self._prepare(ref_mel)
+        mel_ext, T, T_pad = self._source_chunks(src_mel, bucket_lengths and use_scan)
+        B = src_mel.shape[0]
+        chunks, noise_chunks = self.scan_inputs(
+            mel_ext, self._f0_noise(B, T_pad, generator, f0_noise))
+        loop = self.stream_scan if use_scan else self._eager_loop
+        wavs, codes, _ = loop(self.init_state(B), chunks, style_ctx, noise_chunks)
+        wav = wavs.transpose(0, 1).reshape(B, -1)
+        codes = codes.transpose(0, 1).reshape(B, -1)
+        return wav[:, :T * self.cfg.mel.hop], codes[:, :T]
+
+    @torch.inference_mode()
+    def offline_mels(self, src_mel: torch.Tensor, ref_mel: torch.Tensor,
+                     bucket_lengths: bool = False, generator: torch.Generator | None = None,
+                     f0_noise=None):
+        """``infer_offline`` from mels on the device: (wav [B, T·hop], codes
+        [B, T]), tensors on the device."""
+        mel_ext, T, T_pad = self._source_chunks(src_mel, bucket_lengths)
+        noise = self._f0_noise(src_mel.shape[0], T_pad, generator, f0_noise)
+        with precision_scope("exact", self.device):
+            codes = torch.argmax(self.emformer.apply(self.p_emformer, mel_ext), dim=-1)
+        style_ctx = self._prepare(ref_mel)
+        with precision_scope(self.serving_precision, self.device):
+            ret = self.conan.decode(self.p_conan, codes, style_ctx, initial_noise=noise)
+            wav = self.vocoder.apply(self.p_vocoder, ret["mel_out"])
+        return wav[:, :T * self.cfg.mel.hop, 0].float(), codes[:, :T]
+
+    @torch.inference_mode()
     def infer_once(self, src_wav, ref_wav, collect_codes: bool = False,
                    use_scan: bool = False, bucket_lengths: bool = False,
                    generator: torch.Generator | None = None, f0_noise=None):
@@ -231,20 +265,11 @@ class StreamingVoiceConversion:
         the power-of-two ladder, never the reference (see the module's
         docstring). Returns the wav [B, T·hop] as
         numpy (and the codes [B, T] with ``collect_codes``)."""
-        src_mel = self.wav_to_mel(src_wav)
-        style_ctx = self._prepare(self.wav_to_mel(ref_wav))
-        mel_ext, T, T_pad = self._source_chunks(src_mel, bucket_lengths and use_scan)
-        B = src_mel.shape[0]
-        chunks, noise_chunks = self.scan_inputs(
-            mel_ext, self._f0_noise(B, T_pad, generator, f0_noise))
-        loop = self.stream_scan if use_scan else self._eager_loop
-        wavs, codes, _ = loop(self.init_state(B), chunks, style_ctx, noise_chunks)
-        wav = wavs.transpose(0, 1).reshape(B, -1)
-        codes = codes.transpose(0, 1).reshape(B, -1)
-        wav_out = wav[:, :T * self.cfg.mel.hop].cpu().numpy()
+        wav, codes = self.stream_mels(self.wav_to_mel(src_wav), self.wav_to_mel(ref_wav),
+                                      use_scan, bucket_lengths, generator, f0_noise)
         if collect_codes:
-            return wav_out, codes[:, :T].cpu().numpy()
-        return wav_out
+            return wav.cpu().numpy(), codes.cpu().numpy()
+        return wav.cpu().numpy()
 
     @torch.inference_mode()
     def infer_offline(self, src_wav, ref_wav, collect_codes: bool = False,
@@ -254,20 +279,11 @@ class StreamingVoiceConversion:
         check for ``infer_once``, and offline conversion); ``bucket_lengths``
         pads the source to the ladder, never the reference. Returns as
         ``infer_once`` does."""
-        src_mel = self.wav_to_mel(src_wav)
-        ref_mel = self.wav_to_mel(ref_wav)
-        mel_ext, T, T_pad = self._source_chunks(src_mel, bucket_lengths)
-        noise = self._f0_noise(src_mel.shape[0], T_pad, generator, f0_noise)
-        with precision_scope("exact", self.device):
-            codes = torch.argmax(self.emformer.apply(self.p_emformer, mel_ext), dim=-1)
-        style_ctx = self._prepare(ref_mel)
-        with precision_scope(self.serving_precision, self.device):
-            ret = self.conan.decode(self.p_conan, codes, style_ctx, initial_noise=noise)
-            wav = self.vocoder.apply(self.p_vocoder, ret["mel_out"])
-        wav_out = wav[:, :T * self.cfg.mel.hop, 0].float().cpu().numpy()
+        wav, codes = self.offline_mels(self.wav_to_mel(src_wav), self.wav_to_mel(ref_wav),
+                                       bucket_lengths, generator, f0_noise)
         if collect_codes:
-            return wav_out, codes[:, :T].cpu().numpy()
-        return wav_out
+            return wav.cpu().numpy(), codes.cpu().numpy()
+        return wav.cpu().numpy()
 
 
 def _copy_tree(dst, src) -> None:
@@ -298,12 +314,16 @@ class CapturedChunkStep:
     inside the step itself. Autocast caches casts only of tensors that
     require grad, and the engine's weights do not, so its cache plays no
     part. Each buffer keeps the dtype it had at capture (a carry that the
-    "fast" rung computes in bf16 is stored exactly in its fp32 buffer)."""
+    "fast" rung computes in bf16 is stored exactly in its fp32 buffer).
+    ``capture_ms`` is the host's wall time of the warm-up and the capture,
+    from a synchronized start to a synchronized end."""
 
     WARMUP = 2
 
     def __init__(self, step_fn, state: dict, mel_chunk: torch.Tensor, style_ctx: dict,
                  f0_noise: torch.Tensor):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         self.state = tree_map(torch.clone, state)
         self.mel = mel_chunk.clone()
         self.noise = f0_noise.clone()
@@ -319,6 +339,8 @@ class CapturedChunkStep:
             self.wav, self.codes, new_state = step_fn(self.state, self.mel, self.style,
                                                       self.noise)
             _copy_tree(self.state, new_state)
+        torch.cuda.synchronize()
+        self.capture_ms = 1e3 * (time.perf_counter() - t0)
 
     def run(self, state: dict, mel_chunks: torch.Tensor, style_ctx: dict,
             noise_chunks: torch.Tensor):

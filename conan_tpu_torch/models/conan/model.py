@@ -241,7 +241,9 @@ class Conan:
     def apply_train(self, params: Params, vq_state: Params | None, content: torch.Tensor,
                     ref: torch.Tensor, f0: torch.Tensor, uv: torch.Tensor, *,
                     global_step: torch.Tensor, vq_start: int, forcing_steps: int,
-                    generator: torch.Generator | None = None) -> dict:
+                    generator: torch.Generator | None = None,
+                    spk_embed: torch.Tensor | None = None,
+                    spk_id: torch.Tensor | None = None) -> dict:
         """The training forward: content [B, T] codes (-1 pads), ref
         [B, Tr, 80], ground-truth log2-F0 and UV [B, T] → {"mel_out",
         "decoder_inp", "uv_pred", "fdiff" ("orig") or "pflow" ("flow"),
@@ -251,11 +253,20 @@ class Conan:
         on the device; the VQ state in the output is the EMA-updated one (not
         detached). With a ``generator``, dropout as the JAX package trains;
         the flow F0 loss draws its step and noise from it (``f0_flow.draws``;
-        None: a CPU generator seeded 0)."""
+        None: a CPU generator seeded 0). The style is ``spk_embed`` [B, H] or
+        [B, 1, H] where given (a pre-extracted embedding, Conan.py:146-149),
+        else the reference encoder's; with ``use_spk_id`` and ``spk_id`` [B]
+        the speaker's id embedding is added to it (fs.py:101-117)."""
         cfg = self.cfg
         ret: dict = {}
-        pitch_inp = self._content_embed(params, content, Stream(None)) \
-            + self.encode_spk_embed(params, ref)
+        ce = self._content_embed(params, content, Stream(None))
+        if spk_embed is not None:
+            style = spk_embed if spk_embed.dim() == 3 else spk_embed[:, None, :]
+        else:
+            style = self.encode_spk_embed(params, ref)
+        if cfg.use_spk_id and spk_id is not None:
+            style = style + embedding(spk_id, params["spk_id_proj"])[:, None, :]
+        pitch_inp = ce + style
         if cfg.style:
             pros, ret["vq_loss"], ret["ppl"], ret["vq_state"] = self.prosody.apply_train(
                 params["prosody"], vq_state, ref, use_vq=global_step > vq_start,

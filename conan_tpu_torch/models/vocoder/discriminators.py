@@ -3,19 +3,26 @@
 mel discriminator of the Conan acoustic GAN (``:258-358``).
 
 Parameter trees and key paths are the JAX package's. Inputs are channels-last
-wavs [B, T, 1]. Every discriminator has ``forward(params, x)`` → (logits
-[B, N], feature maps) for one batch of wavs, and the multi-discriminators an
-``apply(params, y, y_hat)`` that runs it on the real and the generated wavs
-as the JAX package's ``apply`` does; a caller that needs only one side (the
-generator's adversarial loss without feature matching) calls ``forward``.
-The MPD's feature maps are channels-first [B, C, T/p, p] (the conv2d layout);
-the MSD's are channels-last [B, T, C].
+wavs [B, T, 1]. Every discriminator has ``forward(params, x, mel=None)`` →
+(logits [B, N], feature maps) for one batch of wavs, and the
+multi-discriminators an ``apply(params, y, y_hat, mel=None)`` that runs it on
+the real and the generated wavs as the JAX package's ``apply`` does; a caller
+that needs only one side (the generator's adversarial loss without feature
+matching) calls ``forward``. The MPD's feature maps are channels-first
+[B, C, T/p, p] (the conv2d layout); the MSD's are channels-last [B, T, C].
+
+With ``use_cond`` (hifigan_causal.py:349-355,426-428) a transposed conv
+(80 → 1, kernel 2t, stride t, padding t/2, no weight norm) upsamples the
+conditioning mel [B, T_mel, 80] to the rate of the discriminator's wav and
+joins it as the first of two input channels: t is the hop for the MPD and
+the MSD's full-rate scale, hop/2 and hop/4 for its pooled scales. As in the
+JAX package it is computed as one matmul against the [80, 2t] kernel and a
+one-frame overlap-add (kernel = 2 · stride, so each sample gets two terms).
 
 The MPD's 2-D convs are ``F.conv2d`` at the training rung (``ops.conv.conv2d``;
 the JAX package computes them with ``lax.conv``, outside any Pallas kernel). The MSD's grouped convs go
-through ``ops.conv1d``, which runs kernel K2 on the card. The conditional
-discriminators (``use_cond``) are not ported (ROADMAP.md, modules still to
-port: the vocoder training options).
+through ``ops.conv1d``, which runs kernel K2 on the card, conditional or not
+(the conditioning changes only the first, dense layer).
 
 The mel discriminator (``SingleWindowDisc``, ``MultiWindowDiscriminator``)
 is ``F.conv2d`` (``ops.conv.conv2d``) in NCHW, where the JAX package is channels-last: its
@@ -35,6 +42,7 @@ from conan_tpu_torch.nn import inits
 from conan_tpu_torch.nn.blocks import init_linear, linear
 from conan_tpu_torch.nn.module import Params
 from conan_tpu_torch.ops.conv import conv1d, conv2d, spectral_norm_weight, weight_norm_weight
+from conan_tpu_torch.ops.precision import dot_at_rung
 
 LRELU = 0.1
 
@@ -47,22 +55,50 @@ def _wn_conv_init(gen: torch.Generator, out_ch: int, in_ch: int, *k: int) -> Par
     return {"v": v, "g": g, "b": inits.default_bias(gen, (out_ch,), shape)}
 
 
+def _cond_net_init(gen: torch.Generator, t: int) -> Params:
+    """ConvTranspose1d(80, 1, 2t, stride=t, padding=t//2), torch's default
+    init: weight [in=80, out=1, 2t], no weight norm."""
+    shape = (80, 1, 2 * t)
+    return {"w": inits.kaiming_uniform(gen, shape), "b": inits.default_bias(gen, (1,), shape)}
+
+
+def _cond_net_apply(p: Params, mel: torch.Tensor, t: int) -> torch.Tensor:
+    """mel [B, T, 80] → [B, T·t, 1]: y[n] = mel[q]·W[r] + mel[q-1]·W[t+r] + b
+    with q·t + r = n + t//2, r in [0, t)."""
+    B, T, _ = mel.shape
+    ab = dot_at_rung(torch.matmul, mel, p["w"][:, 0, :])          # [B, T, 2t]
+    y = F.pad(ab[..., :t], (0, 0, 0, 1)) + F.pad(ab[..., t:], (0, 0, 1, 0))
+    y = y.reshape(B, (T + 1) * t)[:, t // 2:t // 2 + T * t]
+    return y[..., None] + p["b"]
+
+
 class DiscriminatorP:
     """Period discriminator: the wav as [T/p, p] through 2-D convs with
-    (k, 1) kernels (hifigan_causal.py:347-389)."""
+    (k, 1) kernels (hifigan_causal.py:347-389); with ``use_cond`` the mel
+    upsampled by the hop joins as a second channel."""
 
-    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3):
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
+                 use_cond: bool = False, hop: int = 320):
         self.period = period
         self.k = kernel_size
         self.s = stride
-        self.layers = [(1, 32), (32, 128), (128, 512), (512, 1024), (1024, 1024)]
+        self.use_cond = use_cond
+        self.hop = hop
+        self.layers = [(2 if use_cond else 1, 32), (32, 128), (128, 512), (512, 1024),
+                       (1024, 1024)]
 
     def init(self, gen: torch.Generator) -> Params:
-        return {"convs": [_wn_conv_init(gen, co, ci, self.k, 1) for ci, co in self.layers],
-                "post": _wn_conv_init(gen, 1, 1024, 3, 1)}
+        p = {"convs": [_wn_conv_init(gen, co, ci, self.k, 1) for ci, co in self.layers],
+             "post": _wn_conv_init(gen, 1, 1024, 3, 1)}
+        if self.use_cond:
+            p["cond"] = _cond_net_init(gen, self.hop)
+        return p
 
-    def forward(self, params: Params, x: torch.Tensor):
-        """x: [B, T, 1] → (logits [B, N], feature maps)."""
+    def forward(self, params: Params, x: torch.Tensor, mel: torch.Tensor | None = None):
+        """x: [B, T, 1] (and the mel [B, T / hop, 80] with ``use_cond``) →
+        (logits [B, N], feature maps)."""
+        if self.use_cond:
+            x = torch.cat([_cond_net_apply(params["cond"], mel, self.hop), x], dim=-1)
         B, T, C = x.shape
         x = x.transpose(1, 2)                                   # [B, C, T]
         p = self.period
@@ -92,8 +128,13 @@ class DiscriminatorS:
               (512, 1024, 41, 4, 16, 20), (1024, 1024, 41, 1, 16, 20),
               (1024, 1024, 5, 1, 1, 2)]
 
-    def __init__(self, use_spectral_norm: bool = False):
+    def __init__(self, use_spectral_norm: bool = False, use_cond: bool = False,
+                 up_t: int = 320):
         self.spectral = use_spectral_norm
+        self.use_cond = use_cond
+        self.up_t = up_t        # the cond upsampler's stride: hop / 2^scale
+        if use_cond:
+            self.LAYERS = [(2, *DiscriminatorS.LAYERS[0][1:]), *DiscriminatorS.LAYERS[1:]]
 
     def _conv_init(self, gen: torch.Generator, out_ch: int, in_ch: int, k: int) -> Params:
         if not self.spectral:
@@ -106,12 +147,18 @@ class DiscriminatorS:
         return spectral_norm_weight(c["w"]) if self.spectral else weight_norm_weight(c)
 
     def init(self, gen: torch.Generator) -> Params:
-        return {"convs": [self._conv_init(gen, co, ci // g, k)
-                          for ci, co, k, s, g, pd in self.LAYERS],
-                "post": self._conv_init(gen, 1, 1024, 3)}
+        p = {"convs": [self._conv_init(gen, co, ci // g, k)
+                       for ci, co, k, s, g, pd in self.LAYERS],
+             "post": self._conv_init(gen, 1, 1024, 3)}
+        if self.use_cond:
+            p["cond"] = _cond_net_init(gen, self.up_t)
+        return p
 
-    def forward(self, params: Params, x: torch.Tensor):
-        """x: [B, T, 1] → (logits [B, N], feature maps)."""
+    def forward(self, params: Params, x: torch.Tensor, mel: torch.Tensor | None = None):
+        """x: [B, T, 1] (and the mel [B, T / up_t, 80] with ``use_cond``) →
+        (logits [B, N], feature maps)."""
+        if self.use_cond:
+            x = torch.cat([_cond_net_apply(params["cond"], mel, self.up_t), x], dim=-1)
         fmap = []
         for (ci, co, k, s, g, pd), c in zip(self.LAYERS, params["convs"]):
             x = F.leaky_relu(conv1d(x, self._weight(c), c["b"], stride=s, padding=(pd, pd),
@@ -123,8 +170,13 @@ class DiscriminatorS:
 
 
 def _avg_pool1d(x: torch.Tensor) -> torch.Tensor:
-    """torch AvgPool1d(4, 2, padding=1), count_include_pad=True, on [B, T, C]."""
-    return F.avg_pool1d(x.transpose(1, 2), 4, 2, padding=1).transpose(1, 2)
+    """torch AvgPool1d(4, 2, padding=1), count_include_pad=True, on [B, T, C]:
+    the mean of each zero-padded window, taken by ``unfold``. Not
+    ``F.avg_pool1d`` on the [B, 1, T] view: on the CUDA card its input
+    gradient for a one-channel wav came out 69-76% off the CPU's in float64
+    while its forward agreed, so the MSD's pooled scales sent the generator
+    wrong gradients."""
+    return F.pad(x, (0, 0, 1, 1)).unfold(1, 4, 2).mean(-1)
 
 
 class _Multi:
@@ -138,37 +190,41 @@ class _Multi:
     def _views(self, x: torch.Tensor):
         return [x] * len(self.discs)
 
-    def forward(self, params: Params, x: torch.Tensor):
-        """One wav batch [B, T, 1] → (logits per disc, feature maps per disc)."""
+    def forward(self, params: Params, x: torch.Tensor, mel: torch.Tensor | None = None):
+        """One wav batch [B, T, 1] (and the conditioning mel) → (logits per
+        disc, feature maps per disc)."""
         outs, fmaps = [], []
         for d, p, v in zip(self.discs, params["discs"], self._views(x)):
-            o, f = d.forward(p, v)
+            o, f = d.forward(p, v, mel)
             outs.append(o)
             fmaps.append(f)
         return outs, fmaps
 
-    def apply(self, params: Params, y: torch.Tensor, y_hat: torch.Tensor):
+    def apply(self, params: Params, y: torch.Tensor, y_hat: torch.Tensor,
+              mel: torch.Tensor | None = None):
         """(real logits, generated logits, real fmaps, generated fmaps), as the
         JAX package's ``apply``."""
-        y_d_rs, fmap_rs = self.forward(params, y)
-        y_d_gs, fmap_gs = self.forward(params, y_hat)
+        y_d_rs, fmap_rs = self.forward(params, y, mel)
+        y_d_gs, fmap_gs = self.forward(params, y_hat, mel)
         return y_d_rs, y_d_gs, fmap_rs, fmap_gs
 
 
 class MultiPeriodDiscriminator(_Multi):
     PERIODS = (2, 3, 5, 7, 11)
 
-    def __init__(self):
-        self.discs = [DiscriminatorP(p) for p in self.PERIODS]
+    def __init__(self, use_cond: bool = False, hop: int = 320):
+        self.discs = [DiscriminatorP(p, use_cond=use_cond, hop=hop) for p in self.PERIODS]
 
 
 class MultiScaleDiscriminator(_Multi):
     """Three scales: the full-rate wav, spectral-normed (hifigan_causal.py:460),
-    then twice average-pooled by 2."""
+    then twice average-pooled by 2; with ``use_cond`` each scale's mel
+    upsampler strides hop / 2^scale, its wav's rate."""
 
-    def __init__(self):
-        self.discs = [DiscriminatorS(use_spectral_norm=True), DiscriminatorS(),
-                      DiscriminatorS()]
+    def __init__(self, use_cond: bool = False, hop: int = 320):
+        self.discs = [DiscriminatorS(use_spectral_norm=True, use_cond=use_cond, up_t=hop),
+                      DiscriminatorS(use_cond=use_cond, up_t=hop // 2),
+                      DiscriminatorS(use_cond=use_cond, up_t=hop // 4)]
 
     def _views(self, x: torch.Tensor):
         views = [x]

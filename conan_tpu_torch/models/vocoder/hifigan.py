@@ -2,10 +2,14 @@
 
 mel [B, T, 80] → waveform [B, T·prod(strides), 1] at 16 kHz (total stride 320
 = one mel hop). Every conv is causal (left-padded, weight-normed); upsampling
-is a causal conv + 1-D pixel shuffle ("shuffle") or zero insertion + causal
-conv ("zero"). Offline and streaming share one code path through ``Stream``,
-so a chunk's output equals the matching slice of the offline output. The
-transposed-conv upsampler ("nn", offline only) and resblock "2" wait.
+is a causal conv + 1-D pixel shuffle ("shuffle"), zero insertion + causal
+conv ("zero"), or a transposed conv trimmed on the left ("nn"). Resblock "1"
+is two causal convs per dilation, resblock "2" one. Offline and streaming
+share one code path through ``Stream``, so a chunk's output equals the
+matching slice of the offline output. "nn" is offline only: its output
+sample m reads up to ⌈(k-1)/u⌉ frames past its own, so a chunk's output is
+not a prefix of the offline output, and ``init_state`` refuses it as the JAX
+package does (``conan_tpu/models/vocoder/hifigan.py:140-148``).
 """
 
 from __future__ import annotations
@@ -15,9 +19,11 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from conan_tpu_torch.nn import inits
 from conan_tpu_torch.nn.blocks import init_wn_conv
 from conan_tpu_torch.nn.module import Params, State, Stream
-from conan_tpu_torch.ops.conv import causal_conv1d_state, pixel_shuffle_1d
+from conan_tpu_torch.ops.conv import (causal_conv1d_state, conv_transpose1d, pixel_shuffle_1d,
+                                      weight_norm_weight)
 
 LRELU_SLOPE = 0.1
 
@@ -37,6 +43,13 @@ class HifiGanConfig:
     resblock_dilation_sizes: tuple[tuple[int, ...], ...] = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
     upsample: str = "shuffle"  # shuffle | zero | nn
 
+    @property
+    def total_stride(self) -> int:
+        s = 1
+        for u in self.upsample_rates:
+            s *= u
+        return s
+
     @classmethod
     def from_hparams(cls, hp) -> "HifiGanConfig":
         return cls(
@@ -51,12 +64,37 @@ class HifiGanConfig:
         )
 
 
+def init_wn_deconv(gen: torch.Generator, in_ch: int, out_ch: int, k: int) -> Params:
+    """Weight-normed transposed conv {v [in, out, k] ~ N(0, 0.01), g, b}; the
+    bias takes torch's default bound for a conv of (out, in, k)."""
+    v = inits.normal(gen, (in_ch, out_ch, k), std=0.01)
+    return {"v": v, "g": torch.sqrt(torch.sum(v * v, dim=(1, 2), keepdim=True)),
+            "b": inits.default_bias(gen, (out_ch,), (out_ch, in_ch, k))}
+
+
+def init_resblocks(gen: torch.Generator, cfg: HifiGanConfig, ch: int) -> list:
+    """One stage's resblocks: per kernel size, "1" has convs1 and convs2 (one
+    per dilation each), "2" has convs."""
+    def wn(k):
+        return init_wn_conv(gen, ch, ch, k, std=0.01)
+
+    if cfg.resblock == "1":
+        return [{"convs1": [wn(rk) for _ in rd], "convs2": [wn(rk) for _ in rd]}
+                for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)]
+    return [{"convs": [wn(rk) for _ in rd]}
+            for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)]
+
+
+def check_config(cfg: HifiGanConfig) -> None:
+    if cfg.upsample not in ("shuffle", "zero", "nn"):
+        raise ValueError(f"upsample {cfg.upsample!r} is not one of shuffle, zero, nn")
+    if cfg.resblock not in ("1", "2"):
+        raise ValueError(f"resblock {cfg.resblock!r} is not '1' or '2'")
+
+
 class HifiGanGenerator:
     def __init__(self, cfg: HifiGanConfig):
-        if cfg.upsample not in ("shuffle", "zero") or cfg.resblock != "1":
-            raise NotImplementedError(
-                f"upsample={cfg.upsample!r}, resblock={cfg.resblock!r}: only the 'shuffle' "
-                "and 'zero' upsamplers with resblock '1' are ported yet")
+        check_config(cfg)
         self.cfg = cfg
         # per-stage channel plan: 512 -> 256 -> 128 -> 64 -> 32
         chs = [cfg.upsample_initial_channel]
@@ -75,10 +113,11 @@ class HifiGanGenerator:
         ups, resblocks = [], []
         for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
             cin, cout = self.channels[i], self.channels[i + 1]
-            ups.append({"conv": wn(cout * u if cfg.upsample == "shuffle" else cout, cin, k)})
-            for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
-                resblocks.append({"convs1": [wn(cout, cout, rk) for _ in rd],
-                                  "convs2": [wn(cout, cout, rk) for _ in rd]})
+            if cfg.upsample == "nn":
+                ups.append({"deconv": init_wn_deconv(gen, cin, cout, k)})
+            else:
+                ups.append({"conv": wn(cout * u if cfg.upsample == "shuffle" else cout, cin, k)})
+            resblocks += init_resblocks(gen, cfg, cout)
         return {"conv_pre": wn(cfg.upsample_initial_channel, cfg.num_mels, 7),
                 "ups": ups, "resblocks": resblocks,
                 "conv_post": wn(1, self.channels[-1], 7)}
@@ -87,8 +126,13 @@ class HifiGanGenerator:
     def init_state(self, batch: int, device: torch.device | str = "cpu") -> State:
         """Zero carries for every causal conv (zeros are the offline forward's
         implicit left padding, so streaming ≡ offline exactly). The "zero"
-        upsampler's carry lives at the upsampled rate."""
+        upsampler's carry lives at the upsampled rate. Raises
+        NotImplementedError for "nn", which cannot stream."""
         cfg = self.cfg
+        if cfg.upsample == "nn":
+            raise NotImplementedError(
+                "upsample='nn' is not prefix-consistent (transposed-conv outputs depend on "
+                "future input frames); streaming is only defined for 'shuffle' and 'zero'")
         st: State = {"conv_pre": causal_conv1d_state(batch, cfg.num_mels, 7, device=device)}
         rb_idx = 0
         for i, k in enumerate(cfg.upsample_kernel_sizes):
@@ -96,10 +140,14 @@ class HifiGanGenerator:
             st[f"ups.{i}"] = causal_conv1d_state(batch, self.channels[i], k, device=device)
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
                 for j, d in enumerate(rd):
-                    st[f"rb.{rb_idx}.c1.{j}"] = causal_conv1d_state(batch, cout, rk, d,
-                                                                    device=device)
-                    st[f"rb.{rb_idx}.c2.{j}"] = causal_conv1d_state(batch, cout, rk, 1,
-                                                                    device=device)
+                    if cfg.resblock == "1":
+                        st[f"rb.{rb_idx}.c1.{j}"] = causal_conv1d_state(batch, cout, rk, d,
+                                                                        device=device)
+                        st[f"rb.{rb_idx}.c2.{j}"] = causal_conv1d_state(batch, cout, rk, 1,
+                                                                        device=device)
+                    else:
+                        st[f"rb.{rb_idx}.c.{j}"] = causal_conv1d_state(batch, cout, rk, d,
+                                                                       device=device)
                 rb_idx += 1
         st["conv_post"] = causal_conv1d_state(batch, self.channels[-1], 7, device=device)
         return st
@@ -108,8 +156,11 @@ class HifiGanGenerator:
     def _resblock(self, s: Stream, path: str, p: Params, x: torch.Tensor,
                   dilations: tuple[int, ...]) -> torch.Tensor:
         for j, d in enumerate(dilations):
-            xt = s.causal_conv(f"{path}.c1.{j}", _lrelu(x), p["convs1"][j], dilation=d)
-            x = x + s.causal_conv(f"{path}.c2.{j}", _lrelu(xt), p["convs2"][j])
+            if self.cfg.resblock == "1":
+                xt = s.causal_conv(f"{path}.c1.{j}", _lrelu(x), p["convs1"][j], dilation=d)
+                x = x + s.causal_conv(f"{path}.c2.{j}", _lrelu(xt), p["convs2"][j])
+            else:
+                x = x + s.causal_conv(f"{path}.c.{j}", _lrelu(x), p["convs"][j], dilation=d)
         return x
 
     def _upsample(self, s: Stream, i: int, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -117,6 +168,18 @@ class HifiGanGenerator:
         if self.cfg.upsample == "shuffle":
             # causal conv (in -> out·u) + pixel shuffle
             return pixel_shuffle_1d(s.causal_conv(f"ups.{i}", x, p["conv"]), u)
+        if self.cfg.upsample == "nn":
+            # transposed conv over the input padded by k//2 - 1 frames on the
+            # left, its first (k//2 - 1)·u + k - 1 samples trimmed
+            # (hifigan_causal.py:60-141); offline only
+            if s.streaming:
+                raise NotImplementedError("upsample='nn' does not stream")
+            k = self.cfg.upsample_kernel_sizes[i]
+            P = k // 2 - 1
+            y = conv_transpose1d(F.pad(x, (0, 0, P, 0)), weight_norm_weight(p["deconv"]),
+                                 p["deconv"]["b"], stride=u, output_padding=u - 1)
+            trim = P * u + k - 1
+            return y[:, trim:trim + x.shape[1] * u]
         # "zero": insert u-1 zeros after each frame, then the causal conv
         B, T, C = x.shape
         up = torch.zeros(B, T, u, C, dtype=x.dtype, device=x.device)

@@ -55,6 +55,16 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
     return y.transpose(1, 2)
 
 
+def conv_transpose1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
+                     stride: int, padding: int = 0, output_padding: int = 0) -> torch.Tensor:
+    """torch's ConvTranspose1d at the training rung. x: [B, T, Cin], w: [Cin,
+    Cout, K] → [B, (T-1)·stride - 2·padding + K + output_padding, Cout]."""
+    y = _conv_at_rung(functools.partial(F.conv_transpose1d, stride=stride, padding=padding,
+                                        output_padding=output_padding),
+                      x.transpose(1, 2), w, b, (-1, 1))
+    return y.transpose(1, 2)
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
                   dilation: int = 1) -> torch.Tensor:
     """Left-padded causal conv: out[t] depends on in[<=t]. [B,T,C]->[B,T,O]."""

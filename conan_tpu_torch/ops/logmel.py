@@ -86,9 +86,21 @@ def gan_pad(wav: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def _gan_padded_reference(padded: torch.Tensor, cfg) -> torch.Tensor:
-    mag = stft_magnitude(padded, n_fft=cfg.n_fft, hop=cfg.hop, win_length=cfg.win_length,
-                         center=False, eps_under_sqrt=GAN_EPS)
-    melw = torch.from_numpy(_constants_np(cfg)[1].copy()).to(padded.device, padded.dtype)
+    """ln-mel of the padded wav. Each frame is centred before the DFT and its
+    mean's transform added back, frames @ basis = (frames - m) @ basis +
+    m · Σ_t basis[t] (the column sums in float64): the same function, with
+    fp32's rounding set by the frame's variation rather than its offset. A
+    generator's wav carries a DC offset, under which the uncentred fp32
+    product lost the quiet low bins to 1e-4 in the log, and a spectrogram
+    discriminator's gradients amplify that thousandfold."""
+    basis, melw = (torch.from_numpy(c.copy()).to(padded.device, padded.dtype)
+                   for c in _constants_np(cfg))
+    frames = padded.unfold(-1, cfg.n_fft, cfg.hop)                # [B, F, n_fft]
+    mean = frames.mean(-1, keepdim=True)
+    ri = (frames - mean) @ basis + mean * basis.double().sum(0).to(padded.dtype)
+    n_bins = cfg.n_fft // 2 + 1
+    re, im = ri[..., :n_bins], ri[..., n_bins:]
+    mag = torch.sqrt(re * re + im * im + GAN_EPS)
     return torch.log(torch.clamp(mag @ melw, min=GAN_CLIP))
 
 

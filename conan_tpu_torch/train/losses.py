@@ -162,6 +162,12 @@ def generator_loss(fake_outs: list) -> torch.Tensor:
     return sum(torch.mean(torch.square(1.0 - d)) for d in fake_outs) / len(fake_outs)
 
 
+def cond_discriminator_loss(outs: list) -> torch.Tensor:
+    """Mismatched-conditioning negatives: every output is "fake"
+    (hifigan_causal.py:510-516)."""
+    return sum(torch.mean(torch.square(d)) for d in outs) / len(outs)
+
+
 def feature_loss(fmap_r: list, fmap_g: list) -> torch.Tensor:
     loss = 0.0
     for dr, dg in zip(fmap_r, fmap_g):

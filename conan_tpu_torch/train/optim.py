@@ -1,12 +1,14 @@
 """AdamW and the LR schedules, in optax's semantics
 (``conan_tpu/train/optim.py``: ``clip_by_global_norm`` → ``scale_by_adam`` →
-``add_decayed_weights`` → ``scale_by_learning_rate``).
+``add_decayed_weights`` → ``scale_by_learning_rate``), and gradient
+accumulation around it (``Accumulate``, ``optax.MultiSteps``).
 
 Functional, over parameter trees of tensors (nested dicts and lists): the
 state is ``{"count", "mu", "nu"}``, all tensors on the parameters' device,
 and ``update`` returns the additive updates and the new state. Nothing is
-modified in place and nothing is read back to the host, so a step can be kept
-or dropped whole on the device (the train step's NaN guard). A schedule is a
+modified in place and, but for ``Accumulate``'s mini-step count, nothing is
+read back to the host, so a step can be kept or dropped whole on the device
+(the train step's NaN guard). A schedule is a
 function of the count tensor of updates made before this one.
 """
 
@@ -104,3 +106,53 @@ class AdamW:
         return tree_unflatten(grads, updates), {"count": count,
                                                 "mu": tree_unflatten(grads, mu),
                                                 "nu": tree_unflatten(grads, nu)}
+
+
+class Accumulate:
+    """``optax.MultiSteps(inner, every_k_schedule=k)`` with its defaults (the
+    mean of the gradients, no skip function): the reference's
+    ``accumulate_grad_batches`` (trainer.py:339,366).
+
+    The state is ``{"mini_step", "gradient_step", "inner", "acc"}``: the
+    mini-steps taken since the last update, the updates made, the inner
+    optimizer's state and the running mean of this round's gradients
+    (Welford: acc + (g - acc) / (mini_step + 1)). On the k-th mini-step
+    (mini_step = k - 1) the inner update runs on the mean, its updates and
+    state are kept and the mean is reset to zero; on the others the updates
+    are zero and the inner state stays. So the inner clip sees the mean, and
+    the inner count, which the schedule reads, counts updates, not
+    mini-steps. ``mini_step`` is read back to the host once a mini-step to
+    choose the branch, as optax's ``lax.cond`` chooses it on the device:
+    running the inner chain on every mini-step and keeping it on the k-th
+    cost 151 ms of launches a mini-step of the shipped vocoder with every
+    option on, on an H100 (chip_smoke.py's vocoder_options phase). A caller
+    that drops the whole new state (the NaN guard) drops the mini-step with
+    it, as if it never happened."""
+
+    def __init__(self, inner: AdamW, every_k: int):
+        self.inner, self.k = inner, every_k
+
+    def init(self, params) -> dict:
+        inner = self.inner.init(params)
+        return {"mini_step": torch.zeros_like(inner["count"]),
+                "gradient_step": torch.zeros_like(inner["count"]), "inner": inner,
+                "acc": tree_map(torch.zeros_like, params)}
+
+    def update(self, grads, state: dict, params=None):
+        n = state["mini_step"]
+        acc = [a + (g - a) / (n + 1) for a, g in zip(tree_leaves(state["acc"]),
+                                                    tree_leaves(grads))]
+        if int(n) != self.k - 1:
+            return (tree_map(torch.zeros_like, grads),
+                    {"mini_step": n + 1, "gradient_step": state["gradient_step"],
+                     "inner": state["inner"], "acc": tree_unflatten(grads, acc)})
+        updates, inner = self.inner.update(tree_unflatten(grads, acc), state["inner"], params)
+        return updates, {"mini_step": torch.zeros_like(n),
+                         "gradient_step": state["gradient_step"] + 1, "inner": inner,
+                         "acc": tree_map(torch.zeros_like, grads)}
+
+
+def accumulating(inner: AdamW, every_k: int):
+    """``inner`` itself for ``every_k`` ≤ 1, else wrapped in ``Accumulate``,
+    as the JAX package's ``adamw(accumulate_steps=...)`` builds it."""
+    return Accumulate(inner, every_k) if every_k and every_k > 1 else inner

@@ -1,18 +1,22 @@
 """The training CLI (``conan_tpu/train/run.py``):
 
     python -m conan_tpu_torch.train.run --config egs/soak_r5/emformer.yaml \
-        --exp_name <name> [--hparams k=v,...] [--validate] [--reset] [--device cpu]
+        --exp_name <name> [--hparams k=v,...] [--validate] [--infer] [--reset] \
+        [--device cpu]
 
 The config's ``task_cls`` picks the task (the reference's class paths are
 aliases): ``emformer``, ``conan``, ``vocoder`` and ``postnet`` (on the frozen
 Conan of ``fs2_ckpt_dir``, with ``spec_min``/``spec_max`` from
 ``<binary_data_dir>/spec_stats.npz`` where the config has null: run
-``python -m conan_tpu_torch.data.spec_stats --config ...`` first) train;
-``--infer`` raises NotImplementedError (ROADMAP.md). The run trains in
-``checkpoints/<exp_name>`` (an absolute ``--exp_name`` is the work dir
-itself) on the CUDA card unless ``--device`` says otherwise, validating on
-the valid split where there is one; ``--validate`` evaluates the newest
-checkpoint and prints the metrics as one JSON line. From Python:
+``python -m conan_tpu_torch.data.spec_stats --config ...`` first) train.
+The run trains in ``checkpoints/<exp_name>`` (an absolute ``--exp_name`` is
+the work dir itself) on the CUDA card unless ``--device`` says otherwise,
+validating on the valid split where there is one; ``--validate`` evaluates
+the newest checkpoint and prints the metrics as one JSON line. ``--infer``
+converts the test split: ``run_test_vocoder`` (copy-synthesis) for a
+vocoder config, ``run_test`` (the composed streaming engine, with the
+stream-vs-offline guard and ``infer_manifest.json``) for the others. From
+Python:
 
     task, kind = build_task(hp)                  # on the CUDA card by default
     Trainer(task, hp, work_dir, use_random_ref_after=use_random_ref_after(hp, kind)
@@ -26,6 +30,7 @@ import json
 import logging
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -35,8 +40,15 @@ from conan_tpu_torch.config import set_hparams
 from conan_tpu_torch.data.batching import BucketLadder
 from conan_tpu_torch.data.datasets import ConanDataset, EmformerDataset, VocoderDataset
 from conan_tpu_torch.data.loader import BatchIterator
-from conan_tpu_torch.train.tasks import (NOT_PORTED, ConanTask, EmformerTask, PostnetTask,
-                                         VocoderTask)
+from conan_tpu_torch.data.record_store import RecordReader
+from conan_tpu_torch.device import resolve_device
+from conan_tpu_torch.infer.build import (_load_dir_config, build_engine, get_vocoder_cls,
+                                         streamable)
+from conan_tpu_torch.infer.run_vc import save_wav
+from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig
+from conan_tpu_torch.ops.conv import fold_weight_norm
+from conan_tpu_torch.ops.precision import precision_scope
+from conan_tpu_torch.train.tasks import ConanTask, EmformerTask, PostnetTask, VocoderTask
 from conan_tpu_torch.train.trainer import Trainer
 
 log = logging.getLogger("conan_tpu_torch.run")
@@ -125,16 +137,14 @@ def _conan_valid_item(s: dict) -> dict:
 
 def _validation_vocoder(hp, device):
     """(generator, params) of the vocoder checkpoint dir ``vocoder_ckpt``,
-    or (None, None) where it names no dir."""
-    from conan_tpu_torch.infer.build import _load_dir_config
-    from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
-
+    the generator the registry names by ``hp["vocoder"]`` ("HifiGAN" where
+    unset), or (None, None) where it names no dir."""
     voc_dir = hp.get("vocoder_ckpt")
     if not voc_dir or not os.path.isdir(voc_dir):
         return None, None
     hp_voc = _load_dir_config(voc_dir)
-    gen = HifiGanGenerator(HifiGanConfig.from_hparams(hp_voc) if "upsample_rates" in hp_voc
-                           else HifiGanConfig())
+    gen = get_vocoder_cls(hp.get("vocoder") or "HifiGAN")(
+        HifiGanConfig.from_hparams(hp_voc) if "upsample_rates" in hp_voc else HifiGanConfig())
     return gen, params_from_jax(load_ckpt_state(voc_dir, "params_g"), device)
 
 
@@ -208,7 +218,149 @@ def run_validate(hp, device: str | torch.device | None = None) -> None:
     print(json.dumps({"step": step, **{k: float(v) for k, v in vm.items()}}), flush=True)
 
 
-def main(argv=None) -> None:
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_test(hp, device: str | torch.device | None = None, f0_noise_fn=None) -> dict:
+    """``--infer`` for the acoustic model: convert the binarized test split
+    chunkwise through the composed streaming engine (the work dir's Conan,
+    ``emformer_ckpt``, ``vocoder_ckpt``) and write each wav to
+    ``<work_dir>/generated_<resume_from_checkpoint or last>/<item>.wav``.
+
+    Each item converts from its binarized mels: the source padded by
+    repeating its last frame to whole chunks plus the ``rc`` lookahead
+    frames, the reference not padded at all; its chunks go through
+    ``stream_scan`` (on the card one CUDA graph per reference length, on the
+    CPU the Python loop). Every ``test_consistency_interval`` items (8;
+    0: never) the guard converts the item offline as well (the Emformer over
+    the whole source, Conan's offline decode, the vocoder's ``apply``) and
+    compares the wavs at ``test_consistency_atol`` (1e-3); on drift it
+    writes the manifest with ``guard_passed: false`` and raises
+    RuntimeError. ``infer_manifest.json`` has the JAX package's keys.
+
+    With ``f0_gen: flow`` item i's initial noise is drawn from a
+    ``torch.Generator`` seeded i, or taken from ``f0_noise_fn(i, T_pad)``
+    ([1, T_pad, 1], T_pad the source padded to whole chunks). Returns what
+    the run measured: per item its seconds of audio and of wall time, and
+    the captures' wall ms (the card's)."""
+    eng = build_engine(hp["work_dir"], hp["emformer_ckpt"], hp["vocoder_ckpt"], hp,
+                       device=device)
+    ds = ConanDataset(hp["binary_data_dir"], "test", hp)
+    gen_dir = os.path.join(hp["work_dir"],
+                           f"generated_{hp.get('resume_from_checkpoint', 'last')}")
+    os.makedirs(gen_dir, exist_ok=True)
+    check_every = int(hp.get("test_consistency_interval", 8))
+    atol = float(hp.get("test_consistency_atol", 1e-3))
+    hop, seg = eng.cfg.mel.hop, eng.cfg.seg
+    manifest = {"work_dir": hp["work_dir"], "emformer_ckpt": hp["emformer_ckpt"],
+                "vocoder_ckpt": hp["vocoder_ckpt"], "consistency_atol": atol, "items": []}
+    stats = {"audio_s": [], "wall_s": []}
+    checked = 0
+    for i in range(len(ds)):
+        s = ds[i]
+        T = len(s["content"])
+        T_pad = -(-T // seg) * seg
+        src = torch.from_numpy(s["mel"][None]).to(eng.device)
+        ref = torch.from_numpy(s["ref_mel"][None]).to(eng.device)
+        if f0_noise_fn is not None:
+            noise = f0_noise_fn(i, T_pad)
+        else:
+            noise = eng._f0_noise(1, T_pad, torch.Generator().manual_seed(i), None)
+        _sync(eng.device)
+        t0 = time.perf_counter()
+        wav, _ = eng.stream_mels(src, ref, use_scan=True, f0_noise=noise)
+        wav = wav[0].cpu().numpy()
+        stats["wall_s"].append(time.perf_counter() - t0)
+        stats["audio_s"].append(T * hop / hp["audio_sample_rate"])
+        rec = {"item_name": str(s["item_name"]), "frames": int(T), "chunks": T_pad // seg,
+               "guard": None}
+        if check_every > 0 and i % check_every == 0:
+            wav_off = eng.offline_mels(src, ref, f0_noise=noise)[0][0].cpu().numpy()
+            diff = float(np.abs(wav - wav_off).max())
+            rec["guard"] = {"max_abs_stream_vs_offline": diff, "ok": diff <= atol}
+            if diff > atol:
+                manifest["items"].append(rec)
+                _write_infer_manifest(gen_dir, manifest, ok=False)
+                raise RuntimeError(f"incremental-consistency drift on item {s['item_name']}: "
+                                   f"max |stream - offline| = {diff:.3e}")
+            checked += 1
+        manifest["items"].append(rec)
+        save_wav(os.path.join(gen_dir, f"{s['item_name']}.wav"), wav, hp["audio_sample_rate"])
+        log.info("[%d/%d] %s", i + 1, len(ds), s["item_name"])
+    manifest["guard_checked"] = checked
+    _write_infer_manifest(gen_dir, manifest, ok=True)
+    if checked:
+        log.info("incremental-consistency guard: %d/%d items verified stream==offline",
+                 checked, len(ds))
+    stats["capture_ms"] = [c.capture_ms for c in eng._captured.values()]
+    stats["gen_dir"] = gen_dir
+    return stats
+
+
+def _write_infer_manifest(gen_dir: str, manifest: dict, *, ok: bool) -> None:
+    """``infer_manifest.json`` next to the wavs: the checkpoints, each item's
+    name, frames and chunks with its guard result, and ``guard_passed``."""
+    manifest["guard_passed"] = ok
+    with open(os.path.join(gen_dir, "infer_manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+
+
+def run_test_vocoder(hp, device: str | torch.device | None = None) -> None:
+    """``--infer`` for a vocoder: copy-synthesis of the binarized test split
+    by the work dir's generator (the registry's ``hp["vocoder"]``, "HifiGAN"
+    where unset) into ``<work_dir>/generated_test``, each item's mel cut to
+    whole chunks of ``infer_chunk_frames`` (4) and synthesized whole, with
+    nothing padded. Every ``test_consistency_interval`` items (8) the guard
+    streams the item through the generator's ``step`` chunk by chunk and
+    compares it with the whole synthesis at ``test_consistency_atol``
+    (1e-3), raising RuntimeError on drift; a generator that cannot stream
+    raises ValueError before the first item unless the interval is 0. Runs
+    in fp32 (the "exact" rung)."""
+    device = resolve_device(device)
+    work = hp["work_dir"]
+    name = hp.get("vocoder") or "HifiGAN"
+    gen = get_vocoder_cls(name)(HifiGanConfig.from_hparams(hp))
+    check_every = int(hp.get("test_consistency_interval", 8))
+    if check_every > 0 and not streamable(gen):
+        raise ValueError(f"vocoder {name!r} (upsample {gen.cfg.upsample!r}) has no streaming "
+                         "step for the stream-vs-offline guard: set "
+                         "test_consistency_interval=0")
+    params = fold_weight_norm(params_from_jax(load_ckpt_state(work, "params_g"), device))
+    reader = RecordReader(f"{hp['binary_data_dir']}/test")
+    gen_dir = os.path.join(work, "generated_test")
+    os.makedirs(gen_dir, exist_ok=True)
+    hop, seg = hp["hop_size"], int(hp.get("infer_chunk_frames", 4))
+    atol = float(hp.get("test_consistency_atol", 1e-3))
+    checked = 0
+    with torch.inference_mode(), precision_scope("exact", device):
+        for i in range(len(reader)):
+            item = reader[i]
+            mel = torch.from_numpy(np.asarray(item["mel"], np.float32)).to(device)
+            T = mel.shape[0] // seg * seg
+            wav = gen.apply(params, mel[None, :T])[0, :T * hop, 0]
+            if check_every > 0 and i % check_every == 0:
+                state = gen.init_state(1, device)
+                chunks = []
+                for t in range(0, T, seg):
+                    y, state = gen.step(params, state, mel[None, t:t + seg])
+                    chunks.append(y[0, :, 0])
+                diff = float((torch.cat(chunks) - wav).abs().max()) if chunks else 0.0
+                if diff > atol:
+                    raise RuntimeError(f"incremental-consistency drift on item "
+                                       f"{item['item_name']}: max |stream - offline| = "
+                                       f"{diff:.3e}")
+                checked += 1
+            save_wav(os.path.join(gen_dir, f"{item['item_name']}.wav"), wav.cpu().numpy(),
+                     hp["audio_sample_rate"])
+            log.info("[%d/%d] %s", i + 1, len(reader), item["item_name"])
+    if checked:
+        log.info("incremental-consistency guard: %d/%d items verified stream==offline",
+                 checked, len(reader))
+
+
+def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     argv = list(argv if argv is not None else sys.argv[1:])
@@ -218,8 +370,9 @@ def main(argv=None) -> None:
     device = ap.parse_known_args(argv)[0].device
     hp = set_hparams(argv=argv)
     if hp.get("infer"):
-        raise NotImplementedError("--infer (run_test, run_test_vocoder) "
-                                  + NOT_PORTED.format("the training CLI's --infer"))
+        if TASK_ALIASES.get(hp.get("task_cls", "conan")) == "vocoder":
+            return run_test_vocoder(hp, device)
+        return run_test(hp, device)
     if hp.get("validate"):
         run_validate(hp, device)
         return

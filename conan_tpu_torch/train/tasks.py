@@ -10,25 +10,44 @@ with the rest in fp32), as does ``ConanTask``'s k-means hook.
 Each ``train_step`` is one functional step over a state tree with the JAX
 package's key paths: the generator update, then the discriminator update on
 the detached generator output, each behind the NaN guard, with every schedule
-gate decided on the device (nothing is read back to the host). The step runs
+gate decided on the device (nothing is read back to the host but, under
+``accumulate_grad_batches``, the mini-step count). The step runs
 on the task's device (None: the CUDA card). Random parts (dropout, the mel
 discriminator's crops) are drawn from the ``torch.Generator`` the trainer
 passes in, not from ``jax.random``'s stream; with none, dropout is off and
 the crops start at frame 0.
 
 VocoderTask: the MSD's grouped convs and the mel loss's log-mel launch
-kernels K2 and K1 on the card; on the CPU their plain versions run. Two
-things differ from the JAX step, neither in its result:
+kernels K2 and K1 on the card; on the CPU their plain versions run. Its
+options: ``generator_type: noncausal``, the conditional MPD and MSD
+(``use_cond_disc``, with the rolled-mel negatives in the discriminator
+loss), the spectrogram discriminator (``use_spec_disc``: the multi-window
+mel discriminator with windows 8/16/32 over the 80-bin ln-mel that K1's GAN
+form computes, its crops and Dropout2d drawn from the generator) and
+feature matching (``use_fm_loss``). Two things differ from the JAX step,
+neither in its result:
   - the generator's gradients are taken with respect to the generator's
     parameters only, so no discriminator weight gradient is computed in it;
   - without feature matching the generator loss needs only the
     discriminators' outputs on the generated wav, so the real wav's branch
-    is not run. JAX computes that branch and XLA drops it as dead code; eager
-    PyTorch would run it, half the generator step's discriminator work.
+    is not run (with it, the real branch runs without autograd: it does not
+    depend on the generator). JAX computes that branch and XLA drops it as
+    dead code; eager PyTorch would run it, half the generator step's
+    discriminator work.
+
+``accumulate_grad_batches`` k > 1 wraps both optimizers of VocoderTask and
+ConanTask in ``optim.Accumulate`` (optax.MultiSteps): the parameters move on
+every k-th mini-step, by the inner update of the mean gradient. The NaN
+guard keeps or drops a whole mini-step, the accumulator with it, as JAX's
+``_gated_update`` keeps or drops the whole MultiSteps state. EmformerTask
+and PostnetTask ignore the option, as the JAX package's do.
 
 ConanTask: the acoustic model against the multi-window mel discriminator,
 with the L1 + SSIM mel loss, the F0 and UV losses, the guided-attention and
-VQ losses, and the EMA codebook carried in the state (``vq_state``). Its
+VQ losses, and the EMA codebook carried in the state (``vq_state``); with
+``use_spk_id`` the speaker-id embedding is added to the style, and a batch
+that carries ``spk_embed`` (the dataset's, with ``use_spk_embed``) takes it
+as the style in place of the reference encoder's. Its
 ``host_hook`` bootstraps the codebook by k-means once, on the host. Its
 mels come from the binarizer, where K1 made them; the step itself runs no
 hand-written kernel. The generator's gradients are again taken with respect
@@ -52,6 +71,7 @@ import torch
 
 import numpy as np
 
+from conan_tpu_torch.audio.mel import MelConfig
 from conan_tpu_torch.checkpoint import params_from_jax, tree_leaves, tree_map, tree_unflatten
 from conan_tpu_torch.device import resolve_device
 from conan_tpu_torch.models.conan.model import Conan, ConanConfig
@@ -61,12 +81,12 @@ from conan_tpu_torch.models.vocoder.discriminators import (MultiPeriodDiscrimina
                                                            MultiScaleDiscriminator,
                                                            MultiWindowDiscriminator)
 from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
+from conan_tpu_torch.models.vocoder.hifigan_noncausal import NonCausalHifiGanGenerator
+from conan_tpu_torch.ops.logmel import logmel_gan
 from conan_tpu_torch.ops.precision import TRAINING_RUNGS, training_scope
 from conan_tpu_torch.train import losses as L
-from conan_tpu_torch.train.optim import (AdamW, build_schedule, emformer_distill_schedule,
-                                         step_lr_schedule)
-
-NOT_PORTED = "is not ported yet (ROADMAP.md, modules still to port: {})"
+from conan_tpu_torch.train.optim import (AdamW, accumulating, build_schedule,
+                                         emformer_distill_schedule, step_lr_schedule)
 
 
 def training_rung(hp) -> str:
@@ -104,39 +124,44 @@ def _grads(loss: torch.Tensor, params) -> list:
                                     materialize_grads=True))
 
 
-def _refuse_accumulation(hp) -> None:
-    if hp.get("accumulate_grad_batches", 1) != 1:
-        raise NotImplementedError("accumulate_grad_batches > 1 "
-                                  + NOT_PORTED.format("the trainer's options"))
-
-
 class VocoderTask:
-    """The causal HiFi-GAN vocoder against the MPD and MSD, with the 320-bin
-    multi-resolution mel loss and the multi-resolution STFT loss."""
+    """The HiFi-GAN vocoder (``generator_type`` causal or noncausal) against
+    the MPD and MSD (conditional with ``use_cond_disc``) and, with
+    ``use_spec_disc``, the spectrogram discriminator, with the 320-bin
+    multi-resolution mel loss, the multi-resolution STFT loss and, with
+    ``use_fm_loss``, feature matching."""
 
     def __init__(self, hp, device: str | torch.device | None = None):
-        for flag, item in (("use_cond_disc", "the conditional discriminators"),
-                           ("use_spec_disc", "the spectrogram discriminator"),
-                           ("use_fm_loss", "feature matching in the vocoder GAN")):
-            if hp.get(flag, False):
-                raise NotImplementedError(f"{flag} " + NOT_PORTED.format(item))
-        if hp.get("generator_type", "causal") != "causal":
-            raise NotImplementedError(f"generator_type {hp['generator_type']!r} "
-                                      + NOT_PORTED.format("RMVPE and the other vocoders"))
-        _refuse_accumulation(hp)
         self.hp = hp
         self.device = resolve_device(device)
         self.precision = training_rung(hp)
-        self.gen = HifiGanGenerator(HifiGanConfig.from_hparams(hp))
-        self.mpd = MultiPeriodDiscriminator()
-        self.msd = MultiScaleDiscriminator()
+        cfg = HifiGanConfig.from_hparams(hp)
+        gen_type = hp.get("generator_type", "causal")
+        if gen_type not in ("causal", "noncausal"):
+            raise ValueError(f"generator_type {gen_type!r} is not causal or noncausal")
+        self.gen = HifiGanGenerator(cfg) if gen_type == "causal" \
+            else NonCausalHifiGanGenerator(cfg)
+        self.use_cond_disc = bool(hp.get("use_cond_disc", False))
+        self.use_spec_disc = bool(hp.get("use_spec_disc", False))
+        self.use_fm_loss = bool(hp.get("use_fm_loss", False))
+        hop = hp.get("hop_size", 320)
+        self.mpd = MultiPeriodDiscriminator(use_cond=self.use_cond_disc, hop=hop)
+        self.msd = MultiScaleDiscriminator(use_cond=self.use_cond_disc, hop=hop)
+        if self.use_spec_disc:
+            # the reference's Discriminator(time_lengths=[8, 16, 32], 80, 128)
+            # over an 80-bin loss mel (tasks/vocoder/hifigan.py:75-83,137-143)
+            self.specd = MultiWindowDiscriminator(time_lengths=(8, 16, 32), freq_length=80,
+                                                  hidden=128)
+            self.spec_mel_cfg = MelConfig.from_hparams(hp)
         b1, b2 = hp.get("adam_b1", 0.8), hp.get("adam_b2", 0.99)
+        acc = hp.get("accumulate_grad_batches", 1)
 
-        def adamw(name: str, clip: float) -> AdamW:
+        def adamw(name: str, clip: float):
             sched = step_lr_schedule(hp[f"{name}_optimizer_params"]["lr"],
                                      hp[f"{name}_scheduler_params"]["step_size"],
                                      hp[f"{name}_scheduler_params"]["gamma"])
-            return AdamW(sched, b1=b1, b2=b2, clip_norm=hp.get(f"{name}_grad_norm", clip))
+            return accumulating(AdamW(sched, b1=b1, b2=b2,
+                                      clip_norm=hp.get(f"{name}_grad_norm", clip)), acc)
 
         self.opt_g = adamw("generator", 10.0)
         self.opt_d = adamw("discriminator", 1.0)
@@ -146,47 +171,93 @@ class VocoderTask:
         device, with fresh optimizer states."""
         to_dev = lambda tree: tree_map(lambda t: t.to(self.device), tree)  # noqa: E731
         pg = to_dev(self.gen.init(gen))
-        pd = to_dev({"mpd": self.mpd.init(gen), "msd": self.msd.init(gen)})
+        pd = {"mpd": self.mpd.init(gen), "msd": self.msd.init(gen)}
+        if self.use_spec_disc:
+            pd["specd"] = self.specd.init(gen)
+        pd = to_dev(pd)
         return {"params_g": pg, "params_d": pd, "opt_g": self.opt_g.init(pg),
                 "opt_d": self.opt_d.init(pd),
                 "step": torch.zeros((), dtype=torch.int32, device=self.device)}
 
-    def _gen_losses(self, pg, pd, mel: torch.Tensor, y: torch.Tensor):
+    def _spec_mel(self, wav: torch.Tensor) -> torch.Tensor:
+        """The spectrogram discriminator's 80-bin ln-mel [B, T // hop, 80]
+        (JAX's ``wav2mel_gan``), through K1's GAN form."""
+        return logmel_gan(wav, self.spec_mel_cfg)
+
+    def _gen_losses(self, pg, pd, mel: torch.Tensor, y: torch.Tensor,
+                    generator: torch.Generator | None = None):
         hp = self.hp
         y_ = self.gen.apply(pg, mel)[..., 0]                     # [B, T]
+        cond = mel if self.use_cond_disc else None
         mlp = hp["mel_loss_param"]
         out = {"mel": L.multi_res_gan_mel_loss(
             y, y_, hp["audio_sample_rate"], mlp["mel_bin"], tuple(mlp["fft_sizes"]),
             tuple(mlp["hop_sizes"]), tuple(mlp["win_lengths"]), hp.get("lambda_mel", 5.0))}
         lam_adv = hp.get("lambda_adv", 1.0)
-        out["a_p"] = L.generator_loss(self.mpd.forward(pd["mpd"], y_[..., None])[0]) * lam_adv
-        out["a_s"] = L.generator_loss(self.msd.forward(pd["msd"], y_[..., None])[0]) * lam_adv
+        ypg, fpg = self.mpd.forward(pd["mpd"], y_[..., None], cond)
+        ysg, fsg = self.msd.forward(pd["msd"], y_[..., None], cond)
+        out["a_p"] = L.generator_loss(ypg) * lam_adv
+        out["a_s"] = L.generator_loss(ysg) * lam_adv
+        if self.use_fm_loss:
+            with torch.no_grad():           # the real branch: no generator parameter in it
+                fpr = self.mpd.forward(pd["mpd"], y[..., None], cond)[1]
+                fsr = self.msd.forward(pd["msd"], y[..., None], cond)[1]
+            out["fm_f"] = L.feature_loss(fpr, fpg)
+            out["fm_s"] = L.feature_loss(fsr, fsg)
+        if self.use_spec_disc:
+            # adversarial mel term (hifigan.py:152-158), skipped unless every
+            # window fits
+            v, _, _, fit = self.specd.apply(pd["specd"], self._spec_mel(y_), generator)
+            out["a_mel"] = torch.where(fit, torch.mean(torch.square(v - 1.0)), 0.0) \
+                * hp.get("lambda_mel_adv", 1.0)
         if hp.get("use_ms_stft", False):
             sp = hp["stft_loss_param"]
             out["sc"], out["mag"] = L.multi_res_stft_loss(
                 y, y_, tuple(sp["fft_sizes"]), tuple(sp["hop_sizes"]), tuple(sp["win_lengths"]))
         return sum(out.values()), out, y_
 
-    def _disc_losses(self, pd, y: torch.Tensor, y_: torch.Tensor):
+    def _disc_losses(self, pd, y: torch.Tensor, y_: torch.Tensor,
+                     mel: torch.Tensor | None = None,
+                     generator: torch.Generator | None = None):
+        cond = mel if self.use_cond_disc else None
         out = {}
-        ypr, ypg, _, _ = self.mpd.apply(pd["mpd"], y[..., None], y_[..., None])
+        ypr, ypg, _, _ = self.mpd.apply(pd["mpd"], y[..., None], y_[..., None], cond)
         out["r_p"], out["f_p"] = L.discriminator_loss(ypr, ypg)
-        ysr, ysg, _, _ = self.msd.apply(pd["msd"], y[..., None], y_[..., None])
+        ysr, ysg, _, _ = self.msd.apply(pd["msd"], y[..., None], y_[..., None], cond)
         out["r_s"], out["f_s"] = L.discriminator_loss(ysr, ysg)
+        if self.use_spec_disc:
+            # real against generated on the 80-bin mels (hifigan.py:181-186),
+            # fresh crops for each
+            vr, _, _, fit_r = self.specd.apply(pd["specd"], self._spec_mel(y), generator)
+            vf, _, _, fit_f = self.specd.apply(pd["specd"], self._spec_mel(y_), generator)
+            fit = fit_r & fit_f
+            out["r_mel"] = torch.where(fit, torch.mean(torch.square(vr - 1.0)), 0.0)
+            out["f_mel"] = torch.where(fit, torch.mean(torch.square(vf)), 0.0)
+        if self.use_cond_disc:
+            # rolled-mel negatives: the real and the generated wav under
+            # another item's mel are both "fake" (hifigan.py:187-196)
+            mel_shift = torch.roll(mel, -1, dims=0)
+            yp1, yp2, _, _ = self.mpd.apply(pd["mpd"], y[..., None], y_[..., None], mel_shift)
+            out["f_p_cd1"] = L.cond_discriminator_loss(yp1)
+            out["f_p_cd2"] = L.cond_discriminator_loss(yp2)
+            ys1, ys2, _, _ = self.msd.apply(pd["msd"], y[..., None], y_[..., None], mel_shift)
+            out["f_s_cd1"] = L.cond_discriminator_loss(ys1)
+            out["f_s_cd2"] = L.cond_discriminator_loss(ys2)
         return sum(out.values()), out
 
     def train_step(self, state: dict, batch: dict, generator: torch.Generator | None = None
                    ) -> tuple[dict, dict]:
         """batch: mels [B, T, 80] and wavs [B, T·hop] (tensors or numpy).
         Returns the new state and the metrics, 0-dim tensors on the device.
-        The vocoder step draws nothing at random; ``generator`` is taken so
-        that the trainer calls every task alike."""
+        Only the spectrogram discriminator draws at random (its crops and
+        Dropout2d, from ``generator``; with none, no dropout and crops at
+        frame 0)."""
         with training_scope(self.precision, self.device):
             mel = torch.as_tensor(batch["mels"]).to(self.device)
             y = torch.as_tensor(batch["wavs"]).to(self.device)
             # ---- generator
             pg = _with_grad(state["params_g"])
-            gtot, gl, y_ = self._gen_losses(pg, state["params_d"], mel, y)
+            gtot, gl, y_ = self._gen_losses(pg, state["params_d"], mel, y, generator)
             grads_g = torch.autograd.grad(gtot, tree_leaves(pg))
             ok_g = _all_finite(grads_g)
             upd_g, opt_g_new = self.opt_g.update(tree_unflatten(pg, grads_g), state["opt_g"])
@@ -194,8 +265,8 @@ class VocoderTask:
                                             state["opt_g"])
             # ---- discriminator, on the detached y_
             pd = _with_grad(state["params_d"])
-            dtot, dl = self._disc_losses(pd, y, y_.detach())
-            grads_d = torch.autograd.grad(dtot, tree_leaves(pd))
+            dtot, dl = self._disc_losses(pd, y, y_.detach(), mel, generator)
+            grads_d = _grads(dtot, pd)
             ok_d = _all_finite(grads_d)
             upd_d, opt_d_new = self.opt_d.update(tree_unflatten(pd, grads_d), state["opt_d"])
             params_d, opt_d = _gated_update(ok_d, state["params_d"], upd_d, opt_d_new,
@@ -218,11 +289,6 @@ class ConanTask:
     flips ``use_random_ref`` (the reference changes length)."""
 
     def __init__(self, hp, device: str | torch.device | None = None):
-        for flag, item in (("use_spk_id", "the speaker-id embedding"),
-                           ("use_spk_embed", "pre-extracted speaker embeddings")):
-            if hp.get(flag, False):
-                raise NotImplementedError(f"{flag} " + NOT_PORTED.format(item))
-        _refuse_accumulation(hp)
         self.hp = hp
         self.device = resolve_device(device)
         self.precision = training_rung(hp)
@@ -233,14 +299,17 @@ class ConanTask:
             hidden=hp.get("mel_disc_hidden_size", 128))
         b1, b2 = hp.get("optimizer_adam_beta1", 0.9), hp.get("optimizer_adam_beta2", 0.98)
         clip = hp.get("clip_grad_norm", 1.0)
-        self.opt_g = AdamW(build_schedule(hp), b1=b1, b2=b2,
-                           weight_decay=hp.get("weight_decay", 0.0), clip_norm=clip)
+        acc = hp.get("accumulate_grad_batches", 1)
+        self.opt_g = accumulating(AdamW(build_schedule(hp), b1=b1, b2=b2,
+                                        weight_decay=hp.get("weight_decay", 0.0),
+                                        clip_norm=clip), acc)
         dsp = hp.get("discriminator_scheduler_params", {"step_size": 40000, "gamma": 0.5})
         dop = hp.get("discriminator_optimizer_params", {"eps": 1e-6, "weight_decay": 0.0})
-        self.opt_d = AdamW(step_lr_schedule(hp.get("disc_lr", 1e-4), dsp["step_size"],
-                                            dsp["gamma"]),
-                           b1=b1, b2=b2, eps=dop.get("eps", 1e-6),
-                           weight_decay=dop.get("weight_decay", 0.0), clip_norm=clip)
+        self.opt_d = accumulating(AdamW(step_lr_schedule(hp.get("disc_lr", 1e-4),
+                                                         dsp["step_size"], dsp["gamma"]),
+                                        b1=b1, b2=b2, eps=dop.get("eps", 1e-6),
+                                        weight_decay=dop.get("weight_decay", 0.0),
+                                        clip_norm=clip), acc)
 
     def init_state(self, gen: torch.Generator) -> dict:
         """Random parameters (the JAX package's distributions) and the
@@ -263,7 +332,8 @@ class ConanTask:
         out = self.model.apply_train(pg, vq_state, content, ref, batch["f0"], batch["uv"],
                                      global_step=step, vq_start=hp.get("vq_start", 20500),
                                      forcing_steps=hp.get("forcing", 20000),
-                                     generator=generator)
+                                     generator=generator, spk_embed=batch.get("spk_embed"),
+                                     spk_id=batch.get("spk_ids"))
         losses: dict = {}
         L.add_mel_losses(out["mel_out"], target, hp.get("mel_losses", "l1:0.5|ssim:0.5"),
                          losses)
@@ -295,7 +365,11 @@ class ConanTask:
         return out["r"] + out["f"], out, fit_r & fit_f
 
     def _batch(self, batch: dict, use_random_ref: bool) -> dict:
+        """The batch's tensors on the device: the speaker ids with
+        ``use_spk_id``, ``spk_embed`` where the batch has it."""
         keys = ("content", "mels", "f0", "uv") + (("ref_mels",) if use_random_ref else ())
+        keys += ("spk_ids",) if self.cfg.use_spk_id else ()
+        keys += ("spk_embed",) if "spk_embed" in batch else ()
         return {k: torch.as_tensor(batch[k]).to(self.device) for k in keys}
 
     def host_hook(self, state: dict, step: int, batch: dict):
@@ -374,7 +448,6 @@ class PostnetTask:
 
     def __init__(self, hp, pretrain_params, pretrain_vq_state,
                  device: str | torch.device | None = None):
-        _refuse_accumulation(hp)
         self.hp = hp
         self.device = resolve_device(device)
         self.precision = training_rung(hp)
@@ -436,7 +509,6 @@ class EmformerTask:
     norm clipping and ``emformer_distill_schedule``."""
 
     def __init__(self, hp, device: str | torch.device | None = None):
-        _refuse_accumulation(hp)
         self.hp = hp
         self.device = resolve_device(device)
         self.precision = training_rung(hp)

@@ -18,8 +18,10 @@ step (a ``sanity`` line). The first run in a work dir archives
 ``host_hook`` (ConanTask's k-means bootstrap) has it run before each step
 from ``vq_start + 1`` on until it reports done. With
 ``use_random_ref_after`` n, the step gets ``use_random_ref=step >= n``.
-TensorBoard, gradient accumulation and the mesh are not ported
-(ROADMAP.md, modules still to port).
+Gradient accumulation lives in the tasks' optimizers (``optim.Accumulate``):
+each batch here is one mini-step, and its accumulator rides in the state and
+the checkpoint. TensorBoard (the JAX trainer's writer is optional) and the
+mesh are not ported (ROADMAP.md, modules still to port).
 """
 
 from __future__ import annotations

@@ -468,16 +468,21 @@ def test_window_discriminator_draws():
                                       dict(train_precision="fast"), dict(use_spk_id=True),
                                       dict(accumulate_grad_batches=2)])
 def test_unported_options_raise(override):
-    """Unported options raise NotImplementedError naming their ROADMAP item;
-    a train_precision outside default/high/highest (the serving ladder's
-    "fast" included) raises ValueError."""
+    """The options once refused are taken now (the speaker-id embedding in
+    the generator's tree, a pre-extracted embedding read from the batch,
+    accumulation around both optimizers: their steps are held to JAX's in
+    tests/test_torch_vocoder_options.py); a train_precision outside
+    default/high/highest (the serving ladder's "fast" included) still
+    raises ValueError."""
     if "train_precision" in override:
         with pytest.raises(ValueError, match="train_precision"):
             ConanTask(dict(HP, **override), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        ConanTask(dict(HP, **override), device="cpu")
-    assert "K2" not in str(e.value)
+    task = ConanTask(dict(HP, **override), device="cpu")
+    pg = task.init_state(torch.Generator().manual_seed(0))["params_g"]
+    assert ("spk_id_proj" in pg) == ("use_spk_id" in override)
+    accumulating = isinstance(task.opt_g, PO.Accumulate) and isinstance(task.opt_d, PO.Accumulate)
+    assert accumulating == ("accumulate_grad_batches" in override)
 
 
 def test_soak_r5_config_builds_and_steps_on_cpu():

@@ -168,6 +168,109 @@ def test_logmel_gan_matches_plain_version_ragged(n_fft, shape):
     _check_logmel_gan(n_fft, shape, seed=n_fft + shape[0])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(18, 8000), (2, 10240)])
+def test_logmel_gan_at_the_spec_disc_geometry(shape):
+    """K1-GAN at the spectrogram discriminator's geometry (80 mels over
+    80-7600 Hz at n_fft 1024, hop 320: the vocoder config's own mel) against
+    its plain version, in value and in dwav: the train step's B=18 x 8000
+    and B=2 x 10240, where every window of 8-32 frames fits."""
+    dev = _card()
+    kernel = LogmelGanKernel()
+    cfg = MelConfig()
+    wav = torch.from_numpy((np.random.default_rng(shape[1]).standard_normal(shape) * 0.3)
+                           .astype(np.float32)).to(dev)
+    outs = {}
+    for name, fn in (("kernel", kernel), ("plain", logmel_gan_reference)):
+        w = wav.clone().requires_grad_(True)
+        mel = fn(w, cfg)
+        torch.sin(mel).sum().backward()
+        outs[name] = (mel.detach(), w.grad)
+    torch.cuda.synchronize()
+    assert kernel.launches == 1
+    assert outs["kernel"][0].shape == (shape[0], shape[1] // 320, 80)
+    torch.testing.assert_close(outs["kernel"][0], outs["plain"][0], atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(outs["kernel"][1], outs["plain"][1], atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_conditional_msd_runs_k2_and_matches_the_plain_conv(monkeypatch):
+    """The conditional MSD (its mel upsampled to each scale's rate as a
+    second input channel): its 15 grouped layers launch K2, and its logits,
+    feature maps and parameter gradients equal those of the same MSD with
+    the plain grouped conv in K2's place: values at the bound of K2's own
+    tests (atol 2e-4 / rtol 1e-4), the gradients as one tree within 1e-3
+    (relative L2). Leaf by leaf they do not hold K2's dx/dw bound: through
+    seven layers of leaky ReLU, a pre-activation within fp32 rounding of 0
+    takes the other slope on the other route, which moved one bias element
+    by 4.4e-3 (2.9e-3 of it) and the mel upsampler's weight by 1.9e-3 of
+    its norm."""
+    from conan_tpu_torch.checkpoint import tree_leaves, tree_map
+    from conan_tpu_torch.models.vocoder.discriminators import MultiScaleDiscriminator
+    from conan_tpu_torch.ops import conv as conv_ops
+
+    dev = _card()
+    msd = MultiScaleDiscriminator(use_cond=True)
+    params = tree_map(lambda t: t.to(dev), msd.init(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(1)
+    y = torch.from_numpy((0.3 * rng.standard_normal((2, 8000, 1))).astype(np.float32)).to(dev)
+    mel = torch.from_numpy(rng.standard_normal((2, 25, 80)).astype(np.float32)).to(dev)
+
+    def run():
+        p = tree_map(lambda t: t.clone().requires_grad_(True), params)
+        outs, fmaps = msd.forward(p, y, mel)
+        loss = sum(torch.sin(o).sum() for o in outs)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        return [o.detach() for o in outs] + [f.detach() for fm in fmaps for f in fm], grads
+
+    kernel = GroupConvKernel()
+    monkeypatch.setattr(conv_ops, "groupconv", kernel)
+    got, got_g = run()
+    assert kernel.launches == 15
+    monkeypatch.setattr(conv_ops, "groupconv", grouped_conv1d_reference)
+    want, want_g = run()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=1e-4)
+    flat = [torch.cat([g.ravel() for g in gs]) for gs in (got_g, want_g)]
+    assert float((flat[0] - flat[1]).norm() / flat[1].norm()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_msd_input_gradient_on_card_matches_cpu_in_float64():
+    """The gradient the conditional MSD sends back to its input wav (the
+    generator's share of the adversarial loss), each scale on its own, in
+    float64 with the plain grouped conv and cuDNN off: on the card as on the
+    CPU to 1e-12. F.avg_pool1d on the [B, 1, T] view, which the pooled
+    scales used before, gave 69-76% off here while its forward agreed."""
+    from conan_tpu_torch.checkpoint import tree_map
+    from conan_tpu_torch.models.vocoder.discriminators import MultiScaleDiscriminator
+    from conan_tpu_torch.ops import conv as conv_ops
+
+    dev = _card()
+    msd = MultiScaleDiscriminator(use_cond=True)
+    params = tree_map(lambda t: t.double(), msd.init(torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(2)
+    y = torch.from_numpy(0.3 * rng.standard_normal((2, 8000, 1)))
+    mel = torch.from_numpy(rng.standard_normal((2, 25, 80)))
+
+    def input_grads(device):
+        x = y.to(device).requires_grad_(True)
+        outs, _ = msd.forward(tree_map(lambda t: t.to(device), params), x, mel.to(device))
+        return [torch.autograd.grad(torch.mean((1 - o) ** 2), x, retain_graph=True)[0].cpu()
+                for o in outs]
+
+    saved = conv_ops.groupconv
+    conv_ops.groupconv = grouped_conv1d_reference
+    try:
+        with torch.backends.cudnn.flags(enabled=False):
+            got, want = input_grads(dev), input_grads("cpu")
+    finally:
+        conv_ops.groupconv = saved
+    for scale, (a, b) in enumerate(zip(got, want)):
+        assert float((a - b).norm() / b.norm()) < 1e-12, scale
+
+
 # a small engine: 2-layer Emformer, hidden-64 Conan, 32-channel vocoder
 _MEL = dict(audio_sample_rate=16000, fft_size=1024, hop_size=320, win_size=1024,
             fmin=80, fmax=7600, audio_num_mel_bins=80)

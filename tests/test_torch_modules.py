@@ -218,8 +218,16 @@ def test_vocoder_apply_step_match_jax(upsample):
 
 
 def test_vocoder_variants_not_ported_raise():
-    for cfg in (HifiGanConfig(upsample="nn"), HifiGanConfig(resblock="2")):
+    """The "nn" upsampler and resblock "2" are ported
+    (tests/test_torch_vocoder_families.py); what still raises: streaming
+    the "nn" upsampler, which is not prefix-consistent, and a variant that
+    does not exist."""
+    for cfg in (HifiGanConfig(upsample="nn"), HifiGanConfig(upsample="nn", resblock="2")):
         with pytest.raises(NotImplementedError):
+            HifiGanGenerator(cfg).init_state(1)
+    assert "rb.0.c.0" in HifiGanGenerator(HifiGanConfig(resblock="2")).init_state(1)
+    for cfg in (HifiGanConfig(upsample="linear"), HifiGanConfig(resblock="3")):
+        with pytest.raises(ValueError):
             HifiGanGenerator(cfg)
 
 

@@ -34,6 +34,7 @@ from conan_tpu_torch.data import run_binarize
 from conan_tpu_torch.data.binarizer import ConanBinarizer
 from conan_tpu_torch.infer.build import build_engine, write_random_checkpoints
 from conan_tpu_torch.train import run
+from conan_tpu_torch.train.optim import AdamW
 from conan_tpu_torch.train.tasks import ConanTask, EmformerTask, VocoderTask
 from conan_tpu_torch.train.trainer import Trainer
 
@@ -329,13 +330,21 @@ def test_main_trains_validates_and_serves(corpus, tmp_path, capsys):
 
 
 def test_main_refuses_what_is_not_ported(corpus, tmp_path):
-    """--infer and gradient accumulation are not ported (the postnet task
-    and the shipped bf16 rung are: tests/test_torch_postnet.py)."""
+    """--infer and gradient accumulation are ported
+    (tests/test_torch_infer_cli.py, tests/test_torch_vocoder_options.py):
+    --infer on a work dir with no checkpoint raises FileNotFoundError, the
+    Emformer task takes accumulate_grad_batches and ignores it, as JAX's
+    does; a train_precision outside the training rungs still raises."""
     cfg = _cli_config(corpus, tmp_path)
     base = ["--config", cfg, "--exp_name", str(tmp_path / "x"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.main(base + ["--infer"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.main(base + ["--reset", "--hparams", "accumulate_grad_batches=2"])
+    missing = str(tmp_path / "none")
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        run.main(base + ["--infer", "--hparams",
+                         f"emformer_ckpt={missing},vocoder_ckpt={missing}"])
+    hp = pconfig.set_hparams(argv=base + ["--reset", "--hparams", "accumulate_grad_batches=2"],
+                             save=False)
+    task, kind = run.build_task(hp, device="cpu")
+    assert kind == "emformer" and isinstance(task.opt, AdamW) and \
+        hp["accumulate_grad_batches"] == 2
     with pytest.raises(ValueError, match="train_precision"):
         run.main(base + ["--reset", "--hparams", "train_precision=fast"])

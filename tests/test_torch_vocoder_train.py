@@ -233,14 +233,20 @@ def test_trainer_fit_writes_metrics_and_checkpoint(setup, tmp_path):
                                       dict(use_spec_disc=True), dict(train_precision="bf16"),
                                       dict(train_precision="fast")])
 def test_unported_options_raise(override):
-    """Unported options raise NotImplementedError naming their ROADMAP item;
-    a train_precision outside default/high/highest raises ValueError."""
+    """The options once refused build their parts now (feature matching, the
+    conditional MPD and MSD, the spectrogram discriminator: their steps are
+    held to JAX's in tests/test_torch_vocoder_options.py); a train_precision
+    outside default/high/highest still raises ValueError."""
     if "train_precision" in override:
         with pytest.raises(ValueError, match="train_precision"):
             VocoderTask(dict(VOC_HP, **override), device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VocoderTask(dict(VOC_HP, **override), device="cpu")
+    task = VocoderTask(dict(VOC_HP, **override, fmin=80, fmax=7600), device="cpu")
+    pd = task.init_state(torch.Generator().manual_seed(0))["params_d"]
+    assert task.use_fm_loss == ("use_fm_loss" in override)
+    assert all("cond" in d for d in pd["mpd"]["discs"] + pd["msd"]["discs"]) == (
+        "use_cond_disc" in override)
+    assert ("specd" in pd) == ("use_spec_disc" in override)
 
 
 def test_task_defaults_to_cuda():

@@ -68,6 +68,37 @@ def numpy_params(init_fn, seed: int):
     return jax.tree_util.tree_map_with_path(fill, jax.eval_shape(init_fn, jax.random.PRNGKey(0)))
 
 
+def refill_checkpoint_params(work_dir: str, key: str, seed: int) -> None:
+    """Rewrite the ``key`` subtree of ``work_dir``'s last checkpoint with
+    numpy_params' draws (weights N(0, 1/fan_in), LayerNorm scales 1 + N(0,
+    0.01), other vectors N(0, 0.01)) in the same tree and shapes; integer
+    leaves are kept. The models' own random inits (weight-normed v ~ N(0,
+    0.01), torch's default biases) shrink a mel's part of a small vocoder's
+    wav to ~1e-7 under its bias DC; these weights keep each stage's signal
+    at the order of its input."""
+    from conan_tpu_torch.checkpoint import get_last_checkpoint, save_checkpoint
+
+    ckpt, _ = get_last_checkpoint(work_dir)
+    rng = np.random.default_rng(seed)
+
+    def fill(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: fill(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(fill(v) for v in tree)
+        a = np.asarray(tree)
+        if a.dtype.kind != "f":
+            return tree
+        if a.ndim >= 2:
+            fan_in = math.prod(a.shape[1:])
+            return (rng.standard_normal(a.shape) / math.sqrt(fan_in)).astype(a.dtype)
+        x = (0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
+        return x + 1 if name == "scale" else x
+
+    state = dict(ckpt["state"], **{key: fill(ckpt["state"][key])})
+    save_checkpoint(work_dir, ckpt["global_step"], state, ckpt["hparams"])
+
+
 def port_config(cfg: StreamingConfig) -> port_streaming.StreamingConfig:
     """The port's StreamingConfig with the same fields as a JAX one."""
     a = dataclasses.asdict
