@@ -38,6 +38,11 @@ and the result line:
               pairs with a denoise constant set: exit 0, each written wav
               equals the engine's use_scan output after postprocess; one
               denoise call on the card against the CPU's
+  4e. torch_import  the main phase's random weights written as the original
+              system's PyTorch state dicts (reference names) and read back
+              through torch_compat and params_from_torch onto the card:
+              every leaf equal to the native tree's, infer_once on them
+              equal to the native engine's (max abs 0)
   5. train    the vocoder GAN train step at production width
               (egs/soak_r5/vocoder.yaml with train_precision: highest set
               over it, i.e. fp32 "exact"): the training kernels (K2 on the
@@ -111,8 +116,16 @@ and the result line:
               manifest's worst stream-vs-offline diff (1e-3), each written
               wav against a direct stream_scan of its mels; then --infer for
               egs/soak_r5/vocoder.yaml on the train phase's work dir
-  10. {"kernels": [...]}
-  11. {"ok": true, "device": {...}}
+  10. rmvpe  RMVPE (E2E0 at the published geometry) from seeded weights
+              written as an rmvpe.pt under the reference's names, loaded by
+              RMVPE.from_torch_checkpoint on the card: its salience on a 10 s
+              synthesized clip against the CPU's (max abs 1e-4, argmax
+              flips), ms at B=1, RTF, peak memory, kernels and the largest
+              by torch.profiler; then extract_f0.main over 4 synthesized
+              utterances and run_binarize.main (K1): each record's f0 equals
+              its written _f0.npy
+  11. {"kernels": [...]}
+  12. {"ok": true, "device": {...}}
 
 The weights are random, made from --seed and written as checkpoint dirs
 under build/; the audio is synthesized from the seed. --trained names the
@@ -305,6 +318,12 @@ INFER_SPEAKERS, INFER_UTTS, INFER_FRAMES = 2, 2, (200, 300)
 # training CLI, resumed to POST_RESUMED; its check at the width below.
 POST_STEPS, POST_RESUMED = 4, 6
 POST_CHECK = {"residual_layers": 2, "residual_channels": 16}
+# The rmvpe phase: the card's salience against the CPU's on one
+# RMVPE_SECONDS clip, both fp32 with TF32 off (the CPU test holds the port
+# to JAX at 2e-5, tests/test_torch_rmvpe.py; cuDNN's convs and GRU sum in
+# other orders); the B=1 call timed over RMVPE_ITERS; RMVPE_UTTS utterances
+# of INFER_FRAMES frames through extract_f0 and the binarizer.
+RMVPE_SECONDS, RMVPE_ATOL, RMVPE_ITERS, RMVPE_UTTS = 10.0, 1e-4, 10, 4
 
 
 def fail(msg: str) -> None:
@@ -2338,6 +2357,198 @@ def infer_phase(seed: int, dev: torch.device, dirs, train_work: str) -> int:
     return launches
 
 
+def torch_import_phase(eng, dirs, src: np.ndarray, ref: np.ndarray,
+                       dev: torch.device) -> int:
+    """Phase 4e: the main phase's r5 random-weight checkpoints written as the
+    original system's PyTorch state dicts (reference names, ``.pt``), read
+    back through ``torch_compat`` and the generator's ``params_from_torch``
+    onto the card: every mapped leaf equal to the native one, and
+    ``infer_once`` through an engine on the mapped weights equal to the
+    native engine's (max abs 0). Returns K1's launches on this path."""
+    from conan_tpu_torch.checkpoint import load_ckpt_state, params_from_jax
+    from conan_tpu_torch.infer.streaming import StreamingVoiceConversion
+    from conan_tpu_torch.models.vocoder.hifigan import HifiGanGenerator
+    from conan_tpu_torch.utils import torch_compat
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_import")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = eng.cfg
+    conan_state = load_ckpt_state(dirs[0])
+    native = {"conan": params_from_jax(conan_state["params_g"], dev),
+              "vq": params_from_jax(conan_state["vq_state"], dev),
+              "emf": params_from_jax(load_ckpt_state(dirs[1], "params"), dev),
+              "voc": params_from_jax(load_ckpt_state(dirs[2], "params_g"), dev)}
+    voc = HifiGanGenerator(cfg.vocoder)
+    t0 = time.perf_counter()
+    sds = {"conan": torch_compat.conan_to_torch(native["conan"], native["vq"], cfg.conan),
+           "emf": torch_compat.emformer_to_torchaudio(native["emf"]),
+           "voc": voc.params_to_torch(native["voc"])}
+    for name, sd in sds.items():
+        torch.save(sd, os.path.join(work, f"{name}.pt"))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sds = {name: torch.load(os.path.join(work, f"{name}.pt"), weights_only=True)
+           for name in sds}
+    conan, vq = torch_compat.conan_from_torch(sds["conan"], cfg.conan)
+    mapped = {"conan": conan, "vq": vq,
+              "emf": torch_compat.emformer_from_torchaudio(sds["emf"], cfg.emformer.num_layers),
+              "voc": voc.params_from_torch(sds["voc"])}
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    n_leaves = 0
+    for name, tree in native.items():
+        got = mapped[name]
+        if tree_map(lambda t: (tuple(t.shape), t.dtype, t.device.type), got) != \
+                tree_map(lambda t: (tuple(t.shape), t.dtype, t.device.type), tree):
+            fail(f"torch_import: the mapped {name} tree differs from the native one in "
+                 f"structure, shape, dtype or device")
+        unequal = [i for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(tree)))
+                   if not torch.equal(a, b)]
+        if unequal:
+            fail(f"torch_import: {len(unequal)} mapped {name} leaves differ from the native ones")
+        n_leaves += len(tree_leaves(tree))
+    imported = StreamingVoiceConversion(cfg, mapped["emf"], mapped["conan"], mapped["vq"],
+                                        mapped["voc"], serving_precision="exact", device=dev)
+    logmel.launches = 0
+    want, codes_want = eng.infer_once(src, ref, collect_codes=True)
+    got, codes_got = imported.infer_once(src, ref, collect_codes=True)
+    torch.cuda.synchronize()
+    launches = logmel.launches
+    err = float(np.abs(got - want).max())
+    if err != 0.0 or not np.array_equal(codes_got, codes_want):
+        fail(f"torch_import: infer_once on the imported weights is {err:.3g} from the native "
+             f"engine's (codes equal: {np.array_equal(codes_got, codes_want)}), not 0")
+    sizes = ", ".join(f"{name} {len(sd)} keys "
+                      f"{os.path.getsize(os.path.join(work, f'{name}.pt')) / 1e6:.1f} MB"
+                      for name, sd in sds.items())
+    print(f"torch_import: the main phase's r5 random-weight checkpoints as reference-named "
+          f"PyTorch state dicts ({sizes}) written in {export_s:.2f} s, read back through "
+          f"torch_compat (conan_from_torch, emformer_from_torchaudio) and "
+          f"HifiGanGenerator.params_from_torch onto the card in {import_s:.2f} s: {n_leaves} "
+          f"leaves equal to the native ones; infer_once on the imported weights against the "
+          f"native engine ({len(src) / SR:.2f} s src): max abs {err:.3g}, codes equal; logmel "
+          f"launches {launches}; phase wall {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launches
+
+
+def rmvpe_phase(seed: int, dev: torch.device, smi: str) -> int:
+    """Phase 10: RMVPE at the published geometry (E2E0, 4 blocks a level)
+    from seeded weights written as an ``rmvpe.pt`` under the reference's
+    names, loaded by ``RMVPE.from_torch_checkpoint`` on the card: its
+    salience on a RMVPE_SECONDS synthesized clip against the CPU's (max abs,
+    argmax flips), timed at B=1, profiled; then ``extract_f0.main`` over a
+    4-utterance corpus and ``run_binarize.main`` (K1): each record's f0
+    equal to the written ``_f0.npy`` cut to its length. Returns K1's
+    launches on this path."""
+    from conan_tpu_torch.data import extract_f0, run_binarize
+    from conan_tpu_torch.models.rmvpe import E2E0, RMVPE
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_rmvpe")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ckpt = os.path.join(work, "rmvpe.pt")
+    model = E2E0()
+    torch.save({"model": model.params_to_torch(model.init(torch.Generator().manual_seed(seed)))},
+               ckpt)
+    t0 = time.perf_counter()
+    card = RMVPE.from_torch_checkpoint(ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cpu = RMVPE.from_torch_checkpoint(ckpt, device="cpu")
+    wav, _f0 = synth_wav(np.random.default_rng([seed, 13]), RMVPE_SECONDS, with_f0=True)
+    x = torch.from_numpy(wav[None])
+    xd = x.to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = card.salience(xd)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = got.cpu()
+    t0 = time.perf_counter()
+    want = cpu.salience(x)
+    cpu_s = time.perf_counter() - t0
+    if got.shape != (1, len(wav) // 160 + 1, 360) or not torch.isfinite(got).all():
+        fail(f"rmvpe: salience of shape {tuple(got.shape)}, finite "
+             f"{bool(torch.isfinite(got).all())}")
+    err = float((got - want).abs().max())
+    flips = int((got.argmax(-1) != want.argmax(-1)).sum())
+    if err > RMVPE_ATOL:
+        fail(f"rmvpe: the card's salience is {err:.3g} from the CPU's (atol {RMVPE_ATOL})")
+    ms = cuda_ms(lambda: card.salience(xd), iters=RMVPE_ITERS, warmup=2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    card.salience(xd)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        card.salience(xd)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    print(f"rmvpe: E2E0 at the published geometry (n_blocks 4, 16-512 channels, BiGRU "
+          f"384 -> 2x256), random weights seed {seed} written as {os.path.basename(ckpt)} "
+          f"under the reference's names, from_torch_checkpoint onto the card in {load_s:.2f} "
+          f"s; {RMVPE_SECONDS:.0f} s synthesized clip ({got.shape[1]} frames, fp32, TF32 off): "
+          f"card vs CPU salience max abs {err:.3g} (atol {RMVPE_ATOL}), argmax flips {flips} of "
+          f"{got.shape[1]}; B=1 salience {ms:.3f} ms (CUDA events, mean of {RMVPE_ITERS} after "
+          f"warmup; first call {1e3 * first_s:.1f} ms, the CPU's {1e3 * cpu_s:.1f} ms), RTF "
+          f"{ms / 1e3 / RMVPE_SECONDS:.5f}; peak memory above the weights {peak_gb:.3f} GB; "
+          f"profiled call: device kernels {device_ms:.3f} ms, "
+          f"{sum(e.count for e in kernels)} kernels; largest: "
+          + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                      for e in top) + f" [{smi}]", flush=True)
+    # extract_f0 into the binarizer: a corpus without F0 files, then the CLIs
+    hp = load_config(os.path.join(ROOT, "egs", "soak_r5", "conan.yaml"))
+    hp.update(processed_data_dir=os.path.join(work, "processed"),
+              binary_data_dir=os.path.join(work, "binary"), valid_prefixes=[],
+              test_prefixes=[])
+    conan_corpus(hp, np.random.default_rng([seed, 14]), 2, RMVPE_UTTS // 2, INFER_FRAMES,
+                 prefix="f0")
+    shutil.rmtree(os.path.join(hp["processed_data_dir"], "wavs_f0"))
+    overrides = (f"processed_data_dir={hp['processed_data_dir']},"
+                 f"binary_data_dir={hp['binary_data_dir']},valid_prefixes=[],test_prefixes=[]")
+    config = os.path.join(ROOT, "egs", "soak_r5", "conan.yaml")
+    t0 = time.perf_counter()
+    written = extract_f0.main(["--config", config, "--rmvpe_ckpt", ckpt, "--hparams", overrides])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    if written != RMVPE_UTTS:
+        fail(f"rmvpe: extract_f0 wrote {written} files for {RMVPE_UTTS} utterances")
+    logmel.launches = 0
+    run_binarize.main(["--config", config, "--hparams", overrides])
+    torch.cuda.synchronize()
+    launches = logmel.launches
+    with open(os.path.join(hp["processed_data_dir"], "metadata.json")) as f:
+        wav_fns = {r["item_name"]: r["wav_fn"] for r in json.load(f)}
+    store = RecordReader(os.path.join(hp["binary_data_dir"], "train"))
+    checked, voiced, frames = 0, 0, 0
+    for i in range(len(store)):
+        rec = store[i]
+        f0 = np.load(extract_f0.f0_path(wav_fns[rec["item_name"]]))
+        n_wav = len(load_wav(wav_fns[rec["item_name"]], SR))
+        if f0.dtype != np.float32 or len(f0) != n_wav // hp["hop_size"] + 1:
+            fail(f"rmvpe: {rec['item_name']}_f0.npy is {f0.dtype} x {len(f0)}")
+        if not np.array_equal(rec["f0"], f0[:rec["len"]]):
+            fail(f"rmvpe: the record of {rec['item_name']} does not hold its extracted f0")
+        checked, voiced, frames = checked + 1, voiced + int((f0 > 0).sum()), frames + len(f0)
+    store.close()
+    if checked != RMVPE_UTTS or launches != RMVPE_UTTS:
+        fail(f"rmvpe: {checked} records checked, K1 launched {launches} times, for "
+             f"{RMVPE_UTTS} utterances")
+    print(f"rmvpe extract_f0: extract_f0.main on {RMVPE_UTTS} synthesized utterances of "
+          f"{INFER_FRAMES[0]}-{INFER_FRAMES[1]} frames (egs/soak_r5/conan.yaml, hop "
+          f"{hp['hop_size']}) on the card in {extract_s:.2f} s, {written} files, voiced "
+          f"{voiced} of {frames} frames; run_binarize.main (ConanBinarizer, K1 x{launches}): "
+          f"every record's f0 equals its _f0.npy cut to the record's length; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2512,7 +2723,8 @@ def main() -> None:
     by_path = {"main": launches, "scan": scan_phase(eng, dirs, src, ref)}
     train_kernels = []
     if not trained:
-        by_path.update(flow=flow_phase(args.seed, src, ref), run_vc=run_vc_phase(eng, dirs, rng))
+        by_path.update(flow=flow_phase(args.seed, src, ref), run_vc=run_vc_phase(eng, dirs, rng),
+                       torch_import=torch_import_phase(eng, dirs, src, ref, dev))
         # 5. train, 6. conan_train, 7. emformer_train, 8. postnet_train
         train_kernels = train_phase(args.seed, dev, rng)
         opt = vocoder_options_phase(args.seed, dev, rng)
@@ -2527,6 +2739,8 @@ def main() -> None:
         # 9. infer
         by_path["infer"] = infer_phase(args.seed, dev, dirs,
                                        os.path.join(ROOT, "build", "chip_smoke_train"))
+        # 10. rmvpe
+        by_path["rmvpe"] = rmvpe_phase(args.seed, dev, smi)
 
     kernel = {"name": "logmel", "route": "cuda", "source": "conan_tpu_torch/csrc/logmel.cu",
               "replaces": "conan_tpu/ops/pallas_stft.py:52", "launches": launches,

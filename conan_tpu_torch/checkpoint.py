@@ -4,6 +4,12 @@ A checkpoint is one pickle of ``{"global_step", "state": tree of numpy arrays,
 "hparams": dict}`` named ``model_ckpt_steps_<N>.ckpt``. The tree is nested
 dicts and lists; its key paths are the contract both packages share, so
 ``params_from_jax`` only turns leaves into tensors and keeps every key.
+
+The original system's PyTorch checkpoints are flat state dicts named by
+module path. A model maps one through a *name tree*: its parameter tree with
+the state-dict key at each leaf. ``params_from_state_dict`` reads a state
+dict through it, ``state_dict_from_params`` writes a tree back under the
+same keys, so each mapping is written once and serves both ways.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ import re
 
 import numpy as np
 import torch
+
+from conan_tpu_torch.device import resolve_device
 
 
 def get_all_checkpoints(work_dir: str, prefix: str = "model_ckpt_steps") -> list[str]:
@@ -115,6 +123,52 @@ def params_from_jax(tree, device: str | torch.device):
         a = np.asarray(x)
         if a.dtype.kind == "f":
             a = a.astype(np.float32)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        # np.array, not np.ascontiguousarray: that one turns a 0-d leaf (a
+        # step counter, the VQ's flag) into shape (1,)
+        return torch.from_numpy(np.array(a, order="C")).to(device)
 
     return tree_map(leaf, tree)
+
+
+def params_from_state_dict(sd, names, device: str | torch.device | None = None):
+    """The tree of ``names`` with each state-dict key replaced by ``sd``'s
+    value (a tensor or a numpy array) on ``device`` (None: the card). Float
+    values become float32, others keep their dtype; a leaf of ``names`` that
+    is not a key (an int stride) is kept as it is. Keys of ``sd`` that
+    ``names`` does not hold are ignored."""
+    dev = resolve_device(device)
+
+    def leaf(name):
+        if not isinstance(name, str):
+            return name
+        x = sd[name]
+        t = x.detach() if torch.is_tensor(x) else torch.from_numpy(np.array(x, order="C"))
+        return t.to(dev, torch.float32 if t.is_floating_point() else t.dtype)
+
+    return tree_map(leaf, names)
+
+
+def state_dict_from_params(params, names) -> dict:
+    """The inverse of ``params_from_state_dict``: ``{key: tensor on the
+    CPU}`` for every key of ``names``, read from the same place in
+    ``params``. Raises ValueError where the two trees differ in structure."""
+    out = {}
+
+    def walk(n, p, path):
+        if isinstance(n, dict):
+            if not isinstance(p, dict) or set(n) != set(p):
+                raise ValueError(f"{path or '/'}: parameter keys "
+                                 f"{sorted(p) if isinstance(p, dict) else type(p)} "
+                                 f"are not the mapping's {sorted(n)}")
+            for k in n:
+                walk(n[k], p[k], f"{path}/{k}")
+        elif isinstance(n, (list, tuple)):
+            if not isinstance(p, (list, tuple)) or len(n) != len(p):
+                raise ValueError(f"{path}: {len(n)} entries in the mapping, not {p!r:.40}")
+            for i, (a, b) in enumerate(zip(n, p)):
+                walk(a, b, f"{path}/{i}")
+        elif isinstance(n, str):
+            out[n] = torch.as_tensor(p).detach().cpu()
+
+    walk(names, params, "")
+    return out

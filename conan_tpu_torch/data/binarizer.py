@@ -51,6 +51,13 @@ def load_wav(path: str, sample_rate: int) -> np.ndarray:
     return data
 
 
+def f0_path(wav_fn: str) -> str:
+    """Where a wav's F0 contour lives: ``<wav dir>_f0/<name>_f0.npy``
+    (written by ``data/extract_f0.py``)."""
+    return os.path.join(os.path.dirname(wav_fn) + "_f0",
+                        os.path.basename(wav_fn).replace(".wav", "_f0.npy"))
+
+
 def split_items(item_names: list[str], valid_prefixes, test_prefixes):
     """(train, test, valid) by speaker prefix: an item whose name holds a
     valid or test prefix goes there, every other one to train."""
@@ -94,10 +101,9 @@ class ConanBinarizer:
         hubert = item["hubert"]
         content = (np.asarray([float(x) for x in hubert.split()], np.int64)
                    if isinstance(hubert, str) else np.asarray(hubert, np.int64))
-        f0_path = os.path.join(os.path.dirname(wav_fn) + "_f0",
-                               os.path.basename(wav_fn).replace(".wav", "_f0.npy"))
-        has_f0 = self.with_f0 and os.path.exists(f0_path)
-        return wav, content, np.load(f0_path) if has_f0 else None
+        path = f0_path(wav_fn)
+        has_f0 = self.with_f0 and os.path.exists(path)
+        return wav, content, np.load(path) if has_f0 else None
 
     def process_item(self, item: dict, wav: np.ndarray, content: np.ndarray,
                      f0: np.ndarray | None) -> dict:

@@ -15,8 +15,9 @@ whole chunk step, loop included, into one CUDA graph. The clipping constants
 are the JAX package's float32 arithmetic done once on the host; the step
 indices are made on the device by the same arithmetic. The loss's draws (a
 step t per item and the noise x0) come from a ``torch.Generator``, or are
-handed in, so that tests can give both packages the same ones. The reference
-checkpoint mapping (``params_from_torch``) is not ported.
+handed in, so that tests can give both packages the same ones.
+``DiffNet.params_from_torch`` reads the reference's F0DiffNet / DiffNet
+state dict (``params_to_torch`` writes one).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from conan_tpu_torch.checkpoint import params_from_state_dict, state_dict_from_params
 from conan_tpu_torch.nn.blocks import init_conv, init_linear, linear, timestep_embedding
 from conan_tpu_torch.nn.module import Params, Stream
 from conan_tpu_torch.ops.conv import (causal_conv1d, causal_conv1d_state,
@@ -86,6 +88,43 @@ class DiffNet:
                 "skip_proj": init_conv(gen, C, C, 1, init="kaiming_relu"),
                 "out_proj": {"w": torch.zeros(cfg.in_dims, C, 1),
                              "b": torch.zeros(cfg.in_dims)}}
+
+    @staticmethod
+    def torch_names(n_layers: int, prefix: str = "") -> Params:
+        """The reference state-dict key of each leaf (``checkpoint.py``)."""
+        def conv(name):
+            return {"w": f"{prefix}{name}.weight", "b": f"{prefix}{name}.bias"}
+
+        layers = [{"dilated": conv(f"residual_layers.{i}.dilated_conv"),
+                   "diff_proj": conv(f"residual_layers.{i}.diffusion_projection"),
+                   "cond_proj": conv(f"residual_layers.{i}.conditioner_projection"),
+                   "out_proj": conv(f"residual_layers.{i}.output_projection")}
+                  for i in range(n_layers)]
+        return {"in_proj": conv("input_projection"), "mlp1": conv("mlp.0"),
+                "mlp2": conv("mlp.2"), "layers": layers, "skip_proj": conv("skip_projection"),
+                "out_proj": conv("output_projection")}
+
+    def params_from_torch(self, sd, prefix: str = "", device=None) -> Params:
+        """The reference's state dict (keys under ``prefix``) → params on
+        ``device`` (None: the card). Its MaskedCausalConv1d of k=3 keeps taps
+        0 and 1, this net's 2-tap kernel; the layer count is the state
+        dict's."""
+        n = 0
+        while f"{prefix}residual_layers.{n}.dilated_conv.weight" in sd:
+            n += 1
+        p = params_from_state_dict(sd, self.torch_names(n, prefix), device)
+        for lp in p["layers"]:
+            lp["dilated"]["w"] = lp["dilated"]["w"][:, :, :2].contiguous()
+        return p
+
+    def params_to_torch(self, params: Params, prefix: str = "") -> dict[str, torch.Tensor]:
+        """The inverse: the masked third tap is written as zeros."""
+        n = len(params["layers"])
+        sd = state_dict_from_params(params, self.torch_names(n, prefix))
+        for i in range(n):
+            key = f"{prefix}residual_layers.{i}.dilated_conv.weight"
+            sd[key] = F.pad(sd[key], (0, 1))
+        return sd
 
     def step_bias(self, params: Params, t: torch.Tensor) -> list[torch.Tensor]:
         """t [N] steps → per layer the [N, C] bias added before its conv."""

@@ -19,6 +19,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from conan_tpu_torch.checkpoint import params_from_state_dict, state_dict_from_params
 from conan_tpu_torch.nn import inits
 from conan_tpu_torch.nn.blocks import init_wn_conv
 from conan_tpu_torch.nn.module import Params, State, Stream
@@ -85,6 +86,24 @@ def init_resblocks(gen: torch.Generator, cfg: HifiGanConfig, ch: int) -> list:
             for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)]
 
 
+def wn_names(prefix: str) -> Params:
+    """A weight-normed conv's state-dict keys (``checkpoint.py``)."""
+    return {"v": f"{prefix}.weight_v", "g": f"{prefix}.weight_g", "b": f"{prefix}.bias"}
+
+
+def resblock_names(cfg: HifiGanConfig, suffix: str = "") -> list:
+    """``resblocks.{i}.convs{1,2}.{j}`` (resblock "1") or ``.convs.{j}``
+    ("2") for every stage's blocks, each conv's own prefix ending in
+    ``suffix``."""
+    out = []
+    for i in range(len(cfg.upsample_rates) * len(cfg.resblock_kernel_sizes)):
+        nd = len(cfg.resblock_dilation_sizes[i % len(cfg.resblock_dilation_sizes)])
+        convs = ("convs1", "convs2") if cfg.resblock == "1" else ("convs",)
+        out.append({c: [wn_names(f"resblocks.{i}.{c}.{j}{suffix}") for j in range(nd)]
+                    for c in convs})
+    return out
+
+
 def check_config(cfg: HifiGanConfig) -> None:
     if cfg.upsample not in ("shuffle", "zero", "nn"):
         raise ValueError(f"upsample {cfg.upsample!r} is not one of shuffle, zero, nn")
@@ -121,6 +140,26 @@ class HifiGanGenerator:
         return {"conv_pre": wn(cfg.upsample_initial_channel, cfg.num_mels, 7),
                 "ups": ups, "resblocks": resblocks,
                 "conv_post": wn(1, self.channels[-1], 7)}
+
+    # ----------------------------------------------------------- torch import
+    def torch_names(self) -> Params:
+        """The reference HifiGanGenerator's (hifigan_causal.py) key of each
+        leaf: conv_pre.conv, ups.{i}.conv.conv (shuffle, zero) or
+        ups.{i}.deconv (nn), resblocks.{i}.convs{1,2}.{j}.conv, conv_post.conv."""
+        cfg = self.cfg
+        ups = [{"deconv": wn_names(f"ups.{i}.deconv")} if cfg.upsample == "nn"
+               else {"conv": wn_names(f"ups.{i}.conv.conv")}
+               for i in range(len(cfg.upsample_rates))]
+        return {"conv_pre": wn_names("conv_pre.conv"), "ups": ups,
+                "resblocks": resblock_names(cfg, ".conv"), "conv_post": wn_names("conv_post.conv")}
+
+    def params_from_torch(self, sd, device=None) -> Params:
+        """A reference state dict (tensors or numpy arrays) → params on
+        ``device`` (None: the card)."""
+        return params_from_state_dict(sd, self.torch_names(), device)
+
+    def params_to_torch(self, params: Params) -> dict[str, torch.Tensor]:
+        return state_dict_from_params(params, self.torch_names())
 
     # ----------------------------------------------------------- state
     def init_state(self, batch: int, device: torch.device | str = "cpu") -> State:

@@ -12,8 +12,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from conan_tpu_torch.checkpoint import params_from_state_dict, state_dict_from_params
 from conan_tpu_torch.models.vocoder.hifigan import (HifiGanConfig, _lrelu, check_config,
-                                                    init_resblocks, init_wn_deconv)
+                                                    init_resblocks, init_wn_deconv, resblock_names,
+                                                    wn_names)
 from conan_tpu_torch.nn.blocks import init_wn_conv
 from conan_tpu_torch.nn.module import Params
 from conan_tpu_torch.ops.conv import conv1d, conv_transpose1d, weight_norm_weight
@@ -44,6 +46,21 @@ class NonCausalHifiGanGenerator:
             resblocks += init_resblocks(gen, cfg, self.channels[i + 1])
         return {"conv_pre": conv_pre, "ups": ups, "resblocks": resblocks,
                 "conv_post": init_wn_conv(gen, self.c_out, self.channels[-1], 7, std=0.01)}
+
+    def torch_names(self) -> Params:
+        """The reference generator's key of each leaf: conv_pre, ups.{i},
+        resblocks.{i}.convs{1,2}.{j}, conv_post (``checkpoint.py``)."""
+        return {"conv_pre": wn_names("conv_pre"),
+                "ups": [wn_names(f"ups.{i}") for i in range(len(self.cfg.upsample_rates))],
+                "resblocks": resblock_names(self.cfg), "conv_post": wn_names("conv_post")}
+
+    def params_from_torch(self, sd, device=None) -> Params:
+        """A reference state dict (tensors or numpy arrays) → params on
+        ``device`` (None: the card)."""
+        return params_from_state_dict(sd, self.torch_names(), device)
+
+    def params_to_torch(self, params: Params) -> dict[str, torch.Tensor]:
+        return state_dict_from_params(params, self.torch_names())
 
     def _resblock(self, p: Params, x: torch.Tensor, rk: int, dilations) -> torch.Tensor:
         for j, d in enumerate(dilations):

@@ -86,6 +86,16 @@ class NsfHifiGanGenerator(NonCausalHifiGanGenerator):
                             for i, stride in enumerate(self._noise_strides())]
         return p
 
+    def torch_names(self) -> Params:
+        """The non-causal generator's keys, plus m_source.l_linear and
+        noise_convs.{i}; each noise conv's stride stays an int leaf."""
+        p = super().torch_names()
+        p["source_linear"] = {"w": "m_source.l_linear.weight", "b": "m_source.l_linear.bias"}
+        p["noise_convs"] = [{"conv": {"w": f"noise_convs.{i}.weight",
+                                      "b": f"noise_convs.{i}.bias"}, "stride": stride}
+                            for i, stride in enumerate(self._noise_strides())]
+        return p
+
     def apply(self, params: Params, mel: torch.Tensor, f0: torch.Tensor | None = None,
               generator: torch.Generator | None = None, deterministic: bool = False,
               **draws) -> torch.Tensor:

@@ -739,3 +739,25 @@ def test_rung_steps_on_card_match_float64(kind):
     text = rung_check(kind, lambda rung: make(rung, None), state, batch, m_64, leaves_of(new_64),
                       leaves_of, **kw)
     print(text)
+
+
+@pytest.mark.cuda
+def test_rmvpe_salience_on_card_matches_cpu():
+    """RMVPE at the published geometry (seeded weights through the
+    reference's state-dict names) on a 2 s clip: the card's salience (cuDNN
+    convs and GRU, TF32 off) within 1e-4 of the CPU's, the same shape."""
+    from conan_tpu_torch.models.rmvpe import E2E0, RMVPE
+
+    dev = _card()
+    model = E2E0()
+    sd = model.params_to_torch(model.init(torch.Generator().manual_seed(0)))
+    card = RMVPE(model.params_from_torch(sd), device=dev)
+    cpu = RMVPE(model.params_from_torch(sd, device="cpu"), device="cpu")
+    rng = np.random.default_rng(1)
+    t = np.arange(32000) / 16000
+    wav = (0.1 * np.sin(2 * np.pi * 180 * t) + 0.01 * rng.standard_normal(t.size))
+    x = torch.from_numpy(wav.astype(np.float32)[None])
+    got = card.salience(x.to(dev)).cpu()
+    want = cpu.salience(x)
+    assert got.shape == want.shape == (1, 201, 360)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
