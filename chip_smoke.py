@@ -124,8 +124,26 @@ and the result line:
               by torch.profiler; then extract_f0.main over 4 synthesized
               utterances and run_binarize.main (K1): each record's f0 equals
               its written _f0.npy
-  11. {"kernels": [...]}
-  12. {"ok": true, "device": {...}}
+  11. dist_train  data parallelism on the card: 2 gloo ranks sharing it
+              (NCCL takes one rank a device), each a subprocess of this
+              script with its own timeout: the vocoder step at production
+              width (egs/soak_r5/vocoder.yaml, highest, B = 18 as 9 + 9)
+              against the one-rank step on the whole batch (losses rtol
+              1e-4 from its fp32 step; gradient leaves from its float64
+              step within 1e-3 relative L2, or 4x its fp32 step's worst
+              leaf, as the train phase's check); Trainer.fit for
+              3 steps on each rank (ms per step beside the one-rank step,
+              peak memory per rank, K1-GAN and K2 launches against the
+              prediction); ConanTask at the r5 width across the k-means
+              hook; the ranks' states bit-identical after each
+  12. nccl1   one vocoder step through an NCCL group of one rank equals the
+              step with no group, bit for bit
+  13. shard   shard_streams with two shards on the card, 4 streams at the
+              r5 geometry through the captured loop: codes equal to the
+              unsharded captured run, wav within 1e-4; K1 launched on each
+              shard; ms per chunk
+  14. {"kernels": [...]}
+  15. {"ok": true, "device": {...}}
 
 The weights are random, made from --seed and written as checkpoint dirs
 under build/; the audio is synthesized from the seed. --trained names the
@@ -138,7 +156,10 @@ line holding logmel alone. Imports nothing of JAX or conan_tpu.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
+import datetime
+import hashlib
 import json
 import math
 import os
@@ -151,6 +172,7 @@ import wave
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -168,6 +190,7 @@ from conan_tpu_torch.ops import native
 from conan_tpu_torch.ops.groupconv import (groupconv, grouped_conv1d_bf16_reference,
                                            grouped_conv1d_reference)
 from conan_tpu_torch.ops.precision import precision_scope, rounded_dot, training_scope
+from conan_tpu_torch.parallel import dist
 from conan_tpu_torch.ops.logmel import (GAN_CLIP, GAN_EPS, _gan_vjp, gan_pad, logmel,
                                         logmel_gan, logmel_gan_reference, logmel_reference)
 from conan_tpu_torch.train.losses import gan_mel_configs
@@ -324,6 +347,18 @@ POST_CHECK = {"residual_layers": 2, "residual_channels": 16}
 # other orders); the B=1 call timed over RMVPE_ITERS; RMVPE_UTTS utterances
 # of INFER_FRAMES frames through extract_f0 and the binarizer.
 RMVPE_SECONDS, RMVPE_ATOL, RMVPE_ITERS, RMVPE_UTTS = 10.0, 1e-4, 10, 4
+# The dist_train phase: DIST_RANKS gloo ranks on the one card, each a
+# subprocess of this script (--dist_rank) that fails the phase past
+# DIST_RANK_TIMEOUT_S, every collective past DIST_COLLECTIVE_S. The vocoder at
+# production width (B = TRAIN_B as 9 + 9) for one held step and DIST_STEPS
+# steps of Trainer.fit; ConanTask at the r5 width on DIST_CONAN_B synthesized
+# rows of DIST_CONAN_T frames for DIST_CONAN_STEPS steps with CONAN_GATES, so
+# that the k-means hook runs before step 2.
+DIST_RANKS, DIST_STEPS, DIST_RANK_TIMEOUT_S, DIST_COLLECTIVE_S = 2, 3, 400, 180
+DIST_CONAN_B, DIST_CONAN_T, DIST_CONAN_STEPS = 4, 1024, 4
+# The shard phase: SHARD_B streams of SHARD_SECONDS (references half as long)
+# over two shards on the card.
+SHARD_B, SHARD_SECONDS = 4, 2.56
 
 
 def fail(msg: str) -> None:
@@ -2549,13 +2584,379 @@ def rmvpe_phase(seed: int, dev: torch.device, smi: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: dist_train (2 gloo ranks on the card), nccl1, shard
+# ---------------------------------------------------------------------------
+def tree_hash(tree) -> str:
+    """sha256 over the bytes of every tensor leaf in sorted key order: equal
+    hashes on two ranks mean bit-identical trees."""
+    h = hashlib.sha256()
+    for leaf in tree_leaves(dist.sorted_keys(tree)):
+        if torch.is_tensor(leaf):
+            h.update(leaf.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def first_moments(state: dict) -> list:
+    """The vocoder's optimizers' first moments (after a first step, (1 - b1)
+    times the clipped gradient), in sorted key order (a rank's tree comes
+    back from ``broadcast_state`` sorted)."""
+    return tree_leaves(dist.sorted_keys([state["opt_g"]["mu"], state["opt_d"]["mu"]]))
+
+
+def float64_card_step(task, state0: dict, batch: dict):
+    """``task``'s step from ``state0`` on ``batch`` in float64 on the card:
+    the plain versions of K1 and K2 (the kernels take fp32), cuDNN's float64
+    convolutions."""
+    from conan_tpu_torch.ops import conv as conv_ops
+    from conan_tpu_torch.train import losses as losses_mod
+    from conan_tpu_torch.train import tasks as tasks_mod
+
+    to64 = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+    saved = conv_ops.groupconv, losses_mod.logmel_gan, tasks_mod.logmel_gan
+    conv_ops.groupconv = grouped_conv1d_reference
+    losses_mod.logmel_gan = tasks_mod.logmel_gan = logmel_gan_reference
+    try:
+        return task.train_step(tree_map(to64, state0), {k: to64(v) for k, v in batch.items()})
+    finally:
+        conv_ops.groupconv, losses_mod.logmel_gan, tasks_mod.logmel_gan = saved
+
+
+def dist_vocoder_hp(seed: int) -> dict:
+    hp = load_config(os.path.join(ROOT, "egs", "soak_r5", "vocoder.yaml"))
+    return dict(hp, train_precision="highest", max_updates=DIST_STEPS, tb_log_interval=1,
+                seed=seed)
+
+
+def dist_conan_hp(seed: int) -> dict:
+    hp = load_config(os.path.join(ROOT, "egs", "soak_r5", "conan.yaml"))
+    return dict(hp, **CONAN_GATES, max_updates=DIST_CONAN_STEPS, tb_log_interval=1, seed=seed)
+
+
+def dist_conan_batch(seed: int) -> dict:
+    """DIST_CONAN_B synthesized rows of DIST_CONAN_T frames at the r5 width
+    (80 bins; content codes below the vocabulary), the last rows shorter."""
+    rng = np.random.default_rng([seed, 9])
+    B, T = DIST_CONAN_B, DIST_CONAN_T
+    batch = {"content": rng.integers(0, 100, (B, T)),
+             "mels": (rng.standard_normal((B, T, 80)) * 0.5 - 4.0).astype(np.float32),
+             "f0": (rng.standard_normal((B, T)) * 0.5 + 7.5).astype(np.float32),
+             "uv": (rng.random((B, T)) < 0.25).astype(np.float32)}
+    for i, n in enumerate(np.linspace(T, T * 3 // 4, B).astype(int)):
+        batch["content"][i, n:] = -1
+        for k in ("mels", "f0", "uv"):
+            batch[k][i, n:] = 0
+    batch["ref_mels"] = batch["mels"]
+    batch["spk_ids"] = np.zeros(B, np.int64)
+    return batch
+
+
+def dist_rank_main(rank: int, out_dir: str, seed: int) -> None:
+    """One rank of the dist_train phase (this script run with --dist_rank):
+    joins a gloo group of DIST_RANKS on cuda:0 through a file rendezvous in
+    ``out_dir``, then (1) one vocoder step at production width from the
+    parent's seed on its rows of the parent's batch, (2) once the parent
+    has finished its one-rank references (``refs_done`` in ``out_dir``),
+    Trainer.fit for DIST_STEPS steps (CUDA events, peak memory, launches),
+    (3) ``all_reduce_grads`` alone on buffers of the generator's and the
+    discriminator's gradients, DIST_STEPS times (CUDA events and wall), (4)
+    ConanTask at the r5 width through Trainer.fit across the k-means hook.
+    Writes rank<R>.json (and rank 0 the step's first moments) for the
+    parent."""
+    dev = torch.device("cuda:0")
+    world = dist.init_distributed(dev, backend="gloo", init_method=f"file://{out_dir}/rdv",
+                                  rank=rank, world_size=DIST_RANKS,
+                                  timeout=datetime.timedelta(seconds=DIST_COLLECTIVE_S))
+    res: dict = {"rank": rank}
+    hp = dist_vocoder_hp(seed)
+    inputs = torch.load(os.path.join(out_dir, "inputs.pt"))
+    batch = dist.local_rows({k: v.to(dev) for k, v in inputs["batch"].items()}, world)
+    task = VocoderTask(hp, world=world)
+    state0 = dist.broadcast_state(task.init_state(torch.Generator().manual_seed(seed + 1)),
+                                  world)
+    logmel_gan.launches = groupconv.launches = 0
+    new, metrics = task.train_step(state0, batch)
+    torch.cuda.synchronize()
+    res["check"] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                    "hash": tree_hash({k: new[k] for k in ("params_g", "params_d", "opt_g",
+                                                           "opt_d")}),
+                    "launches": [logmel_gan.launches, groupconv.launches], "rows": len(batch["wavs"])}
+    if rank == 0:
+        torch.save([t.cpu() for t in first_moments(new)], os.path.join(out_dir, "mu_rank0.pt"))
+    del new, state0
+    deadline = time.monotonic() + DIST_RANK_TIMEOUT_S
+    while not os.path.exists(os.path.join(out_dir, "refs_done")):
+        if time.monotonic() > deadline:
+            raise TimeoutError("the parent's one-rank references did not finish")
+        time.sleep(0.05)
+    events: list = []
+
+    def batches():
+        for _ in range(DIST_STEPS):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            yield batch
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+
+    work = os.path.join(out_dir, "vocoder")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logmel_gan.launches = groupconv.launches = 0
+    state = Trainer(task, hp, work).fit(batches())
+    torch.cuda.synchronize()
+    res["fit"] = {"ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "launches": [logmel_gan.launches, groupconv.launches],
+                  "hash": tree_hash(state), "step": int(state["step"])}
+    # the gradients' all-reduce alone: one buffer per optimizer, as the step
+    # sums them; both ranks hold the same parameters, so the sum is 2 x each
+    bufs = [[t.detach().clone() for t in tree_leaves(state[k])]
+            for k in ("params_g", "params_d")]
+    ar_ms, ar_wall = [], []
+    for _ in range(DIST_STEPS + 1):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        summed = [dist.all_reduce_grads(g, world) for g in bufs]
+        b.record()
+        torch.cuda.synchronize()
+        ar_wall.append((time.perf_counter() - t0) * 1e3)
+        ar_ms.append(a.elapsed_time(b))
+    if not all(torch.equal(s, 2 * g) for sg, bg in zip(summed, bufs) for s, g in zip(sg, bg)):
+        raise AssertionError("all_reduce_grads: the sum of two equal buffers is not 2 x each")
+    res["all_reduce"] = {"ms": ar_ms[1:], "wall_ms": ar_wall[1:],
+                         "mb": sum(t.numel() * t.element_size() for g in bufs for t in g) / 1e6}
+    del state, task, bufs, summed
+    hp_c = dist_conan_hp(seed)
+    task_c = ConanTask(hp_c, world=world)
+    batch_c = dist.local_rows(dist_conan_batch(seed), world)
+    work_c = os.path.join(out_dir, "conan")
+    state_c = Trainer(task_c, hp_c, work_c, use_random_ref_after=use_random_ref_after(
+        hp_c, "conan")).fit(iter([batch_c] * DIST_CONAN_STEPS))
+    res["conan"] = {"hash": tree_hash(state_c), "step": int(state_c["step"]),
+                    "initialized": float(state_c["vq_state"]["initialized"])}
+    if rank == 0:
+        with open(os.path.join(work_c, "metrics.jsonl")) as f:
+            res["conan"]["metrics"] = [json.loads(line) for line in f]
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.shutdown(world)
+
+
+def dist_train_phase(seed: int, dev: torch.device, smi: str) -> dict:
+    """Phase 11: DIST_RANKS gloo ranks sharing the card (NCCL refuses two
+    ranks on one device), each a subprocess of this script with its own
+    timeout. The vocoder GAN step at production width (B = TRAIN_B split
+    into contiguous blocks) is held to the one-rank step on the whole batch
+    here, as the train phase holds the card's step: loss terms to the
+    one-rank fp32 step at STEP_RTOL, every gradient leaf (the first moments
+    after a first step) to the one-rank float64 step within
+    max(STEP_GRAD_REL, STEP_FP32_FACTOR x the one-rank fp32 step's worst
+    leaf). The ranks' states agree bit for bit after that step, after
+    Trainer.fit, and after ConanTask's run across the k-means hook; each
+    rank launches K1's GAN form and K2 as the code predicts. Returns the
+    launches of rank 0 (check step and Trainer.fit)."""
+    out = os.path.join(ROOT, "build", "chip_smoke_dist")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    hp = dist_vocoder_hp(seed)
+    batch = train_batch(hp, np.random.default_rng([seed, 11]), dev)
+    torch.save({"batch": {k: v.cpu() for k, v in batch.items()}}, os.path.join(out, "inputs.pt"))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                               "--dist_rank", str(r), "--dist_dir", out],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DIST_RANKS)]
+    # the one-rank references while the ranks start: the fp32 step and the
+    # float64 one (the plain versions of K1 and K2, cuDNN in float64); the
+    # ranks time nothing until refs_done
+    task = VocoderTask(hp)
+    state0 = task.init_state(torch.Generator().manual_seed(seed + 1))
+    new1, m1 = task.train_step(state0, batch)
+    new64, _ = float64_card_step(task, state0, batch)
+    mu64 = [t.cpu() for t in first_moments(new64)]
+    witness = max(rel_l2(a.cpu(), b) for a, b in zip(first_moments(new1), mu64))
+    del new1, new64
+    torch.cuda.synchronize()
+    open(os.path.join(out, "refs_done"), "w").close()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_RANK_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"dist_train: a rank ran past {DIST_RANK_TIMEOUT_S} s (a hung collective?)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    # the one-rank step timed with the card to itself, after the ranks exit
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(DIST_STEPS + 1)]
+    state, _ = task.train_step(state0, batch)
+    ev[0].record()
+    for i in range(DIST_STEPS):
+        state, _ = task.train_step(state, batch)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    one_rank_ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    del state, state0, task
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"dist_train: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    for key in ("check", "fit", "conan"):
+        if len({r[key]["hash"] for r in ranks}) != 1:
+            fail(f"dist_train: the ranks' states differ after {key}")
+    if any(r["check"]["metrics"] != r0["check"]["metrics"] for r in ranks):
+        fail("dist_train: the ranks' metrics differ")
+    worst_loss = 0.0
+    for k, v in m1.items():
+        got, want = r0["check"]["metrics"][k], float(v)
+        rel = abs(got - want) / max(abs(want), 1e-30)
+        worst_loss = max(worst_loss, rel if k != "skipped" else 0.0)
+        if k != "skipped" and rel > STEP_RTOL or k == "skipped" and got != want:
+            fail(f"dist_train: {k} {got} on {DIST_RANKS} ranks, {want} on one (rtol {STEP_RTOL})")
+    mu0 = torch.load(os.path.join(out, "mu_rank0.pt"))
+    limit = max(STEP_GRAD_REL, STEP_FP32_FACTOR * witness)
+    leaf_err = [rel_l2(a, b) for a, b in zip(mu0, mu64)]
+    if len(mu0) != len(mu64) or max(leaf_err) > limit:
+        fail(f"dist_train: gradient leaf {int(np.argmax(leaf_err))} relative L2 "
+             f"{max(leaf_err):.3g} from the one-rank float64 step (limit {limit:.3g})")
+    k1_pred, k2_pred = 2 * len(hp["mel_loss_param"]["fft_sizes"]), 3 * 15
+    for r in ranks:
+        if r["check"]["launches"] != [k1_pred, k2_pred] or r["fit"]["launches"] != [
+                k1_pred * DIST_STEPS, k2_pred * DIST_STEPS] or r["fit"]["step"] != DIST_STEPS:
+            fail(f"dist_train: rank {r['rank']} launches check {r['check']['launches']}, fit "
+                 f"{r['fit']['launches']} ({r['fit']['step']} steps); predicted "
+                 f"{[k1_pred, k2_pred]} a step")
+        if r["conan"]["step"] != DIST_CONAN_STEPS or r["conan"]["initialized"] != 1.0:
+            fail(f"dist_train: ConanTask on rank {r['rank']}: {r['conan']}")
+    conan_m = r0["conan"]["metrics"]
+    if len(conan_m) != DIST_CONAN_STEPS or any(m["skipped"] for m in conan_m) or not all(
+            np.isfinite(v) for m in conan_m for v in m.values() if isinstance(v, float)):
+        fail(f"dist_train: ConanTask metrics {conan_m}")
+    print(f"dist_train: {DIST_RANKS} gloo ranks on one card ({smi}), each a subprocess; "
+          f"egs/soak_r5/vocoder.yaml at full width, train_precision highest, B={TRAIN_B} as "
+          f"{' + '.join(str(r['check']['rows']) for r in ranks)}: the step against the one-rank "
+          f"step on the whole batch: losses worst rel diff {worst_loss:.3g} (rtol {STEP_RTOL}), "
+          f"gradient leaves worst rel L2 {max(leaf_err):.3g} from the one-rank float64 step "
+          f"(limit {limit:.3g} = max({STEP_GRAD_REL}, {STEP_FP32_FACTOR} x witness "
+          f"{witness:.3g}, the one-rank fp32 step's worst leaf); ranks bit-identical after the step, "
+          f"after Trainer.fit ({DIST_STEPS} steps) and after ConanTask ({DIST_CONAN_STEPS} "
+          f"steps of egs/soak_r5/conan.yaml at B={DIST_CONAN_B} x {DIST_CONAN_T}, gates "
+          f"{CONAN_GATES}, the k-means hook run, VQ initialized); launches per rank per step "
+          f"logmel_gan {k1_pred}, groupconv {k2_pred} (predicted); ms per step (CUDA events) "
+          + "; ".join(f"rank {r['rank']} {[round(x, 3) for x in r['fit']['ms']]} median "
+                      f"{np.median(r['fit']['ms'][1:]):.3f}" for r in ranks)
+          + f"; one rank on the whole batch, timed after the ranks exit, "
+          f"{[round(x, 3) for x in one_rank_ms]} median {np.median(one_rank_ms):.3f}; "
+          f"all_reduce_grads alone (G and D, {r0['all_reduce']['mb']:.1f} MB fp32) ms "
+          "(CUDA events; wall) "
+          + "; ".join(f"rank {r['rank']} {[round(x, 3) for x in r['all_reduce']['ms']]} "
+                      f"({[round(x, 3) for x in r['all_reduce']['wall_ms']]})" for r in ranks)
+          + "; peak memory per rank "
+          f"{[round(r['fit']['peak_gb'], 3) for r in ranks]} GB; Conan losses at step "
+          f"{DIST_CONAN_STEPS}: " + ", ".join(f"{k} {v:.5g}" for k, v in conan_m[-1].items()
+                                              if k not in ("step", "prefix", "skipped",
+                                                           "steps_per_s")), flush=True)
+    return {"logmel_gan": sum(r0[k]["launches"][0] for k in ("check", "fit")),
+            "groupconv": sum(r0[k]["launches"][1] for k in ("check", "fit"))}
+
+
+def nccl1_phase(seed: int, dev: torch.device) -> dict:
+    """Phase 12: one vocoder step (production width, B = CHECK_B) through
+    an NCCL group of one rank against the same step with no group, with
+    cuDNN's deterministic algorithms: every loss and every leaf of the new
+    state equal bit for bit. Returns its launches."""
+    out = os.path.join(ROOT, "build", "chip_smoke_nccl1")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    hp = dist_vocoder_hp(seed)
+    small = {k: v[:CHECK_B] for k, v in train_batch(hp, np.random.default_rng([seed, 12]),
+                                                      dev).items()}
+    world = dist.init_distributed(dev, backend="nccl", init_method=f"file://{out}/rdv", rank=0,
+                                  world_size=1,
+                                  timeout=datetime.timedelta(seconds=DIST_COLLECTIVE_S))
+    try:
+        if tdist.get_backend() != "nccl":
+            fail(f"nccl1: the group's backend is {tdist.get_backend()}")
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+            task = VocoderTask(hp)
+            state0 = task.init_state(torch.Generator().manual_seed(seed + 3))
+            new, m = task.train_step(state0, small)
+            logmel_gan.launches = groupconv.launches = 0
+            new_w, m_w = VocoderTask(hp, world=world).train_step(state0, small)
+            torch.cuda.synchronize()
+            launches = {"logmel_gan": logmel_gan.launches, "groupconv": groupconv.launches}
+    finally:
+        dist.shutdown(world)
+    leaves, leaves_w = tree_leaves(dist.sorted_keys(new)), tree_leaves(dist.sorted_keys(new_w))
+    differ = sum(not torch.equal(a, b) for a, b in zip(leaves, leaves_w))
+    if differ or len(leaves) != len(leaves_w) or {k: float(v) for k, v in m.items()} != {
+            k: float(v) for k, v in m_w.items()}:
+        fail(f"nccl1: {differ} of {len(leaves)} state leaves (or the losses) differ from the "
+             f"step with no group")
+    print(f"nccl1: one vocoder step (egs/soak_r5/vocoder.yaml, highest, B={CHECK_B}) through an "
+          f"NCCL group of one rank equals the step with no group bit for bit: losses and all "
+          f"{len(leaves)} state leaves; launches logmel_gan {launches['logmel_gan']}, groupconv "
+          f"{launches['groupconv']}", flush=True)
+    return launches
+
+
+def shard_phase(eng, rng: np.random.Generator) -> int:
+    """Phase 13: shard_streams with two shards on cuda:0, SHARD_B streams at
+    the r5 geometry through the captured loop, against the unsharded
+    captured run on the same batch: codes equal, wav to STREAM_ATOL; K1
+    launched on each shard (its src and ref); the warm call's ms per chunk,
+    sharded and not. Returns the sharded call's K1 launches."""
+    src = np.stack([synth_wav(rng, SHARD_SECONDS) for _ in range(SHARD_B)])
+    ref = np.stack([synth_wav(rng, SHARD_SECONDS / 2) for _ in range(SHARD_B)])
+    sharded = copy.copy(eng)
+    sharded.shard_streams(["cuda:0", "cuda:0"])
+    timing = {}
+    for name, e in (("unsharded", eng), ("sharded", sharded)):
+        e.infer_once(src, ref, use_scan=True)               # captures
+        torch.cuda.synchronize()
+        logmel.launches = 0
+        t0 = time.perf_counter()
+        wav, codes = e.infer_once(src, ref, collect_codes=True, use_scan=True)
+        timing[name] = (1e3 * (time.perf_counter() - t0), logmel.launches, wav, codes)
+    n_chunks = -(-(src.shape[1] // eng.cfg.mel.hop + 1) // eng.cfg.seg)
+    (u_ms, u_l, u_wav, u_codes), (s_ms, s_l, s_wav, s_codes) = timing["unsharded"], timing["sharded"]
+    err = float(np.abs(s_wav - u_wav).max())
+    if not np.array_equal(s_codes, u_codes) or err > STREAM_ATOL or s_l != 2 * len(
+            sharded._shards) or u_l != 2:
+        fail(f"shard: codes equal {np.array_equal(s_codes, u_codes)}, wav max abs {err:.3g} "
+             f"(atol {STREAM_ATOL}), logmel launches {s_l} sharded, {u_l} unsharded")
+    print(f"shard: shard_streams(['cuda:0', 'cuda:0']) on the main phase's engine, B={SHARD_B} "
+          f"streams of {SHARD_SECONDS} s, use_scan (each shard its own captured graph): codes "
+          f"equal to the unsharded captured B={SHARD_B} run, wav max abs {err:.3g} (atol "
+          f"{STREAM_ATOL}); logmel launches {s_l} (2 a shard); warm call {s_ms:.3f} ms, "
+          f"{s_ms / n_chunks:.4f} ms per chunk over {n_chunks} chunks (unsharded "
+          f"{u_ms:.3f} ms, {u_ms / n_chunks:.4f} ms per chunk); host wall clock around "
+          f"infer_once, mels and copies included", flush=True)
+    return s_l
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trained", default="",
                     help="comma list of stages (conan, emf, voc) that load the trained "
                          "checkpoints/soak_r5_<stage>/deploy weights; the rest are random")
+    ap.add_argument("--dist_rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist_dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dist_rank is not None:       # one rank of the dist_train phase
+        if not torch.cuda.is_available():
+            sys.exit(1)
+        dist_rank_main(args.dist_rank, args.dist_dir, args.seed)
+        return
     trained = [name for name in args.trained.split(",") if name]
     if not set(trained) <= set(STAGES):
         ap.error(f"--trained takes stages of {STAGES}, got {args.trained!r}")
@@ -2741,6 +3142,14 @@ def main() -> None:
                                        os.path.join(ROOT, "build", "chip_smoke_train"))
         # 10. rmvpe
         by_path["rmvpe"] = rmvpe_phase(args.seed, dev, smi)
+        # 11. dist_train, 12. nccl1, 13. shard
+        dist_launches = dist_train_phase(args.seed, dev, smi)
+        nccl_launches = nccl1_phase(args.seed, dev)
+        by_path["shard"] = shard_phase(eng, rng)
+        for entry in train_kernels:
+            entry["launches_by_path"].update(
+                dist_train=dist_launches.get(entry["name"], 0),
+                nccl1=nccl_launches.get(entry["name"], 0))
 
     kernel = {"name": "logmel", "route": "cuda", "source": "conan_tpu_torch/csrc/logmel.cu",
               "replaces": "conan_tpu/ops/pallas_stft.py:52", "launches": launches,

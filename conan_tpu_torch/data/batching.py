@@ -90,3 +90,21 @@ def collate_2d(arrs: list[np.ndarray], pad_value=0.0,
     for i, a in enumerate(arrs):
         out[i, :a.shape[0]] = a[:T]
     return out
+
+
+def shard_for_replicas(batches: list[list[int]], num_replicas: int,
+                       rank: int | None = None) -> list[list[int]]:
+    """The rank's share of a list of batches, padded to a multiple of
+    ``num_replicas`` by repeating its first batches (the reference's
+    dataset_utils.py:317-329): every ``num_replicas``-th batch from
+    ``rank``, or with ``rank`` None the padded list. The loader does not
+    call it, as the JAX package's does not: under data parallelism each rank
+    takes its contiguous block of every global batch
+    (``loader.BatchIterator``)."""
+    if num_replicas <= 1:
+        return batches
+    if len(batches) % num_replicas != 0:
+        batches = batches + batches[: num_replicas - len(batches) % num_replicas]
+    if rank is None:
+        return batches
+    return batches[rank::num_replicas]

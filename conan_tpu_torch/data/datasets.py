@@ -15,6 +15,12 @@
 Sizes come from ``<prefix>_lengths.npy``. Random choices (references, crops)
 come from a numpy generator seeded as the JAX package's, so both give the
 same batches.
+
+An item is ``load(plan(i))``: ``plan`` makes the item's random choices and
+gives its lengths from the sizes, without reading it; ``load`` reads it. A
+rank under data parallelism plans every item of the global batch, so that
+its generator advances as on one rank and the batch's length rung is the
+global one, and loads only its own rows (``data/loader.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ class SpeechDataset:
         self.sizes = [int(sizes[i]) for i in self.avail_idxs]
         self._reader: RecordReader | None = None
         self._spk2indices: dict[int, list[int]] | None = None
+        self._spk_ids = None
 
     def __len__(self) -> int:
         return len(self.avail_idxs)
@@ -52,34 +59,50 @@ class SpeechDataset:
             self._reader = RecordReader(f"{self.data_dir}/{self.prefix}")
         return self._reader[self.avail_idxs[local_idx]]
 
+    def _spk_of(self, local_idx: int) -> int:
+        """An item's speaker id, from ``<prefix>_spk_ids.npy`` where it
+        exists, else from the item."""
+        if self._spk_ids is None:
+            path = f"{self.data_dir}/{self.prefix}_spk_ids.npy"
+            self._spk_ids = (np.asarray(np.load(path, mmap_mode="r"))[self.avail_idxs]
+                             if os.path.exists(path) else False)
+        if self._spk_ids is False:
+            return int(self._get_item(local_idx)["spk_id"])
+        return int(self._spk_ids[local_idx])
+
     def _speaker_map(self) -> dict[int, list[int]]:
         """speaker id → up to ``max_samples_per_spk`` local indices, in a
-        seeded random order; from ``<prefix>_spk_ids.npy`` where it exists,
-        else from the items."""
+        seeded random order."""
         if self._spk2indices is None:
             self._spk2indices = defaultdict(list)
             max_per = int(self.hp.get("max_samples_per_spk", 100))
-            path = f"{self.data_dir}/{self.prefix}_spk_ids.npy"
-            if os.path.exists(path):
-                local = np.asarray(np.load(path, mmap_mode="r"))[self.avail_idxs]
-                spk_of = lambda li: int(local[li])  # noqa: E731
-            else:
-                spk_of = lambda li: int(self._get_item(li)["spk_id"])  # noqa: E731
             for li in self.rng.permutation(len(self)):
-                b = self._spk2indices[spk_of(li)]
+                b = self._spk2indices[self._spk_of(li)]
                 if len(b) < max_per:
                     b.append(int(li))
         return self._spk2indices
 
+    def plan(self, index: int) -> dict:
+        """The item's reference (another utterance of its speaker, drawn
+        from the generator) and the frames of both after the ``max_frames``
+        cut, from the sizes."""
+        cands = [li for li in self._speaker_map()[self._spk_of(index)] if li != index]
+        ref = int(self.rng.choice(cands)) if cands else index
+        max_frames = self.hp.get("max_frames", 3000)
+        return {"index": index, "ref": ref, "frames": min(self.sizes[index], max_frames),
+                "ref_frames": min(self.sizes[ref], max_frames)}
+
     def __getitem__(self, index: int) -> dict:
+        return self.load(self.plan(index))
+
+    def load(self, plan: dict) -> dict:
         hp = self.hp
+        index = plan["index"]
         item = self._get_item(index)
         max_frames = hp.get("max_frames", 3000)
         mel = np.asarray(item["mel"], np.float32)[:max_frames]
         spk_id = int(item["spk_id"])
-        cands = [li for li in self._speaker_map()[spk_id] if li != index]
-        ref_local = int(self.rng.choice(cands)) if cands else index
-        ref_mel = np.asarray(self._get_item(ref_local)["mel"], np.float32)[:max_frames]
+        ref_mel = np.asarray(self._get_item(plan["ref"])["mel"], np.float32)[:max_frames]
         sample = {"id": index, "item_name": item.get("item_name", str(index)),
                   "mel": mel, "ref_mel": ref_mel, "spk_id": spk_id}
         if hp.get("use_spk_embed", False) and "spk_embed" in item:
@@ -96,9 +119,9 @@ class SpeechDataset:
 
 
 class ConanDataset(SpeechDataset):
-    def __getitem__(self, index: int) -> dict:
-        sample = super().__getitem__(index)
-        content = np.asarray(self._get_item(index)["hubert"], np.int64)
+    def load(self, plan: dict) -> dict:
+        sample = super().load(plan)
+        content = np.asarray(self._get_item(plan["index"])["hubert"], np.int64)
         T = min(len(content), sample["mel"].shape[0])
         sample["content"] = content[:T]
         sample["mel"] = sample["mel"][:T]
@@ -132,9 +155,9 @@ class EmformerDataset(SpeechDataset):
     still draw a same-speaker reference, as every SpeechDataset's do, so the
     generator's later draws stay the JAX package's."""
 
-    def __getitem__(self, index: int) -> dict:
-        sample = super().__getitem__(index)
-        content = np.asarray(self._get_item(index)["hubert"], np.int64)
+    def load(self, plan: dict) -> dict:
+        sample = super().load(plan)
+        content = np.asarray(self._get_item(plan["index"])["hubert"], np.int64)
         T = min(len(content), sample["mel"].shape[0])
         sample["content"] = content[:T]
         sample["mel"] = sample["mel"][:T]
@@ -162,7 +185,9 @@ class EmformerDataset(SpeechDataset):
 
 class VocoderDataset:
     """Items longer than ``max_samples`` // hop frames; ``collate`` cuts a
-    random crop of that many frames and the matching wav from each."""
+    random crop of that many frames and the matching wav from each (from
+    each item not cut already: ``load(plan(i))`` cuts the crop that ``plan``
+    drew)."""
 
     def __init__(self, data_dir: str, prefix: str, hp, seed: int = 1234):
         self.data_dir = data_dir
@@ -185,14 +210,27 @@ class VocoderDataset:
         return {"mel": np.asarray(item["mel"], np.float32),
                 "wav": np.asarray(item["wav"], np.float32)}
 
+    def plan(self, index: int) -> dict:
+        """The item's crop start, drawn as ``collate`` draws it."""
+        return {"index": index,
+                "start": int(self.rng.integers(0, self.sizes[index] - self.batch_max_frames))}
+
+    def load(self, plan: dict) -> dict:
+        return self._crop(self[plan["index"]], plan["start"])
+
+    def _crop(self, s: dict, start: int) -> dict:
+        mf = self.batch_max_frames
+        return {"mel": s["mel"][start:start + mf],
+                "wav": s["wav"][start * self.hop:(start + mf) * self.hop], "start": start}
+
     def collate(self, samples: list[dict]) -> dict:
         mf = self.batch_max_frames
         mels, wavs = [], []
         for s in samples:
-            c, x = s["mel"], s["wav"]
-            if len(c) <= mf:
-                continue
-            start = int(self.rng.integers(0, len(c) - mf))
-            mels.append(c[start:start + mf])
-            wavs.append(x[start * self.hop:(start + mf) * self.hop])
+            if "start" not in s:
+                if len(s["mel"]) <= mf:
+                    continue
+                s = self._crop(s, int(self.rng.integers(0, len(s["mel"]) - mf)))
+            mels.append(s["mel"])
+            wavs.append(s["wav"])
         return {"mels": np.stack(mels), "wavs": np.stack(wavs)}

@@ -6,6 +6,16 @@ Each epoch shuffles the items (``size_shuffled_indices``), packs them by
 batch is padded to its rung. An error in the producer thread is raised in
 the consumer, so a data fault ends training with that error rather than
 looking like the end of the data.
+
+With a ``world`` (``parallel/dist.py``) every rank makes the same global
+batches and yields its block of each: it plans every item of the global
+batch (``dataset.plan``: the item's random choices, so the generator
+advances as on one rank, and its lengths), pads the plans to a multiple of
+the world's size by repeating leading rows (``pad_batch_to_multiple``),
+loads only its own rows and collates them at the global batch's rung (the
+longest item's, and for Conan the longest reference's), so that every rank's
+shapes agree. Without a ladder the collate must give the same shapes on
+every rank by itself (the vocoder's fixed crops).
 """
 
 from __future__ import annotations
@@ -27,7 +37,9 @@ class BatchIterator:
     SEED, PREFETCH = 1234, 4
 
     def __init__(self, dataset, collate_fn: Callable, *, max_tokens: int | None,
-                 max_sentences: int | None, bucket: BucketLadder | None = None):
+                 max_sentences: int | None, bucket: BucketLadder | None = None,
+                 world=None):
+        self.world = world
         self.ds = dataset
         self.collate = collate_fn
         self.max_tokens = max_tokens
@@ -44,12 +56,27 @@ class BatchIterator:
         return batches
 
     def _make_batch(self, index_list: list[int]) -> dict:
+        if self.world is not None:
+            return self._make_local_batch(index_list)
         samples = [self.ds[i] for i in index_list]
         if self.bucket is not None:
             max_len = max(s["mel"].shape[0] if "mel" in s else len(s["content"])
                           for s in samples)
             return self.collate(samples, target_len=self.bucket.fit(max_len))
         return self.collate(samples)
+
+    def _make_local_batch(self, index_list: list[int]) -> dict:
+        """This rank's rows of the padded global batch of ``index_list``."""
+        plans = [self.ds.plan(i) for i in index_list]
+        n = self.world.size
+        plans = [plans[j % len(plans)] for j in range(len(plans) + (-len(plans)) % n)]
+        samples = [self.ds.load(p) for p in plans[self.world.block(len(plans) // n)]]
+        if self.bucket is None:
+            return self.collate(samples)
+        lengths = {"target_len": self.bucket.fit(max(p["frames"] for p in plans))}
+        if "ref_frames" in plans[0]:
+            lengths["ref_target_len"] = self.bucket.fit(max(p["ref_frames"] for p in plans))
+        return self.collate(samples, **lengths)
 
     def __iter__(self) -> Iterator[dict]:
         q: queue.Queue = queue.Queue(maxsize=self.PREFETCH)

@@ -21,10 +21,22 @@ the reference encoders' LayerNorm biases are nonzero, as in trained weights
 (LN turns each zero frame into its bias, which the k=31 and k=5 convs of the
 last real frames read). So each distinct reference length is one more
 capture of the chunk step.
+
+``shard_streams(devices)`` (the JAX engine's ``shard_streams`` over a mesh)
+serves B concurrent streams data-parallel: the parameters are replicated
+onto each device, and ``infer_once``/``infer_offline`` split the B streams
+(a multiple of the device count) into contiguous blocks, one per device.
+Each block computes its mels (K1) and runs its own chunk loop on its device
+(eager, or its own captured graph under ``use_scan``); every device's work
+is launched before the outputs are copied back, in stream order. The flow
+F0 noise is drawn for the whole batch before the split, so the output is
+the unsharded engine's.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import time
 
@@ -94,6 +106,25 @@ class StreamingVoiceConversion:
         self.vq_state = to_dev(conan_vq_state) if conan_vq_state is not None else None
         self.p_vocoder = fold_weight_norm(to_dev(vocoder_params))
         self._captured: dict = {}
+        self._shards: list | None = None
+
+    def shard_streams(self, devices) -> None:
+        """Serve the streams data-parallel over ``devices`` (a device may
+        repeat): each gets a replica of the parameters, with its own
+        captured graphs. From now on ``infer_once``/``infer_offline`` need B
+        a multiple of ``len(devices)``."""
+        self._shards = [self._replica(resolve_device(d)) for d in devices]
+
+    def _replica(self, device: torch.device) -> "StreamingVoiceConversion":
+        r = copy.copy(self)
+
+        def to_dev(tree):
+            return None if tree is None else tree_map(lambda x: x.to(device), tree)
+
+        r.device, r._captured, r._shards = device, {}, None
+        r.p_emformer, r.p_conan = to_dev(self.p_emformer), to_dev(self.p_conan)
+        r.vq_state, r.p_vocoder = to_dev(self.vq_state), to_dev(self.p_vocoder)
+        return r
 
     # ------------------------------------------------------------------
     def _prepare(self, ref_mel: torch.Tensor) -> dict:
@@ -183,17 +214,18 @@ class StreamingVoiceConversion:
             b *= 2
         return b
 
+    def _padded_len(self, T: int, bucket_lengths: bool) -> int:
+        T_pad = -(-T // self.cfg.seg) * self.cfg.seg
+        return self._p2bucket(T_pad) if bucket_lengths else T_pad
+
     def _source_chunks(self, src_mel: torch.Tensor, bucket_lengths: bool = False):
         """Pad the source mel so its length is a segment multiple (with
         ``bucket_lengths`` the next rung of the power-of-two ladder), plus the
         rc-frame lookahead tail, by repeating the last frame (every source-side
         op is causal, so the first T frames' output does not change)."""
-        seg, rc = self.cfg.seg, self.cfg.rc
         T = src_mel.shape[1]
-        T_pad = -(-T // seg) * seg
-        if bucket_lengths:
-            T_pad = self._p2bucket(T_pad)
-        tail = src_mel[:, -1:].expand(-1, T_pad - T + rc, -1)
+        T_pad = self._padded_len(T, bucket_lengths)
+        tail = src_mel[:, -1:].expand(-1, T_pad - T + self.cfg.rc, -1)
         return torch.cat([src_mel, tail], dim=1), T, T_pad
 
     def _f0_noise(self, batch: int, T_pad: int, generator: torch.Generator | None,
@@ -265,8 +297,12 @@ class StreamingVoiceConversion:
         the power-of-two ladder, never the reference (see the module's
         docstring). Returns the wav [B, T·hop] as
         numpy (and the codes [B, T] with ``collect_codes``)."""
-        wav, codes = self.stream_mels(self.wav_to_mel(src_wav), self.wav_to_mel(ref_wav),
-                                      use_scan, bucket_lengths, generator, f0_noise)
+        if self._shards:
+            wav, codes = self._sharded(src_wav, ref_wav, True, use_scan, bucket_lengths,
+                                       generator, f0_noise)
+        else:
+            wav, codes = self.stream_mels(self.wav_to_mel(src_wav), self.wav_to_mel(ref_wav),
+                                          use_scan, bucket_lengths, generator, f0_noise)
         if collect_codes:
             return wav.cpu().numpy(), codes.cpu().numpy()
         return wav.cpu().numpy()
@@ -279,11 +315,52 @@ class StreamingVoiceConversion:
         check for ``infer_once``, and offline conversion); ``bucket_lengths``
         pads the source to the ladder, never the reference. Returns as
         ``infer_once`` does."""
-        wav, codes = self.offline_mels(self.wav_to_mel(src_wav), self.wav_to_mel(ref_wav),
-                                       bucket_lengths, generator, f0_noise)
+        if self._shards:
+            wav, codes = self._sharded(src_wav, ref_wav, False, False, bucket_lengths,
+                                       generator, f0_noise)
+        else:
+            wav, codes = self.offline_mels(self.wav_to_mel(src_wav), self.wav_to_mel(ref_wav),
+                                           bucket_lengths, generator, f0_noise)
         if collect_codes:
             return wav.cpu().numpy(), codes.cpu().numpy()
         return wav.cpu().numpy()
+
+    def _sharded(self, src_wav, ref_wav, streaming: bool, use_scan: bool,
+                 bucket_lengths: bool, generator, f0_noise):
+        """The batch's streams in contiguous blocks, one per shard: each
+        block's mels and chunk loop (or offline pass) are launched on its
+        device, every device before any output is read; the outputs come
+        back to the host in stream order."""
+        src = torch.as_tensor(src_wav, dtype=torch.float32)
+        ref = torch.as_tensor(ref_wav, dtype=torch.float32)
+        src, ref = (src[None] if src.dim() == 1 else src), (ref[None] if ref.dim() == 1 else ref)
+        B, n = src.shape[0], len(self._shards)
+        if B % n or ref.shape[0] != B:
+            raise ValueError(f"{B} streams (and {ref.shape[0]} references) do not split "
+                             f"evenly over {n} shards: B must be a multiple of the shards")
+        b = B // n
+
+        def on(shard):
+            return (torch.cuda.device(shard.device) if shard.device.type == "cuda"
+                    else contextlib.nullcontext())
+
+        mels = []
+        for i, s in enumerate(self._shards):
+            with on(s):
+                mels.append((s.wav_to_mel(src[i * b:(i + 1) * b]),
+                             s.wav_to_mel(ref[i * b:(i + 1) * b])))
+        T_pad = self._padded_len(mels[0][0].shape[1],
+                                 bucket_lengths and (use_scan or not streaming))
+        noise = self._f0_noise(B, T_pad, generator, f0_noise)     # before the split
+        outs = []
+        for i, (s, (src_mel, ref_mel)) in enumerate(zip(self._shards, mels)):
+            with on(s):
+                block = noise[i * b:(i + 1) * b].to(s.device)
+                outs.append(s.stream_mels(src_mel, ref_mel, use_scan, bucket_lengths,
+                                          f0_noise=block) if streaming
+                            else s.offline_mels(src_mel, ref_mel, bucket_lengths,
+                                                f0_noise=block))
+        return (torch.cat([w.cpu() for w, _ in outs]), torch.cat([c.cpu() for _, c in outs]))
 
 
 def _copy_tree(dst, src) -> None:

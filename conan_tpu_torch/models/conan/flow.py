@@ -34,6 +34,7 @@ from conan_tpu_torch.nn.blocks import init_conv, init_linear, linear, timestep_e
 from conan_tpu_torch.nn.module import Params, Stream
 from conan_tpu_torch.ops.conv import (causal_conv1d, causal_conv1d_state,
                                       causal_conv1d_step, conv1d)
+from conan_tpu_torch.parallel import dist
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -225,8 +226,7 @@ class RectifiedFlow:
         tf = (t.float() / self.cfg.timesteps)[:, None, None]
         xt = tf * x1 + (1.0 - tf) * x0
         if self.cfg.qsample_sigma > 0 and generator is not None:
-            noise = torch.randn(xt.shape, generator=generator,
-                                device=generator.device).to(xt.device)
+            noise = dist.randn(xt.shape, generator, generator.device).to(xt.device)
             xt = xt + self.cfg.qsample_sigma * noise
         return xt
 
@@ -238,9 +238,8 @@ class RectifiedFlow:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         dev = generator.device
-        t = torch.randint(0, self.cfg.timesteps, (x1.shape[0],), generator=generator,
-                          device=dev)
-        x0 = torch.randn(x1.shape, generator=generator, device=dev)
+        t = dist.randint(0, self.cfg.timesteps, (x1.shape[0],), generator, dev)
+        x0 = dist.randn(x1.shape, generator, dev)
         return t.to(x1.device), x0.to(x1.device)
 
     def p_losses(self, params: Params, x1: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
@@ -257,9 +256,9 @@ class RectifiedFlow:
         ut = x1 - x0
         err = torch.abs(ut - v_pred) if self.cfg.loss_type == "l1" else torch.square(ut - v_pred)
         if nonpadding is None:
-            return torch.mean(err)
+            return dist.batch_mean(err)
         m = nonpadding[..., None] if nonpadding.dim() == 2 else nonpadding
-        return torch.sum(err * m) / (torch.sum(m.expand_as(err)) + 1e-8)
+        return torch.sum(err * m) / (dist.global_count(torch.sum(m.expand_as(err))) + 1e-8)
 
     def euler_update(self, k: int, x: torch.Tensor, ut: torch.Tensor) -> torch.Tensor:
         """x after Euler step k from velocity ``ut``; with ``sample_clip`` the

@@ -36,6 +36,7 @@ from conan_tpu_torch.nn.blocks import (ConvBlocks, PitchPredictor, embedding, in
                                        nonpadding_mask, positional_embedding)
 from conan_tpu_torch.nn.module import Params, State, Stream
 from conan_tpu_torch.ops.conv import causal_conv1d_state, conv1d
+from conan_tpu_torch.parallel import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,7 +201,7 @@ class Conan:
         package draws it from its own key; the port does not reproduce that
         stream.) A stream slices it chunk by chunk, so streaming and offline
         integrate from the same x0."""
-        return torch.randn(batch, length, 1, generator=generator).to(device)
+        return dist.randn((batch, length, 1), generator).to(device)
 
     # ----------------------------------------------------------- forward
     def apply(self, params: Params, content: torch.Tensor, *, ref: torch.Tensor,
@@ -292,7 +293,7 @@ class Conan:
                                                  generator=generator, nonpadding=voiced)
         else:
             ret["fdiff"] = (torch.sum(torch.square(ret["uv_pred"][:, :, 1] - f0) * voiced)
-                            / voiced.sum().clamp(min=1.0)) * cfg.lambda_f0
+                            / dist.global_count(voiced.sum()).clamp(min=1.0)) * cfg.lambda_f0
         f0_denorm = denorm_f0(f0, uv)
         ret["f0_denorm_pred"] = f0_denorm
         dec_inp = pitch_inp + embedding(f0_to_coarse(f0_denorm), params["pitch_embed"])

@@ -11,8 +11,12 @@
                      → ConvBlocks → VQ, gated by ``use_vq`` in training
 
 The codebook state is a tree ``{"embedding", "ema_count", "ema_weight",
-"initialized"}`` that the train step carries; one GPU, so no statistics are
-summed across replicas.
+"initialized"}`` that the train step carries. Under data parallelism (a
+world active, ``parallel/dist.py``) the assignment counts, the summed
+features and the frame count are summed across the ranks before the EMA,
+as the JAX package's psum sums them, so every rank applies the same
+codebook update; the commitment and guided-attention losses are masked
+means over the global batch.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from conan_tpu_torch.nn.blocks import (ConvBlocks, MultiheadAttention, WaveNet, 
 from conan_tpu_torch.nn import inits
 from conan_tpu_torch.nn.module import Params
 from conan_tpu_torch.ops.precision import dot_at_rung
+from conan_tpu_torch.parallel import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +95,8 @@ class VQEmbeddingEMA:
         cfg, decay, eps = self.cfg, self.DECAY, self.EPSILON
         q, idx = self.encode(state, x)
         onehot = F.one_hot(idx.reshape(-1), cfg.n_embeddings).to(x.dtype)   # [BT, M]
-        counts = onehot.sum(0)
-        dw = onehot.T @ x.detach().reshape(-1, x.shape[-1])
+        counts = dist.global_count(onehot.sum(0))
+        dw = dist.global_count(onehot.T @ x.detach().reshape(-1, x.shape[-1]))
         ema_count = decay * state["ema_count"] + (1 - decay) * counts
         n = ema_count.sum()
         ema_count = (ema_count + eps) / (n + cfg.n_embeddings * eps) * n
@@ -105,8 +110,10 @@ class VQEmbeddingEMA:
         # the commitment loss over the nonzero (unpadded) frames
         nonpad = (x.abs().sum(-1) > 0).to(x.dtype)
         e_latent = torch.mean(torch.square(x - q.detach()), dim=-1)
-        loss = cfg.commitment_cost * (e_latent * nonpad).sum() / nonpad.sum().clamp(min=1.0)
-        avg_probs = counts / max(idx.numel(), 1)
+        loss = (cfg.commitment_cost * (e_latent * nonpad).sum()
+                / dist.global_count(nonpad.sum()).clamp(min=1.0))
+        n_frames = idx.numel() * dist.size()
+        avg_probs = counts / max(n_frames, 1)
         ppl = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
         return x + (q - x).detach(), loss, idx, ppl, new_state
 
@@ -204,8 +211,8 @@ class ProsodyAligner:
         e_len = torch.sum(1.0 - pros_key_padding_mask.to(src.dtype), -1)
         w = guided_attention_mask(Tq, s_len, Tk, e_len, self.SIGMA)
         nonpad = (~src_key_padding_mask)[:, :, None] & (~pros_key_padding_mask)[:, None, :]
-        guided_loss = sum(torch.sum(attn * w * nonpad) / nonpad.sum().clamp(min=1)
-                          for attn in attn_list)
+        n_valid = dist.global_count(nonpad.sum()).clamp(min=1)
+        guided_loss = sum(torch.sum(attn * w * nonpad) / n_valid for attn in attn_list)
         return out, guided_loss, attn_list
 
 

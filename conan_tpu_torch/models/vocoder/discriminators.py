@@ -43,6 +43,7 @@ from conan_tpu_torch.nn.blocks import init_linear, linear
 from conan_tpu_torch.nn.module import Params
 from conan_tpu_torch.ops.conv import conv1d, conv2d, spectral_norm_weight, weight_norm_weight
 from conan_tpu_torch.ops.precision import dot_at_rung
+from conan_tpu_torch.parallel import dist
 
 LRELU = 0.1
 
@@ -260,8 +261,11 @@ class SingleWindowDisc:
                 "out": init_linear(gen, 1, self.h * self.ds[0] * self.ds[1])}
 
     def _bn(self, x: torch.Tensor, p: Params) -> torch.Tensor:
-        mu = x.mean(dim=(0, 2, 3), keepdim=True)
-        var = x.var(dim=(0, 2, 3), correction=0, keepdim=True)
+        """Batch norm in training mode: the statistics of the global batch,
+        summed across the ranks with the gradient under data parallelism."""
+        n = x.numel() // x.shape[1] * dist.size()
+        mu = dist.sum_across(x.sum(dim=(0, 2, 3), keepdim=True)) / n
+        var = dist.sum_across(torch.square(x - mu).sum(dim=(0, 2, 3), keepdim=True)) / n
         return ((x - mu) * torch.rsqrt(var + self.BN_EPS) * p["scale"][:, None, None]
                 + p["bias"][:, None, None])
 
@@ -273,8 +277,7 @@ class SingleWindowDisc:
             x = F.leaky_relu(conv2d(x, params[name]["w"], params[name]["b"], stride=2,
                                     padding=1), 0.2)
             if generator is not None:       # Dropout2d: whole channels
-                keep = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
-                                  device=x.device) < 0.75
+                keep = dist.rand((x.shape[0], x.shape[1], 1, 1), generator, x.device) < 0.75
                 x = torch.where(keep, x / 0.75, 0.0)
             if i < 2:
                 x = self._bn(x, params[f"bn{i}"])
@@ -304,7 +307,7 @@ class MultiWindowDiscriminator:
         [0, max(len) - w] from ``generator`` (0 with no generator), clamped
         to [0, T - w] as a dynamic slice is."""
         B, T, _M = mel.shape
-        max_len = (mel.abs().sum(-1) > 0).sum(-1).max()
+        max_len = dist.global_max((mel.abs().sum(-1) > 0).sum(-1).max())
         validity = torch.zeros(B, 1, device=mel.device, dtype=mel.dtype)
         hiddens, starts = [], []
         fit = torch.ones((), dtype=torch.bool, device=mel.device)

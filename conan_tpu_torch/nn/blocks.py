@@ -27,6 +27,7 @@ from conan_tpu_torch.nn import inits
 from conan_tpu_torch.nn.module import Params, Stream
 from conan_tpu_torch.ops.conv import causal_conv1d_state, conv1d, weight_norm_weight
 from conan_tpu_torch.ops.precision import bf16_dot, bf16_dots, dot_at_rung
+from conan_tpu_torch.parallel import dist
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +106,7 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
     ``generator`` is None or ``rate`` is 0."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = dist.rand(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

@@ -6,11 +6,19 @@ header ``common.cuh`` they share) are compiled by one ``nvcc`` for
 ``build/conan_tpu_torch/libconan_kernels.so`` under the checkout root, which
 ``ctypes`` loads. The build runs at first use, and again whenever
 a source is newer than the library. Nothing here runs at import.
+
+Every build into ``build/conan_tpu_torch/`` (this library and the record
+reader's, ``data/_native.py``) goes through ``build_locked``: the check and
+the build run under an exclusive ``fcntl`` lock on the target's directory,
+so N ranks or N test workers that start at once build it once and the
+others load what it built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import os
 import shutil
@@ -35,22 +43,45 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+@contextlib.contextmanager
+def _locked(directory: Path):
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / ".build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def build_locked(target: Path, sources, compile_fn, force: bool = False) -> str:
+    """Build ``target`` unless it is newer than every one of ``sources``
+    (or ``force``), holding the directory's build lock from the check to the
+    rename: ``compile_fn(path)`` writes the library to ``path`` in a
+    temporary directory beside the target (raising on failure) and returns
+    the compiler's output, which this returns; "" when up to date."""
+    with _locked(target.parent):
+        if (not force and target.exists()
+                and target.stat().st_mtime >= max(Path(f).stat().st_mtime for f in sources)):
+            return ""
+        with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+            out = compile_fn(Path(tmp) / target.name)
+            os.replace(Path(tmp) / target.name, target)
+        return out
+
+
 def build(force: bool = False) -> str:
     """Compile the library if it is missing or older than a source. Returns
     nvcc's diagnostics (ptxas register and shared-memory report per kernel);
     empty when the library was already up to date."""
-    if (not force and LIB_PATH.exists()
-            and LIB_PATH.stat().st_mtime >= max(f.stat().st_mtime for f in SOURCES + HEADERS)):
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        lib_tmp = Path(tmp) / LIB_PATH.name
+    def compile_fn(lib_tmp: Path) -> str:
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *map(str, SOURCES), "-o", str(lib_tmp)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {[src.name for src in SOURCES]}:\n{proc.stdout}")
-        os.replace(lib_tmp, LIB_PATH)
-    return proc.stdout
+        return proc.stdout
+
+    return build_locked(LIB_PATH, SOURCES + HEADERS, compile_fn, force)
 
 
 @functools.lru_cache(maxsize=1)

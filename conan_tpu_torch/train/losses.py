@@ -12,6 +12,13 @@
   LSGAN and feature matching    hifigan_causal.py:494-531
   distillation CE and accuracy  Emformer.py:15-46, over the codes that are
                                 not -1
+
+Under data parallelism (a world active, ``parallel/dist.py``) each returns
+this rank's share of the global batch's loss: a plain mean is
+``dist.batch_mean``, a masked mean divides by the mask summed over the ranks
+(``dist.global_count``), and spectral convergence, a ratio of two norms over
+the whole batch, sums both squared norms across the ranks with the gradient
+(``dist.sum_across``). Alone, each is the loss of the batch it is given.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 from conan_tpu_torch.audio.mel import MelConfig
 from conan_tpu_torch.ops.logmel import logmel_gan
 from conan_tpu_torch.ops.stft import stft_realimag
+from conan_tpu_torch.parallel import dist
 
 
 def weights_nonzero_speech(target: torch.Tensor) -> torch.Tensor:
@@ -34,12 +42,13 @@ def weights_nonzero_speech(target: torch.Tensor) -> torch.Tensor:
 
 def mel_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     w = weights_nonzero_speech(target)
-    return torch.sum(torch.abs(pred - target) * w) / w.sum().clamp(min=1.0)
+    return torch.sum(torch.abs(pred - target) * w) / dist.global_count(w.sum()).clamp(min=1.0)
 
 
 def mel_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     w = weights_nonzero_speech(target)
-    return torch.sum(torch.square(pred - target) * w) / w.sum().clamp(min=1.0)
+    return (torch.sum(torch.square(pred - target) * w)
+            / dist.global_count(w.sum()).clamp(min=1.0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,7 +80,7 @@ def mel_ssim(pred: torch.Tensor, target: torch.Tensor, bias: float = 6.0) -> tor
     its count of nonzero frames × bins (not a plain mean over the batch)."""
     w = weights_nonzero_speech(target)
     loss = 1.0 - ssim(pred[:, None] + bias, target[:, None] + bias)        # [B]
-    return torch.sum(loss[:, None, None] * w) / w.sum().clamp(min=1.0)
+    return torch.sum(loss[:, None, None] * w) / dist.global_count(w.sum()).clamp(min=1.0)
 
 
 MEL_LOSSES = {"l1": mel_l1, "mse": mel_mse, "l2": mel_mse, "ssim": mel_ssim}
@@ -99,7 +108,7 @@ def masked_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, mask: to
     """Binary cross-entropy with logits, the mean over ``mask``, times ``lam``."""
     per = (torch.clamp(logits, min=0) - logits * targets
            + torch.log1p(torch.exp(-torch.abs(logits))))
-    return torch.sum(per * mask) / mask.sum().clamp(min=1.0) * lam
+    return torch.sum(per * mask) / dist.global_count(mask.sum()).clamp(min=1.0) * lam
 
 
 def _stft_mag_clamped(x: torch.Tensor, n_fft: int, hop: int, win: int) -> torch.Tensor:
@@ -115,8 +124,9 @@ def stft_loss_single(x: torch.Tensor, y: torch.Tensor, n_fft: int, hop: int, win
     target y, both [B, T]."""
     xm = _stft_mag_clamped(x, n_fft, hop, win)
     ym = _stft_mag_clamped(y, n_fft, hop, win)
-    sc = torch.linalg.vector_norm(ym - xm) / torch.linalg.vector_norm(ym)
-    mag = torch.mean(torch.abs(torch.log(ym) - torch.log(xm)))
+    sc = dist.global_share(torch.sqrt(dist.sum_across(torch.sum(torch.square(ym - xm))))
+                           / torch.sqrt(dist.sum_across(torch.sum(torch.square(ym)))))
+    mag = dist.batch_mean(torch.abs(torch.log(ym) - torch.log(xm)))
     return sc, mag
 
 
@@ -147,32 +157,32 @@ def multi_res_gan_mel_loss(y: torch.Tensor, y_hat: torch.Tensor, sample_rate: in
     """320-bin multi-resolution ln-mel L1 between y and y_hat, [B, T] each."""
     loss = 0.0
     for cfg in gan_mel_configs(sample_rate, mel_bins, fft_sizes, hop_sizes, win_lengths):
-        loss = loss + torch.mean(torch.abs(logmel_gan(y_hat, cfg) - logmel_gan(y, cfg))) \
+        loss = loss + dist.batch_mean(torch.abs(logmel_gan(y_hat, cfg) - logmel_gan(y, cfg))) \
             * lambda_mel
     return loss
 
 
 def discriminator_loss(real_outs: list, fake_outs: list):
-    r = sum(torch.mean(torch.square(1.0 - d)) for d in real_outs) / len(real_outs)
-    f = sum(torch.mean(torch.square(d)) for d in fake_outs) / len(fake_outs)
+    r = sum(dist.batch_mean(torch.square(1.0 - d)) for d in real_outs) / len(real_outs)
+    f = sum(dist.batch_mean(torch.square(d)) for d in fake_outs) / len(fake_outs)
     return r, f
 
 
 def generator_loss(fake_outs: list) -> torch.Tensor:
-    return sum(torch.mean(torch.square(1.0 - d)) for d in fake_outs) / len(fake_outs)
+    return sum(dist.batch_mean(torch.square(1.0 - d)) for d in fake_outs) / len(fake_outs)
 
 
 def cond_discriminator_loss(outs: list) -> torch.Tensor:
     """Mismatched-conditioning negatives: every output is "fake"
     (hifigan_causal.py:510-516)."""
-    return sum(torch.mean(torch.square(d)) for d in outs) / len(outs)
+    return sum(dist.batch_mean(torch.square(d)) for d in outs) / len(outs)
 
 
 def feature_loss(fmap_r: list, fmap_g: list) -> torch.Tensor:
     loss = 0.0
     for dr, dg in zip(fmap_r, fmap_g):
         for rl, gl in zip(dr, dg):
-            loss = loss + torch.mean(torch.abs(rl - gl))
+            loss = loss + dist.batch_mean(torch.abs(rl - gl))
     return loss * 2.0
 
 
@@ -184,7 +194,7 @@ def distillation_loss(logits: torch.Tensor, codes: torch.Tensor, mask: torch.Ten
     logp = torch.log_softmax(logits / temperature, dim=-1)
     nll = -torch.gather(logp, -1, torch.clamp(codes, min=0)[..., None])[..., 0]
     m = mask.to(logits.dtype)
-    return torch.sum(nll * m) / m.sum().clamp(min=1.0)
+    return torch.sum(nll * m) / dist.global_count(m.sum()).clamp(min=1.0)
 
 
 def distillation_accuracy(logits: torch.Tensor, codes: torch.Tensor,
@@ -192,4 +202,4 @@ def distillation_accuracy(logits: torch.Tensor, codes: torch.Tensor,
     """The share of argmax(logits) == code over ``mask``, in fp32."""
     m = mask.to(torch.float32)
     hit = (torch.argmax(logits, dim=-1) == codes).to(torch.float32)
-    return torch.sum(hit * m) / m.sum().clamp(min=1.0)
+    return torch.sum(hit * m) / dist.global_count(m.sum()).clamp(min=1.0)

@@ -29,6 +29,7 @@ import argparse
 import json
 import logging
 import os
+import socket
 import sys
 import time
 
@@ -48,6 +49,7 @@ from conan_tpu_torch.infer.run_vc import save_wav
 from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig
 from conan_tpu_torch.ops.conv import fold_weight_norm
 from conan_tpu_torch.ops.precision import precision_scope
+from conan_tpu_torch.parallel import dist
 from conan_tpu_torch.train.tasks import ConanTask, EmformerTask, PostnetTask, VocoderTask
 from conan_tpu_torch.train.trainer import Trainer
 
@@ -64,19 +66,22 @@ TASKS = {"conan": ConanTask, "emformer": EmformerTask, "vocoder": VocoderTask,
          "postnet": PostnetTask}
 
 
-def build_task(hp, device: str | torch.device | None = None):
-    """(task, kind) for ``hp["task_cls"]``, on ``device`` (None: the card)."""
+def build_task(hp, device: str | torch.device | None = None,
+               world: dist.World | None = None):
+    """(task, kind) for ``hp["task_cls"]``, on ``device`` (None: the
+    world's, else the card), data-parallel over ``world``."""
     kind = TASK_ALIASES.get(hp.get("task_cls", "conan"))
     if kind is None:
         raise ValueError(f"unknown task_cls: {hp.get('task_cls')}")
     if kind != "postnet":
-        return TASKS[kind](hp, device=device), kind
+        return TASKS[kind](hp, device=device, world=world), kind
     pre = load_ckpt_state(hp["fs2_ckpt_dir"])
     if hp.get("spec_min") is None:
         stats = np.load(f"{hp['binary_data_dir']}/spec_stats.npz")
         hp = dict(hp, spec_min=[float(x) for x in stats["spec_min"]],
                   spec_max=[float(x) for x in stats["spec_max"]])
-    return PostnetTask(hp, pre["params_g"], pre.get("vq_state"), device=device), kind
+    return PostnetTask(hp, pre["params_g"], pre.get("vq_state"), device=device,
+                       world=world), kind
 
 
 def use_random_ref_after(hp, kind: str) -> int | None:
@@ -90,32 +95,34 @@ def _seg_rc(hp) -> dict:
     return {"seg": hp["chunk_size"] // 20, "rc": hp["right_context"]}
 
 
-def build_train_iter(hp, kind: str):
+def build_train_iter(hp, kind: str, world: dist.World | None = None):
     """An endless iterator of training batches from the train split under
     ``hp["binary_data_dir"]``. Conan and Emformer batches are padded to the
     bucket ladder's rung (64 up to ``max_frames``), Conan's reference mels to
     their own, Emformer's mels to whole segments plus the lookahead; the
-    postnet reads Conan's batches."""
+    postnet reads Conan's batches. With a ``world``, this rank's rows of
+    each global batch (``data/loader.py``)."""
     data_dir = hp["binary_data_dir"]
     if kind == "vocoder":
         ds = VocoderDataset(data_dir, "train", hp)
         return iter(BatchIterator(ds, ds.collate, max_tokens=None,
-                                  max_sentences=hp.get("max_sentences", 16)))
+                                  max_sentences=hp.get("max_sentences", 16), world=world))
     ladder = BucketLadder(min_len=64, max_len=hp.get("max_frames", 3000))
     if kind == "emformer":
         ds = EmformerDataset(data_dir, "train", hp)
 
-        def collate(samples, target_len=None):
+        def collate(samples, target_len=None, ref_target_len=None):
             return ds.collate(samples, target_len, **_seg_rc(hp))
     else:
         ds = ConanDataset(data_dir, "train", hp)
 
-        def collate(samples, target_len=None):
-            ref_max = max(s["ref_mel"].shape[0] for s in samples)
-            return ds.collate(samples, target_len, ladder.fit(ref_max))
+        def collate(samples, target_len=None, ref_target_len=None):
+            if ref_target_len is None:
+                ref_target_len = ladder.fit(max(s["ref_mel"].shape[0] for s in samples))
+            return ds.collate(samples, target_len, ref_target_len)
 
     return iter(BatchIterator(ds, collate, max_tokens=hp.get("max_tokens"),
-                              max_sentences=hp.get("max_sentences"), bucket=ladder))
+                              max_sentences=hp.get("max_sentences"), bucket=ladder, world=world))
 
 
 def _p2floor(n: int) -> int:
@@ -360,27 +367,86 @@ def run_test_vocoder(hp, device: str | torch.device | None = None) -> None:
                  checked, len(reader))
 
 
-def main(argv=None):
+def _train(argv: list, device, world: dist.World | None):
+    """The CLI's work on one rank: rank 0 reads (and on a first run writes)
+    the work dir's config, then the other ranks read it; ``--infer`` and
+    ``--validate`` run on rank 0 alone."""
+    main_rank = world is None or world.rank == 0
+    hp = set_hparams(argv=argv) if main_rank else None
+    dist.barrier(world)
+    if hp is None:
+        hp = set_hparams(argv=argv, save=False)
+    if hp.get("infer") or hp.get("validate"):
+        out = None
+        if main_rank:
+            if not hp.get("infer"):
+                run_validate(hp, device)
+            elif TASK_ALIASES.get(hp.get("task_cls", "conan")) == "vocoder":
+                run_test_vocoder(hp, device)
+            else:
+                out = run_test(hp, device)
+        dist.barrier(world)
+        return out
+    task, kind = build_task(hp, device=device, world=world)
+    log.info("starting %s training in %s on %s (train_precision %s, rank %d of %d)", kind,
+             hp["work_dir"], task.device, hp.get("train_precision", "highest"),
+             0 if world is None else world.rank, 1 if world is None else world.size)
+    Trainer(task, hp, hp["work_dir"], use_random_ref_after=use_random_ref_after(hp, kind)
+            ).fit(build_train_iter(hp, kind, world),
+                  build_valid_fn(hp, task, kind) if main_rank else None)
+
+
+def _logging() -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+
+
+def _spawned_rank(rank: int, argv: list, world_size: int, port: int) -> None:
+    """One rank of the per-card spawn: card ``rank``, NCCL over
+    ``tcp://localhost:<port>``."""
+    _logging()
+    world = dist.init_distributed(f"cuda:{rank}", init_method=f"tcp://localhost:{port}",
+                                  rank=rank, world_size=world_size)
+    try:
+        _train(argv, world.device, world)
+    finally:
+        dist.shutdown(world)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def main(argv=None):
+    """Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) this process is
+    one rank: it joins the group (NCCL on ``cuda:LOCAL_RANK``, gloo with
+    ``--device cpu``). Without it, training with no ``--device`` and more
+    than one card visible starts one rank per card (the JAX trainer's mesh
+    of every device, the original's per-GPU spawn); a rank that fails fails
+    the run. Otherwise one process on one device, with no group."""
+    _logging()
     argv = list(argv if argv is not None else sys.argv[1:])
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
-    device = ap.parse_known_args(argv)[0].device
-    hp = set_hparams(argv=argv)
-    if hp.get("infer"):
-        if TASK_ALIASES.get(hp.get("task_cls", "conan")) == "vocoder":
-            return run_test_vocoder(hp, device)
-        return run_test(hp, device)
-    if hp.get("validate"):
-        run_validate(hp, device)
+    ap.add_argument("--infer", action="store_true")
+    ap.add_argument("--validate", action="store_true")
+    known = ap.parse_known_args(argv)[0]
+    device = known.device
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        world = dist.init_distributed(device)
+        try:
+            return _train(argv, world.device, world)
+        finally:
+            dist.shutdown(world)
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if device is None and n_cards > 1 and not (known.infer or known.validate):
+        torch.multiprocessing.spawn(_spawned_rank, args=(argv, n_cards, _free_port()),
+                                    nprocs=n_cards, join=True)
         return
-    task, kind = build_task(hp, device=device)
-    log.info("starting %s training in %s on %s (train_precision %s)", kind, hp["work_dir"],
-             task.device, hp.get("train_precision", "highest"))
-    Trainer(task, hp, hp["work_dir"], use_random_ref_after=use_random_ref_after(hp, kind)
-            ).fit(build_train_iter(hp, kind), build_valid_fn(hp, task, kind))
+    return _train(argv, device, None)
 
 
 if __name__ == "__main__":

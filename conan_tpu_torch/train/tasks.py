@@ -63,6 +63,31 @@ and noise from the generator.
 EmformerTask: the offline Emformer and its code head against the teacher's
 codes, the masked CE and accuracy. Its mels too come from the binarizer
 (K1); the step draws nothing at random.
+
+Data parallelism: every task takes a ``world`` (``parallel/dist.py``; None:
+alone). Each rank's ``train_step`` gets its block of the padded global
+batch, and the step on N ranks is the step on that whole batch:
+  - the step runs with the world active, so every loss is this rank's share
+    of the global batch's loss (masked means divided by counts summed over
+    the ranks; spectral convergence and the discriminators' batch norm summed
+    across the ranks with the gradient), the VQ sums its statistics across
+    the ranks and the mel discriminator's longest utterance is the global
+    batch's;
+  - the gradients are summed across the ranks (one buffer per optimizer)
+    before the NaN guard, the clip norm and ``Accumulate``, so every
+    decision is global and the same on every rank; the step sorts the
+    state's keys first (JAX's leaf order), so every rank flattens the same
+    leaf order whatever order its tree was built in;
+  - every per-row random draw (dropout, Dropout2d, the flow's step and noise)
+    is made at the global batch's shape from the generator, which every rank
+    seeds alike, and the rank keeps its rows; a scalar draw (a crop start) is
+    one draw, the same on every rank;
+  - the conditional discriminators' rolled mels roll over the global batch;
+  - the metrics are the global batch's, summed from the ranks' shares in one
+    all-reduce, the same on every rank.
+ConanTask's k-means hook gathers the prosody rows of every rank in rank
+order (the global batch's order), runs k-means on rank 0 and broadcasts the
+codebook; its retry decision reads the gathered rows, so it is global.
 """
 
 from __future__ import annotations
@@ -84,6 +109,7 @@ from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerat
 from conan_tpu_torch.models.vocoder.hifigan_noncausal import NonCausalHifiGanGenerator
 from conan_tpu_torch.ops.logmel import logmel_gan
 from conan_tpu_torch.ops.precision import TRAINING_RUNGS, training_scope
+from conan_tpu_torch.parallel import dist
 from conan_tpu_torch.train import losses as L
 from conan_tpu_torch.train.optim import (AdamW, accumulating, build_schedule,
                                          emformer_distill_schedule, step_lr_schedule)
@@ -101,7 +127,10 @@ def training_rung(hp) -> str:
 
 def _gated_update(ok: torch.Tensor, params, updates, opt_new: dict, opt_old: dict):
     """NaN guard (reference trainer.py:356-363): unless ``ok``, keep both the
-    parameters and the optimizer state as they were. Decided on the device."""
+    parameters and the optimizer state as they were. Decided on the device.
+    The new and old states are paired leaf by leaf in sorted key order (an
+    optimizer builds its new state in its own key order)."""
+    updates, opt_new, opt_old = (dist.sorted_keys(t) for t in (updates, opt_new, opt_old))
     new_params = tree_unflatten(params, [torch.where(ok, p + u, p) for p, u in
                                          zip(tree_leaves(params), tree_leaves(updates))])
     new_opt = tree_unflatten(opt_old, [torch.where(ok, n, o) for n, o in
@@ -117,11 +146,19 @@ def _with_grad(tree):
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
-def _grads(loss: torch.Tensor, params) -> list:
+def _grads(loss: torch.Tensor, params, world: dist.World | None = None) -> list:
     """d loss / d each leaf of ``params``; zeros for a leaf the loss does not
-    reach (a discriminator window too long for the batch), as JAX gives."""
-    return list(torch.autograd.grad(loss, tree_leaves(params), allow_unused=True,
-                                    materialize_grads=True))
+    reach (a discriminator window too long for the batch), as JAX gives.
+    Summed across the ranks of ``world``."""
+    return dist.all_reduce_grads(torch.autograd.grad(loss, tree_leaves(params),
+                                                     allow_unused=True,
+                                                     materialize_grads=True), world)
+
+
+def _device(device, world: dist.World | None) -> torch.device:
+    """The task's device: ``device`` where given, else the world's, else
+    the card."""
+    return resolve_device(world.device if device is None and world is not None else device)
 
 
 class VocoderTask:
@@ -131,9 +168,11 @@ class VocoderTask:
     multi-resolution mel loss, the multi-resolution STFT loss and, with
     ``use_fm_loss``, feature matching."""
 
-    def __init__(self, hp, device: str | torch.device | None = None):
+    def __init__(self, hp, device: str | torch.device | None = None,
+                 world: dist.World | None = None):
         self.hp = hp
-        self.device = resolve_device(device)
+        self.world = world
+        self.device = _device(device, world)
         self.precision = training_rung(hp)
         cfg = HifiGanConfig.from_hparams(hp)
         gen_type = hp.get("generator_type", "causal")
@@ -208,7 +247,7 @@ class VocoderTask:
             # adversarial mel term (hifigan.py:152-158), skipped unless every
             # window fits
             v, _, _, fit = self.specd.apply(pd["specd"], self._spec_mel(y_), generator)
-            out["a_mel"] = torch.where(fit, torch.mean(torch.square(v - 1.0)), 0.0) \
+            out["a_mel"] = torch.where(fit, dist.batch_mean(torch.square(v - 1.0)), 0.0) \
                 * hp.get("lambda_mel_adv", 1.0)
         if hp.get("use_ms_stft", False):
             sp = hp["stft_loss_param"]
@@ -231,12 +270,12 @@ class VocoderTask:
             vr, _, _, fit_r = self.specd.apply(pd["specd"], self._spec_mel(y), generator)
             vf, _, _, fit_f = self.specd.apply(pd["specd"], self._spec_mel(y_), generator)
             fit = fit_r & fit_f
-            out["r_mel"] = torch.where(fit, torch.mean(torch.square(vr - 1.0)), 0.0)
-            out["f_mel"] = torch.where(fit, torch.mean(torch.square(vf)), 0.0)
+            out["r_mel"] = torch.where(fit, dist.batch_mean(torch.square(vr - 1.0)), 0.0)
+            out["f_mel"] = torch.where(fit, dist.batch_mean(torch.square(vf)), 0.0)
         if self.use_cond_disc:
             # rolled-mel negatives: the real and the generated wav under
             # another item's mel are both "fake" (hifigan.py:187-196)
-            mel_shift = torch.roll(mel, -1, dims=0)
+            mel_shift = dist.roll_rows(mel, -1)
             yp1, yp2, _, _ = self.mpd.apply(pd["mpd"], y[..., None], y_[..., None], mel_shift)
             out["f_p_cd1"] = L.cond_discriminator_loss(yp1)
             out["f_p_cd2"] = L.cond_discriminator_loss(yp2)
@@ -252,13 +291,15 @@ class VocoderTask:
         Only the spectrogram discriminator draws at random (its crops and
         Dropout2d, from ``generator``; with none, no dropout and crops at
         frame 0)."""
-        with training_scope(self.precision, self.device):
+        state = dist.sorted_keys(state)
+        with training_scope(self.precision, self.device), dist.scope(self.world):
             mel = torch.as_tensor(batch["mels"]).to(self.device)
             y = torch.as_tensor(batch["wavs"]).to(self.device)
             # ---- generator
             pg = _with_grad(state["params_g"])
             gtot, gl, y_ = self._gen_losses(pg, state["params_d"], mel, y, generator)
-            grads_g = torch.autograd.grad(gtot, tree_leaves(pg))
+            grads_g = dist.all_reduce_grads(torch.autograd.grad(gtot, tree_leaves(pg)),
+                                            self.world)
             ok_g = _all_finite(grads_g)
             upd_g, opt_g_new = self.opt_g.update(tree_unflatten(pg, grads_g), state["opt_g"])
             params_g, opt_g = _gated_update(ok_g, state["params_g"], upd_g, opt_g_new,
@@ -266,13 +307,13 @@ class VocoderTask:
             # ---- discriminator, on the detached y_
             pd = _with_grad(state["params_d"])
             dtot, dl = self._disc_losses(pd, y, y_.detach(), mel, generator)
-            grads_d = _grads(dtot, pd)
+            grads_d = _grads(dtot, pd, self.world)
             ok_d = _all_finite(grads_d)
             upd_d, opt_d_new = self.opt_d.update(tree_unflatten(pd, grads_d), state["opt_d"])
             params_d, opt_d = _gated_update(ok_d, state["params_d"], upd_d, opt_d_new,
                                             state["opt_d"])
-        metrics = {k: v.detach() for k, v in {**gl, **dl, "total_g": gtot,
-                                               "total_d": dtot}.items()}
+        metrics = dist.reduce_metrics({k: v.detach() for k, v in {
+            **gl, **dl, "total_g": gtot, "total_d": dtot}.items()}, self.world)
         metrics["skipped"] = 1.0 - ok_g.float()
         return {"params_g": params_g, "params_d": params_d, "opt_g": opt_g, "opt_d": opt_d,
                 "step": state["step"] + 1}, metrics
@@ -288,9 +329,11 @@ class ConanTask:
     device; ``random_speaker_steps`` also sets, on the host, when the trainer
     flips ``use_random_ref`` (the reference changes length)."""
 
-    def __init__(self, hp, device: str | torch.device | None = None):
+    def __init__(self, hp, device: str | torch.device | None = None,
+                 world: dist.World | None = None):
         self.hp = hp
-        self.device = resolve_device(device)
+        self.world = world
+        self.device = _device(device, world)
         self.precision = training_rung(hp)
         self.cfg = ConanConfig.from_hparams(hp)
         self.model = Conan(self.cfg)
@@ -351,7 +394,7 @@ class ConanTask:
         # every window fits (the reference's validity=None skip)
         disc_on = step >= hp.get("disc_start_steps", 40000)
         v, _, _, fit = self.mel_disc.apply(pd, out["mel_out"], generator)
-        adv = torch.mean(torch.square(v - 1.0)) * hp.get("lambda_mel_adv", 0.05)
+        adv = dist.batch_mean(torch.square(v - 1.0)) * hp.get("lambda_mel_adv", 0.05)
         losses["a"] = torch.where(disc_on & fit, adv, 0.0)
         metrics = dict(losses)
         metrics["ppl"] = out["ppl"] if self.cfg.style else torch.zeros((), device=self.device)
@@ -361,7 +404,8 @@ class ConanTask:
         # fresh crops for the real and the generated mels alike
         v_r, _, _, fit_r = self.mel_disc.apply(pd, mel_g, generator)
         v_f, _, _, fit_f = self.mel_disc.apply(pd, mel_p, generator)
-        out = {"r": torch.mean(torch.square(v_r - 1.0)), "f": torch.mean(torch.square(v_f))}
+        out = {"r": dist.batch_mean(torch.square(v_r - 1.0)),
+               "f": dist.batch_mean(torch.square(v_f))}
         return out["r"] + out["f"], out, fit_r & fit_f
 
     def _batch(self, batch: dict, use_random_ref: bool) -> dict:
@@ -381,20 +425,26 @@ class ConanTask:
         come back to the host for scipy's k-means. A batch with fewer rows
         than codewords defers to the next batch. Reads back only the
         ``initialized`` flag and the feature matrix. Returns ``(new state or
-        None, done)``."""
+        None, done)``. Under a world every rank's features are gathered in
+        rank order, so every rank sees the global batch's rows and decides
+        alike; rank 0 runs the k-means and broadcasts the codebook."""
         if not self.cfg.style or state.get("vq_state") is None:
             return None, True
         if float(state["vq_state"]["initialized"]) != 0.0:
             return None, True          # bootstrapped already
         with torch.no_grad(), training_scope(self.precision, self.device):
             ref = torch.as_tensor(batch["mels"]).to(self.device)
-            feats = self.model.prosody.pre_vq(state["params_g"]["prosody"], ref)
+            feats = dist.all_gather_rows(
+                self.model.prosody.pre_vq(state["params_g"]["prosody"], ref), self.world)
         flat = feats.reshape(-1, feats.shape[-1]).cpu().numpy()
         flat = flat[np.abs(flat).sum(-1) > 0]
         if len(flat) < self.cfg.n_vq:
             return None, False
         new_state = dict(state)
-        new_state["vq_state"] = self.model.prosody.vq.kmeans_init_host(state["vq_state"], flat)
+        vq = state["vq_state"]
+        if self.world is None or self.world.rank == 0:
+            vq = self.model.prosody.vq.kmeans_init_host(vq, flat)
+        new_state["vq_state"] = dist.broadcast_state(vq, self.world)
         return new_state, True
 
     def train_step(self, state: dict, batch: dict, generator: torch.Generator | None = None,
@@ -403,14 +453,15 @@ class ConanTask:
         and ref_mels [B, Tr, 80] once ``use_random_ref`` (tensors or numpy).
         Returns the new state and the metrics, 0-dim tensors on the device."""
         hp = self.hp
-        with training_scope(self.precision, self.device):
+        state = dist.sorted_keys(state)
+        with training_scope(self.precision, self.device), dist.scope(self.world):
             b = self._batch(batch, use_random_ref)
             step = state["step"]
             # ---- generator
             pg = _with_grad(state["params_g"])
             gtot, gl, out = self._gen_losses(pg, state["params_d"], state["vq_state"], b, step,
                                              generator, use_random_ref)
-            grads_g = _grads(gtot, pg)
+            grads_g = _grads(gtot, pg, self.world)
             ok_g = _all_finite(grads_g)
             upd_g, opt_g_new = self.opt_g.update(tree_unflatten(pg, grads_g), state["opt_g"],
                                                  state["params_g"])
@@ -424,16 +475,17 @@ class ConanTask:
             pd = _with_grad(state["params_d"])
             dtot, dl, d_fit = self._disc_losses(pd, b["mels"], out["mel_out"].detach(),
                                                 generator)
-            grads_d = _grads(dtot, pd)
+            grads_d = _grads(dtot, pd, self.world)
             d_gate = disc_on & d_fit
             ok_d = _all_finite(grads_d) & d_gate
             upd_d, opt_d_new = self.opt_d.update(tree_unflatten(pd, grads_d), state["opt_d"],
                                                  state["params_d"])
             params_d, opt_d = _gated_update(ok_d, state["params_d"], upd_d, opt_d_new,
                                             state["opt_d"])
-        metrics = {k: v.detach() for k, v in gl.items()}
-        metrics.update({f"d_{k}": torch.where(d_gate, v, 0.0).detach() for k, v in dl.items()})
-        metrics["total_g"] = gtot.detach()
+        shares = {k: v.detach() for k, v in gl.items() if k != "ppl"}
+        shares.update({f"d_{k}": torch.where(d_gate, v, 0.0).detach() for k, v in dl.items()})
+        shares["total_g"] = gtot.detach()
+        metrics = {**dist.reduce_metrics(shares, self.world), "ppl": gl["ppl"].detach()}
         metrics["skipped"] = 1.0 - ok_g.float()
         return {"params_g": params_g, "params_d": params_d, "vq_state": vq_state,
                 "opt_g": opt_g, "opt_d": opt_d, "step": step + 1}, metrics
@@ -447,9 +499,10 @@ class PostnetTask:
     ``params_g`` and ``vq_state``, numpy trees as a checkpoint holds them."""
 
     def __init__(self, hp, pretrain_params, pretrain_vq_state,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, world: dist.World | None = None):
         self.hp = hp
-        self.device = resolve_device(device)
+        self.world = world
+        self.device = _device(device, world)
         self.precision = training_rung(hp)
         self.conan = Conan(ConanConfig.from_hparams(hp))
         self.frozen = {"conan": params_from_jax(pretrain_params, self.device),
@@ -487,20 +540,24 @@ class PostnetTask:
                    ) -> tuple[dict, dict]:
         """batch: content [B, T] (-1 pads), mels [B, T, 80], ref_mels
         [B, Tr, 80], f0 and uv [B, T] (tensors or numpy). Returns the new
-        state and the metrics, 0-dim tensors on the device."""
-        with training_scope(self.precision, self.device):
+        state and the metrics, 0-dim tensors on the device. The frozen
+        model's tree passes through as given."""
+        frozen = state["frozen"]
+        state = dist.sorted_keys(state)
+        with training_scope(self.precision, self.device), dist.scope(self.world):
             b = {k: torch.as_tensor(batch[k]).to(self.device)
                  for k in ("content", "mels", "ref_mels", "f0", "uv")}
             p = _with_grad(state["params"])
             loss = self._loss(p, state["frozen"], b, generator)
-            grads = _grads(loss, p)
+            grads = _grads(loss, p, self.world)
             ok = _all_finite(grads)
             upd, opt_new = self.opt.update(tree_unflatten(p, grads), state["opt"],
                                            state["params"])
             params, opt = _gated_update(ok, state["params"], upd, opt_new, state["opt"])
         return ({"params": params, "opt": opt, "step": state["step"] + 1,
-                 "frozen": state["frozen"]},
-                {"flow": loss.detach(), "skipped": 1.0 - ok.float()})
+                 "frozen": frozen},
+                {**dist.reduce_metrics({"flow": loss.detach()}, self.world),
+                 "skipped": 1.0 - ok.float()})
 
 
 class EmformerTask:
@@ -508,9 +565,11 @@ class EmformerTask:
     ``lambda_distillation`` over the codes that are not -1, AdamW with global
     norm clipping and ``emformer_distill_schedule``."""
 
-    def __init__(self, hp, device: str | torch.device | None = None):
+    def __init__(self, hp, device: str | torch.device | None = None,
+                 world: dist.World | None = None):
         self.hp = hp
-        self.device = resolve_device(device)
+        self.world = world
+        self.device = _device(device, world)
         self.precision = training_rung(hp)
         self.cfg = EmformerConfig.from_hparams(hp)
         self.model = EmformerDistillModel(self.cfg)
@@ -553,13 +612,15 @@ class EmformerTask:
         ``skipped``, 0-dim tensors on the device. The step draws nothing at
         random; ``generator`` is taken so that the trainer calls every task
         alike."""
-        with training_scope(self.precision, self.device):
+        state = dist.sorted_keys(state)
+        with training_scope(self.precision, self.device), dist.scope(self.world):
             p = _with_grad(state["params"])
             loss, acc = self._loss(p, batch)
-            grads = _grads(loss, p)
+            grads = _grads(loss, p, self.world)
             ok = _all_finite(grads)
             upd, opt_new = self.opt.update(tree_unflatten(p, grads), state["opt"],
                                            state["params"])
             params, opt = _gated_update(ok, state["params"], upd, opt_new, state["opt"])
         return ({"params": params, "opt": opt, "step": state["step"] + 1},
-                {"ce": loss.detach(), "acc": acc.detach(), "skipped": 1.0 - ok.float()})
+                {**dist.reduce_metrics({"ce": loss.detach(), "acc": acc.detach()}, self.world),
+                 "skipped": 1.0 - ok.float()})

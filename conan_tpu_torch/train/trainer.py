@@ -20,12 +20,23 @@ from ``vq_start + 1`` on until it reports done. With
 ``use_random_ref_after`` n, the step gets ``use_random_ref=step >= n``.
 Gradient accumulation lives in the tasks' optimizers (``optim.Accumulate``):
 each batch here is one mini-step, and its accumulator rides in the state and
-the checkpoint. TensorBoard (the JAX trainer's writer is optional) and the
-mesh are not ported (ROADMAP.md, modules still to port).
+the checkpoint. TensorBoard (the JAX trainer's writer is optional) is not
+ported (ROADMAP.md, modules still to port).
+
+Data parallelism (the JAX trainer's mesh, ``trainer.py:45-51, 106, 137``):
+with the task's ``world`` (``parallel/dist.py``) each rank
+runs this loop on its own rows of every global batch, through the task's
+step, which sums the gradients across the ranks. Every rank starts from
+rank 0's state (its init or the newest checkpoint, which every rank reads,
+broadcast), seeds its generator alike and runs the hook alike. The step's
+metrics are already the global batch's and the same on every rank. Rank 0
+alone writes ``metrics.jsonl``, the checkpoints, the best checkpoint and
+``codes.zip`` and runs the validation; the other ranks wait at a barrier.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -37,6 +48,7 @@ from collections.abc import Mapping
 import torch
 
 from conan_tpu_torch.checkpoint import get_last_checkpoint, params_from_jax, save_checkpoint
+from conan_tpu_torch.parallel import dist
 
 log = logging.getLogger(__name__)
 
@@ -48,10 +60,11 @@ def _plain(hp):
 class Trainer:
     def __init__(self, task, hp, work_dir: str, *, use_random_ref_after: int | None = None):
         self.task = task
+        self.world = getattr(task, "world", None)
+        self.is_main = self.world is None or self.world.rank == 0
         self.use_random_ref_after = use_random_ref_after
         self.hp = _plain(hp)
         self.work_dir = work_dir
-        os.makedirs(work_dir, exist_ok=True)
         self.max_updates = self.hp.get("max_updates", 1000000)
         self.tb_log_interval = self.hp.get("tb_log_interval", 100)
         self.val_check_interval = self.hp.get("val_check_interval", 2000)
@@ -60,7 +73,10 @@ class Trainer:
         self.valid_monitor_key = self.hp.get("valid_monitor_key", "val_loss")
         self.save_best = self.hp.get("save_best", False)
         self._best = float("inf")
-        self._snapshot_code()
+        if self.is_main:
+            os.makedirs(work_dir, exist_ok=True)
+            self._snapshot_code()
+        dist.barrier(self.world)
 
     def _snapshot_code(self) -> None:
         """``codes.zip`` of the port and the configs, once per work dir
@@ -112,22 +128,31 @@ class Trainer:
         vq_start = self.hp.get("vq_start")
         return vq_start is not None and step >= max(int(vq_start), 0) + 1
 
+    def _main_only(self, fn) -> None:
+        """``fn()`` on rank 0 while the other ranks wait at a barrier."""
+        if self.is_main:
+            fn()
+        dist.barrier(self.world)
+
     def fit(self, train_iter, valid_fn=None) -> dict:
-        """Train on the batches of ``train_iter``; returns the final state."""
+        """Train on the batches of ``train_iter`` (under a world, this rank's
+        rows of each global batch); returns the final state."""
         ckpt, path = get_last_checkpoint(self.work_dir)
         if ckpt is not None:
             log.info("resuming from %s (step %d)", path, ckpt["global_step"])
             state = params_from_jax(ckpt["state"], self.task.device)
         else:
             state = self.task.init_state(torch.Generator().manual_seed(self.seed))
+        state = dist.broadcast_state(state, self.world)
         step = int(state["step"])
         generator = torch.Generator(device=self.task.device).manual_seed(self.seed + 17)
         hook_done = not hasattr(self.task, "host_hook")
         pending: list = []
         t_last = time.perf_counter()
-        with open(os.path.join(self.work_dir, "metrics.jsonl"), "a") as f:
+        metrics_path = os.path.join(self.work_dir, "metrics.jsonl")
+        with open(metrics_path, "a") if self.is_main else contextlib.nullcontext() as f:
             if valid_fn is not None and self.hp.get("num_sanity_val_steps", 0) != 0:
-                self._write(f, step, "sanity", valid_fn(state, step))
+                self._main_only(lambda: self._write(f, step, "sanity", valid_fn(state, step)))
             for batch in train_iter:
                 if step >= self.max_updates:
                     break
@@ -141,15 +166,19 @@ class Trainer:
                 step += 1
                 pending.append(metrics)
                 if step % self.tb_log_interval == 0:
-                    avg = self._log(f, step, pending, time.perf_counter() - t_last)
-                    log.info("step %d: %s", step, " ".join(f"{k}={v:.4f}"
-                                                           for k, v in avg.items()))
+                    if self.is_main:
+                        avg = self._log(f, step, pending, time.perf_counter() - t_last)
+                        log.info("step %d: %s", step, " ".join(f"{k}={v:.4f}"
+                                                               for k, v in avg.items()))
                     pending.clear()
                     t_last = time.perf_counter()
                 if step % self.val_check_interval == 0:
-                    if valid_fn is not None:
-                        self._validate(f, valid_fn, state, step)
-                    save_checkpoint(self.work_dir, step, state, self.hp,
-                                    num_keep=self.num_ckpt_keep)
-        save_checkpoint(self.work_dir, step, state, self.hp, num_keep=self.num_ckpt_keep)
+                    def validate_and_save(step=step, state=state):
+                        if valid_fn is not None:
+                            self._validate(f, valid_fn, state, step)
+                        save_checkpoint(self.work_dir, step, state, self.hp,
+                                        num_keep=self.num_ckpt_keep)
+                    self._main_only(validate_and_save)
+        self._main_only(lambda: save_checkpoint(self.work_dir, step, state, self.hp,
+                                                num_keep=self.num_ckpt_keep))
         return state

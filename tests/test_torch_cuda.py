@@ -6,6 +6,10 @@ nor conan_tpu, so they also run where only the port is installed:
 Without a card each test skips (decided inside the test).
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -761,3 +765,100 @@ def test_rmvpe_salience_on_card_matches_cpu():
     want = cpu.salience(x)
     assert got.shape == want.shape == (1, 201, 360)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism (conan_tpu_torch/parallel) on the card
+# ---------------------------------------------------------------------------
+TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def _dist_worker():
+    """tests/torch_dist_worker.py (the port only), imported by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_dist_worker", os.path.join(TESTS_DIR, "torch_dist_worker.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_nccl_group_of_one_rank_step_equals_no_group(tmp_path):
+    """A vocoder step through an NCCL group of one rank (the gradient
+    all-reduce, the metrics' reduce) equals the step with no group bit for
+    bit, with cuDNN's deterministic algorithms."""
+    from conan_tpu_torch.checkpoint import tree_leaves
+    from conan_tpu_torch.parallel import dist
+    from conan_tpu_torch.train.tasks import VocoderTask
+
+    dev = _card()
+    W = _dist_worker()
+    batch = W.vocoder_batch(3, W.VOC_PLAIN_FRAMES)
+    world = dist.init_distributed(dev, backend="nccl", init_method=f"file://{tmp_path}/rdv",
+                                  rank=0, world_size=1)
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True):
+            task = VocoderTask(W.VOC_PLAIN, device=dev)
+            state0 = task.init_state(torch.Generator().manual_seed(0))
+            new, m = task.train_step(state0, batch)
+            new_w, m_w = VocoderTask(W.VOC_PLAIN, world=world).train_step(state0, batch)
+    finally:
+        dist.shutdown(world)
+    assert {k: float(v) for k, v in m.items()} == {k: float(v) for k, v in m_w.items()}
+    a, b = tree_leaves(dist.sorted_keys(new)), tree_leaves(dist.sorted_keys(new_w))
+    assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_gloo_two_ranks_on_card_match_one_rank(tmp_path):
+    """Two gloo ranks on cuda:0 (subprocesses of tests/torch_dist_worker.py),
+    each with one row of the small vocoder's batch, held as the card's step
+    is held to the CPU's (test_conan_step_on_card_matches_cpu): losses to the
+    one-rank step on the card, rtol 1e-4; the gradients (the first moments
+    after a first step) per leaf to the CPU's one-rank float64 step within
+    max(1e-3, 4 x the CPU's one-rank fp32 step's worst leaf): at random init
+    some of the generator's leaves have norms near 1e-10, and any fp32 route
+    moves them by a few 1e-3 (3.2e-3 for the CPU's fp32 step, 3.4e-3 for the
+    two ranks on the CPU); the ranks' states bit for bit."""
+    _card()
+    W = _dist_worker()
+    r0, r1 = W.collect(W.start_ranks(str(tmp_path), "card"), timeout=300)
+    want = W.run_case("vocoder_plain", None, random=False, device="cuda:0")
+    with torch.backends.mkldnn.flags(enabled=False):
+        cpu32 = W.run_case("vocoder_plain", None, random=False)
+        cpu64 = W.run_case("vocoder_plain", None, random=False, dtype=torch.float64)
+    got0, got1 = r0["vocoder_plain"], r1["vocoder_plain"]
+    assert got0["metrics"] == got1["metrics"]
+    for k, v in want["metrics"][0].items():
+        assert got0["metrics"][0][k] == pytest.approx(v, rel=1e-4, abs=0), k
+
+    def rel(a, b):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+
+    mu = [p for p in want["state"] if "/mu/" in p]
+    assert mu and sorted(got0["state"]) == sorted(mu)
+    assert got0["hash"] == got1["hash"] and set(got0["hash"]) == set(want["state"])
+    limit = max(1e-3, 4 * max(rel(cpu32["state"][p], cpu64["state"][p]) for p in mu))
+    assert max(rel(got0["state"][p], cpu64["state"][p]) for p in mu) <= limit
+
+
+@pytest.mark.cuda
+def test_concurrent_first_use_builds_produce_one_library():
+    """With the library gone, two processes that load it at once: one runs
+    nvcc under the build lock, the other waits and loads what it built."""
+    from conan_tpu_torch.ops import native
+
+    _card()
+    native.LIB_PATH.unlink(missing_ok=True)
+    script = ("import sys; sys.path.insert(0, %r); from conan_tpu_torch.ops import native; "
+              "out = native.build(); native.load(); print('BUILT' if out else 'UP_TO_DATE')"
+              % os.path.dirname(TESTS_DIR))
+    procs = [subprocess.Popen([sys.executable, "-c", script], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for _ in range(2)]
+    outs = sorted(p.communicate(timeout=600)[0].strip().splitlines()[-1] for p in procs)
+    assert all(p.returncode == 0 for p in procs), outs
+    assert outs == ["BUILT", "UP_TO_DATE"]
+    assert native.LIB_PATH.exists()
