@@ -142,8 +142,19 @@ and the result line:
               r5 geometry through the captured loop: codes equal to the
               unsharded captured run, wav within 1e-4; K1 launched on each
               shard; ms per chunk
-  14. {"kernels": [...]}
-  15. {"ok": true, "device": {...}}
+  14. leftovers  the modules ported last, one line each: the Emformer's
+              two-head mode (mode="both") at the r5 geometry, its step
+              chunk by chunk against its apply (1e-4, codes equal) and
+              against the CPU, ms per step; the flow F0 head's dynamic clip
+              in a captured chunk step against the eager one, the bounds
+              refilled per chunk and binding; the vocoder micro-harness's
+              CLI (bench_vocoder) on the r5 vocoder config as a subprocess:
+              p50, RTF, consistency OK; device_trace around one captured
+              r5 chunk and the frontend: the trace names the chunk's
+              kernels (K1's launches are noted where the profiler records
+              them, not required)
+  15. {"kernels": [...]}
+  16. {"ok": true, "device": {...}}
 
 The weights are random, made from --seed and written as checkpoint dirs
 under build/; the audio is synthesized from the seed. --trained names the
@@ -175,17 +186,21 @@ import torch
 import torch.distributed as tdist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from conan_tpu_torch.audio.mel import MelConfig
-from conan_tpu_torch.checkpoint import tree_leaves, tree_map
+from conan_tpu_torch.checkpoint import (load_ckpt_state, params_from_jax, save_checkpoint,
+                                        tree_leaves, tree_map)
 from conan_tpu_torch.config import load_config, set_hparams
 from conan_tpu_torch.data.binarizer import ConanBinarizer, load_wav
 from conan_tpu_torch.data.record_store import RecordReader
 from conan_tpu_torch.infer import run_vc
 from conan_tpu_torch.infer.build import build_engine, write_random_checkpoints
+from conan_tpu_torch.models.conan.model import Conan, ConanConfig
+from conan_tpu_torch.models.emformer import EmformerConfig, EmformerDistillModel
 from conan_tpu_torch.models.vocoder.discriminators import DiscriminatorS
-from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig
+from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
+from conan_tpu_torch.nn.inits import fan_in_redraw
 from conan_tpu_torch.ops import native
 from conan_tpu_torch.ops.groupconv import (groupconv, grouped_conv1d_bf16_reference,
                                            grouped_conv1d_reference)
@@ -197,6 +212,7 @@ from conan_tpu_torch.train.losses import gan_mel_configs
 from conan_tpu_torch.train.run import build_task, build_train_iter, use_random_ref_after
 from conan_tpu_torch.train.tasks import ConanTask, VocoderTask
 from conan_tpu_torch.train.trainer import Trainer
+from conan_tpu_torch.utils.profiling import device_trace, sync
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SR = 16000
@@ -359,6 +375,17 @@ DIST_CONAN_B, DIST_CONAN_T, DIST_CONAN_STEPS = 4, 1024, 4
 # The shard phase: SHARD_B streams of SHARD_SECONDS (references half as long)
 # over two shards on the card.
 SHARD_B, SHARD_SECONDS = 4, 2.56
+# leftovers: the two-head Emformer over 64 segments (5.12 s of mel frames);
+# the flow's dynamic clip over 8 chunks of the engine's 4 frames; the
+# vocoder micro-harness's default 50 chunks; a captured r5 chunk runs ~790
+# kernels (the scan line), so a trace of one holds more than 500
+LEFTOVER_EMF_SEGS = 64
+LEFTOVER_FLOW_SEG, LEFTOVER_FLOW_CHUNKS = 4, 8
+LEFTOVER_BENCH_CHUNKS, LEFTOVER_BENCH_TIMEOUT_S = 50, 300
+TRACE_MIN_KERNELS = 500
+TRACE_FRONTEND_CALLS = 3
+# kernel_device_ms: profiler windows taken at most to record a kernel's launches
+KERNEL_DEVICE_WINDOWS = 6
 
 
 def fail(msg: str) -> None:
@@ -379,30 +406,67 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, key: str, iters: int = 20) -> float:
+def kernel_device_ms(fn, key: str, iters: int = 20) -> float | None:
     """Device time of one launch of the kernel whose name holds ``key``
-    (``fn`` launches it once), by torch.profiler over ``iters`` calls after a
-    warm one: the mean over the launches the profiler recorded (it may miss
-    one at the window's edge). Beside ``cuda_ms``, which times the whole
-    wrapper call (its other launches and, for a kernel of a few µs, the
-    host), this is the kernel alone. A profiler window that recorded fewer
-    than half the launches (once, one recorded none of a K2 geometry's 20)
-    is taken again, twice at most, with a note; then it fails."""
+    (``fn`` launches it once), by torch.profiler after a warm call: the mean
+    over the launches the profiler recorded. Beside ``cuda_ms``, which times
+    the whole wrapper call (its other launches and, for a kernel of a few
+    µs, the host), this is the kernel alone. Each window is the profiler's
+    warm-up pass over ``iters`` calls, its records dropped, then an active
+    pass over ``iters`` calls. The profiler misses launches now and then
+    (whole runs recorded none, or 8, of K1-GAN's 20 three windows running),
+    so windows are taken, KERNEL_DEVICE_WINDOWS at most, until they have
+    recorded ``iters`` launches between them, each window's count printed
+    when there is more than one. Where they record fewer than ``iters // 2``
+    between them, the kernel's device time is not measured in this run:
+    None, with a note. It fails where a window records more launches than
+    it made (``key`` names another kernel too)."""
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and key in e.key]
-        count = sum(e.count for e in evs)
-        if iters // 2 <= count <= iters:
-            return sum(e.self_device_time_total for e in evs) / 1e3 / count
-        print(f"kernel_device_ms: profiler window {attempt + 1} saw {count} launches of {key} "
-              f"in {iters} calls", flush=True)
-    fail(f"profiler saw {count} launches of {key} in {iters} calls, three windows running")
+    device_us, recorded, counts = 0.0, 0, []
+    for _ in range(KERNEL_DEVICE_WINDOWS):
+        active = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: active.append(
+                         [e for e in p.key_averages()
+                          if e.device_type == DeviceType.CUDA and key in e.key])) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if len(active) != 1:
+            fail(f"kernel_device_ms: the profiler's schedule gave {len(active)} active passes")
+        count = sum(e.count for e in active[0])
+        if count > iters:
+            fail(f"kernel_device_ms: a window recorded {count} launches of {key} in {iters} "
+                 f"calls")
+        counts.append(count)
+        device_us += sum(e.self_device_time_total for e in active[0])
+        recorded += count
+        if recorded >= iters:
+            break
+    if len(counts) > 1:
+        print(f"kernel_device_ms: {key}: windows of {iters} calls recorded {counts} launches",
+              flush=True)
+    if recorded < iters // 2:
+        print(f"kernel_device_ms: {key}: device time not measured ({recorded} launches "
+              f"recorded in {len(counts)} windows of {iters} calls)", flush=True)
+        return None
+    return device_us / 1e3 / recorded
+
+
+def total(values) -> float | None:
+    """The sum of ``values``, or None where one of them is None (a device
+    time not measured)."""
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
+
+
+def ms_text(ms: float | None) -> str:
+    """``ms`` as printed beside a kernel's wrapper time."""
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def logmel_bound_ms(B: int, T: int, n_frames: int, cfg: MelConfig,
@@ -525,7 +589,7 @@ def groupconv_times(geoms: list[tuple], gen: torch.Generator, dev: torch.device)
             TRAIN_B, t, ci, co, k, s, g, pd)
         rows.append(row)
         print(f"train groupconv geometry: scale {scale} {ci}->{co} s{s} g{g} B={TRAIN_B} "
-              f"T={t}: kernel {row['ms']:.4f} ms (device {row['kernel_device_ms']:.4f} ms), "
+              f"T={t}: kernel {row['ms']:.4f} ms (device {ms_text(row['kernel_device_ms'])}), "
               f"cuDNN F.conv1d (TF32 off) "
               f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4g} ms by {row['bound_by']} ({row['route']}); backward "
@@ -592,7 +656,7 @@ def groupconv_bf16_phase(geoms: list[tuple], gen: torch.Generator, dev: torch.de
         print(f"train groupconv_bf16 geometry: scale {scale} {ci}->{co} s{s} g{g} B={TRAIN_B} "
               f"T={t}: vs plain max abs {float((got - want).abs().max()):.3g}, rel L2 "
               f"{row['rel_l2']:.3g}, dx {row['dx_rel_l2']:.3g}, dw {row['dw_rel_l2']:.3g}; "
-              f"kernel {row['ms']:.4f} ms (device {row['kernel_device_ms']:.4f} ms), cuDNN "
+              f"kernel {row['ms']:.4f} ms (device {ms_text(row['kernel_device_ms'])}), cuDNN "
               f"bf16 F.conv1d {row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
               f"bound {row['bound_ms']:.4g} ms by {row['bound_by']}", flush=True)
     return rows, err, grad_err
@@ -1100,13 +1164,13 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
 
     # the kernels' times at the step's shapes
     k2_rows = groupconv_times(geoms, gen, dev)
-    k2_sum = {key: sum(r[key] for r in k2_rows)
+    k2_sum = {key: total(r[key] for r in k2_rows)
               for key in ("ms", "kernel_device_ms", "plain_ms", "library_ms", "bound_ms",
                           "bwd_dx_dw_ms", "bwd_dx_ms")}
     k2_by = {by: sum(r["bound_ms"] for r in k2_rows if r["bound_by"] == by)
              for by in ("bytes", "operations")}
     print(f"train groupconv sums over the {len(geoms)} geometries: kernel {k2_sum['ms']:.4f} "
-          f"ms (device {k2_sum['kernel_device_ms']:.4f} ms), cuDNN {k2_sum['library_ms']:.4f} "
+          f"ms (device {ms_text(k2_sum['kernel_device_ms'])}), cuDNN {k2_sum['library_ms']:.4f} "
           f"ms, plain {k2_sum['plain_ms']:.4f} ms, bound "
           f"{k2_sum['bound_ms']:.4g} ms; backward dx+dw {k2_sum['bwd_dx_dw_ms']:.4f} ms, dx "
           f"{k2_sum['bwd_dx_ms']:.4f} ms, so per step (2 MSD passes with dx+dw in the "
@@ -1114,7 +1178,7 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
           f"{3 * k2_sum['ms']:.4f} ms, backward "
           f"{2 * k2_sum['bwd_dx_dw_ms'] + k2_sum['bwd_dx_ms']:.4f} ms", flush=True)
     bf16_rows, bf16_err, bf16_grad_err = groupconv_bf16_phase(geoms, gen, dev)
-    bf16_sum = {key: sum(r[key] for r in bf16_rows)
+    bf16_sum = {key: total(r[key] for r in bf16_rows)
                 for key in ("ms", "kernel_device_ms", "plain_ms", "library_ms", "bound_ms")}
     bf16_by = {by: sum(r["bound_ms"] for r in bf16_rows if r["bound_by"] == by)
                for by in ("bytes", "operations")}
@@ -1122,25 +1186,28 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
           f"{bf16_err:.3g} (atol {LOGMEL_ATOL}, rtol {LOGMEL_RTOL}), max rel L2 "
           f"{max(r['rel_l2'] for r in bf16_rows):.3g}; dx/dw max rel L2 {bf16_grad_err:.3g} "
           f"(limit {BF16_GRAD_REL}); kernel {bf16_sum['ms']:.4f} ms (device "
-          f"{bf16_sum['kernel_device_ms']:.4f} ms), cuDNN bf16 {bf16_sum['library_ms']:.4f} "
+          f"{ms_text(bf16_sum['kernel_device_ms'])}), cuDNN bf16 {bf16_sum['library_ms']:.4f} "
           f"ms, plain {bf16_sum['plain_ms']:.4f} ms, bound {bf16_sum['bound_ms']:.4g} ms "
-          f"(3xTF32 K2 {k2_sum['ms']:.4f} ms, device {k2_sum['kernel_device_ms']:.4f} ms)",
+          f"(3xTF32 K2 {k2_sum['ms']:.4f} ms, device {ms_text(k2_sum['kernel_device_ms'])})",
           flush=True)
     with torch.no_grad():
-        k1_ms = k1_device_ms = k1_plain_ms = k1_library_ms = k1_bound_ms = 0.0
+        k1_ms = k1_plain_ms = k1_library_ms = k1_bound_ms = 0.0
+        k1_device = []
         k1_bound = {"bytes": 0.0, "operations": 0.0}
         for cfg in gan_cfgs:
             window = torch.hann_window(cfg.win_length, periodic=True, device=dev)
             melw = logmel_gan.dense_constants(cfg, dev)[1]
             k1_ms += cuda_ms(lambda: logmel_gan(wavs, cfg))
-            k1_device_ms += kernel_device_ms(lambda: logmel_gan(wavs, cfg), "logmel_fft_kernel")
+            k1_device.append(kernel_device_ms(lambda: logmel_gan(wavs, cfg),
+                                              "logmel_fft_kernel"))
             k1_plain_ms += cuda_ms(lambda: logmel_gan_reference(wavs, cfg))
             k1_library_ms += cuda_ms(lambda: library_logmel_gan(wavs, cfg, window, melw))
             b_ms, b_by = logmel_bound_ms(TRAIN_B, T, T // cfg.hop, cfg, melw)
             k1_bound_ms += b_ms
             k1_bound[b_by] += b_ms
+    k1_device_ms = total(k1_device)
     print(f"train kernel times: logmel_gan over its {len(gan_cfgs)} resolutions on "
-          f"B={TRAIN_B} x {T}: kernel {k1_ms:.4f} ms (device {k1_device_ms:.4f} ms), plain "
+          f"B={TRAIN_B} x {T}: kernel {k1_ms:.4f} ms (device {ms_text(k1_device_ms)}), plain "
           f"{k1_plain_ms:.4f} ms, torch.stft "
           f"chain {k1_library_ms:.4f} ms, bound {k1_bound_ms:.4g} ms", flush=True)
     scale1 = {key: k2_rows[0][key]
@@ -2943,6 +3010,265 @@ def shard_phase(eng, rng: np.random.Generator) -> int:
     return s_l
 
 
+def saved_and_loaded(work_dir: str, key: str, params, dev: torch.device):
+    """``params`` written as ``work_dir``'s checkpoint under ``key`` and read
+    back onto ``dev``."""
+    save_checkpoint(work_dir, 0, {key: params})
+    return params_from_jax(load_ckpt_state(work_dir, key), dev)
+
+
+def emformer_both_check(seed: int, dev: torch.device, root: str) -> str:
+    """``EmformerDistillModel(mode="both")`` at the r5 Emformer geometry on
+    seeded random weights: the card's step chunk by chunk against its apply
+    over the stream (both heads to STREAM_ATOL, codes equal), the card's
+    apply against the CPU's on the same weights (STREAM_ATOL), ms per step."""
+    cfg = EmformerConfig.from_hparams(load_config(os.path.join(ROOT, "egs", "soak_r5",
+                                                               "emformer.yaml")))
+    model = EmformerDistillModel(cfg, mode="both")
+    gen = torch.Generator().manual_seed(seed)
+    params = saved_and_loaded(os.path.join(root, "emformer_both"), "params",
+                              model.init(gen), dev)
+    params_cpu = tree_map(lambda x: x.cpu(), params)
+    seg, rc = cfg.segment_length, cfg.right_context_length
+    mel = torch.randn(1, LEFTOVER_EMF_SEGS * seg + rc, cfg.input_dim, generator=gen)
+    mel_dev = mel.to(dev)
+    with torch.inference_mode(), precision_scope("exact", dev):
+        full = model.apply(params, mel_dev)
+        state = model.init_state(1, dev)
+        outs, events = [], []
+        for s in range(LEFTOVER_EMF_SEGS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out, state = model.step(params, state, mel_dev[:, s * seg:s * seg + seg + rc])
+            b.record()
+            outs.append(out)
+            events.append((a, b))
+        torch.cuda.synchronize()
+        cpu = model.apply(params_cpu, mel)
+    ms = [a.elapsed_time(b) for a, b in events[1:]]
+    stepped = [torch.cat([o[i] for o in outs], 1) for i in range(2)]
+    names = ("logits", "features")
+    if [tuple(x.shape) for x in full] != [(1, LEFTOVER_EMF_SEGS * seg, 100),
+                                          (1, LEFTOVER_EMF_SEGS * seg, 768)]:
+        fail(f"emformer_both: head shapes {[tuple(x.shape) for x in full]}")
+    step_err = [float((a - b).abs().max()) for a, b in zip(stepped, full)]
+    cpu_err = [float((a.cpu() - b).abs().max()) for a, b in zip(full, cpu)]
+    codes_equal = torch.equal(stepped[0].argmax(-1), full[0].argmax(-1))
+    cpu_flips = int((full[0].argmax(-1).cpu() != cpu[0].argmax(-1)).sum())
+    if not all(torch.isfinite(x).all() for x in full) or not codes_equal \
+            or max(step_err + cpu_err) > STREAM_ATOL:
+        fail(f"emformer_both: step vs apply max abs {step_err}, codes equal {codes_equal}; "
+             f"card vs CPU {cpu_err} (atol {STREAM_ATOL})")
+    return (f"emformer_both: r5 geometry ({cfg.num_layers} layers, segment {seg}, right "
+            f"context {rc}), mode both, random weights seed {seed}, exact, B=1, "
+            f"{LEFTOVER_EMF_SEGS} segments: step vs apply max abs "
+            + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, step_err))
+            + f" (atol {STREAM_ATOL}), codes equal; card vs CPU apply max abs "
+            + ", ".join(f"{n} {e:.3g}" for n, e in zip(names, cpu_err))
+            + f" (atol {STREAM_ATOL}), code flips {cpu_flips}; step median "
+            f"{np.median(ms):.3f} ms p90 {np.percentile(ms, 90):.3f} ms (CUDA events)")
+
+
+def flow_dyn_clip_check(seed: int, dev: torch.device, root: str) -> str:
+    """The flow F0 head of egs/conan_emformer_flow.yaml (a 10x192 DiffNet,
+    K = 100), seeded random weights (the zero-init head too): the chunk step
+    with a dynamic clip captured into a CUDA graph, the bounds in static
+    tensors refilled per chunk, against the eager step on every chunk
+    (CAPTURED_ATOL); the bounds bind (the eager result moves by more than
+    1e-2 without them) and hold (with K = 100 of 1000 steps the last Euler
+    step lands on the clipped x1: within 1e-6 of the bounds); eager and
+    replay ms per chunk."""
+    hp = load_config(os.path.join(ROOT, "egs", "conan_emformer_flow.yaml"))
+    ccfg = ConanConfig.from_hparams(hp)
+    conan = Conan(ccfg)
+    gen = torch.Generator().manual_seed(seed)
+    params = conan.f0_net.init(gen)
+    params["out_proj"]["w"] = 0.3 * torch.randn(params["out_proj"]["w"].shape, generator=gen)
+    params = saved_and_loaded(os.path.join(root, "flow"), "f0_net", params, dev)
+    flow, seg, H = conan.f0_stream, LEFTOVER_FLOW_SEG, ccfg.hidden_size
+    n = LEFTOVER_FLOW_CHUNKS
+    cond = torch.randn(n, 1, seg, H, generator=gen).to(dev)
+    x0 = torch.randn(n, 1, seg, 1, generator=gen).to(dev)
+    lo = (-0.3 + 0.1 * torch.rand(n, 1, seg, 1, generator=gen)).to(dev)
+    hi = (0.1 + 0.1 * torch.rand(n, 1, seg, 1, generator=gen)).to(dev)
+    with torch.inference_mode(), precision_scope("exact", dev):
+        state = flow.init_state(1, dev)
+        eager, events = [], []
+        for i in range(n):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            y, state = flow.step(params, state, cond[i], x0[i], dyn_clip=(lo[i], hi[i]))
+            b.record()
+            eager.append(y)
+            events.append((a, b))
+        unclipped, _ = flow.step(params, flow.init_state(1, dev), cond[0], x0[0])
+        torch.cuda.synchronize()
+        eager_ms = [a.elapsed_time(b) for a, b in events[1:]]
+        bufs = {"state": flow.init_state(1, dev), "cond": cond[0].clone(), "x0": x0[0].clone(),
+                "lo": lo[0].clone(), "hi": hi[0].clone()}
+
+        def chunk():
+            return flow.step(params, bufs["state"], bufs["cond"], bufs["x0"],
+                             dyn_clip=(bufs["lo"], bufs["hi"]))
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                chunk()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y_buf, new_state = chunk()
+            for k, v in new_state.items():
+                bufs["state"][k].copy_(v)
+        for v in bufs["state"].values():
+            v.zero_()
+        captured, events = [], []
+        for i in range(n):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for name, src in (("cond", cond), ("x0", x0), ("lo", lo), ("hi", hi)):
+                bufs[name].copy_(src[i])
+            graph.replay()
+            b.record()
+            captured.append(y_buf.clone())
+            events.append((a, b))
+        torch.cuda.synchronize()
+    replay_ms = [a.elapsed_time(b) for a, b in events[1:]]
+    err = max(float((c - e).abs().max()) for c, e in zip(captured, eager))
+    binds = float((eager[0] - unclipped).abs().max())
+    outside = max(float(torch.maximum(l_ - e, e - h_).max()) for e, l_, h_ in zip(eager, lo, hi))
+    if not all(torch.isfinite(e).all() for e in eager) or err > CAPTURED_ATOL or binds <= 1e-2 \
+            or outside > 1e-6:
+        fail(f"flow dyn_clip: captured vs eager max abs {err:.3g} (atol {CAPTURED_ATOL}), "
+             f"clipped vs unclipped {binds:.3g} (must exceed 1e-2), x1 past its bounds by "
+             f"{outside:.3g} (1e-6)")
+    return (f"flow dyn_clip: egs/conan_emformer_flow.yaml's F0 flow (DiffNet "
+            f"{ccfg.f0_residual_layers}x{ccfg.f0_residual_channels}, hidden {H}, K = "
+            f"{ccfg.f0_k_step}), random weights seed {seed}, exact, B=1, {n} chunks of {seg} "
+            f"frames, per-frame bounds in [-0.3, -0.2] / [0.1, 0.2] refilled each chunk: "
+            f"captured vs eager max abs {err:.3g} (atol {CAPTURED_ATOL}); clipped vs unclipped "
+            f"chunk 0 max abs {binds:.3g}, x1 past its bounds by at most {outside:.3g} (1e-6: the "
+            f"last of K = 100 Euler steps lands on the clipped x1); eager chunk "
+            f"median {np.median(eager_ms):.3f} ms, replay median {np.median(replay_ms):.3f} ms "
+            f"(CUDA events)")
+
+
+def bench_vocoder_check(seed: int, root: str) -> str:
+    """``python -m conan_tpu_torch.infer.bench_vocoder`` as a subprocess on
+    a checkpoint of egs/soak_r5/vocoder.yaml with fan-in scaled seeded
+    weights: exit 0, both lines, consistency OK; its p50 and RTF."""
+    hp = load_config(os.path.join(ROOT, "egs", "soak_r5", "vocoder.yaml"))
+    d = os.path.join(root, "vocoder")
+    gen = HifiGanGenerator(HifiGanConfig.from_hparams(hp))
+    save_checkpoint(d, 0, {"params_g": fan_in_redraw(gen.init(torch.Generator().manual_seed(
+        seed)), torch.Generator().manual_seed(seed + 1))}, hp)
+    with open(os.path.join(d, "config.yaml"), "w") as f:
+        json.dump(dict(hp), f)                      # JSON is YAML
+    cmd = [sys.executable, "-m", "conan_tpu_torch.infer.bench_vocoder", "--ckpt_dir", d,
+           "--chunks", str(LEFTOVER_BENCH_CHUNKS), "--chunk_frames", "4"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=LEFTOVER_BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()[-2:]
+    m = re.search(r"p50 ([0-9.]+) ms, mean ([0-9.]+) ms, RTF ([0-9.]+)", lines[0] if lines else "")
+    if r.returncode != 0 or m is None or len(lines) != 2 or not lines[1].endswith("(OK)"):
+        fail(f"bench_vocoder: exit {r.returncode}, output {r.stdout[-2000:]!r}, "
+             f"errors {r.stderr[-2000:]!r}")
+    return (f"bench_vocoder: {' '.join(cmd[1:4])} on egs/soak_r5/vocoder.yaml "
+            f"({hp['upsample_initial_channel']} channels, fan-in scaled random weights seed "
+            f"{seed}), {LEFTOVER_BENCH_CHUNKS} chunks: exit 0 in {wall:.1f} s; p50 "
+            f"{m.group(1)} ms, mean {m.group(2)} ms, RTF {m.group(3)} (CUDA events); "
+            f"{lines[1]}")
+
+
+def trace_check(eng, src: np.ndarray, ref: np.ndarray, root: str) -> tuple[str, int]:
+    """``device_trace`` around one replay of the r5 engine's captured chunk
+    step and TRACE_FRONTEND_CALLS frontend calls (K1 through its wrapper),
+    ``sync`` at the end: the trace file exists and names as many kernels
+    as the profiler's own count, more than a chunk's worth
+    (TRACE_MIN_KERNELS). The profiler sometimes misses launches in a window
+    (whole runs recorded the chunk's kernels but not a lone K1 launch
+    before them, or 8 of 20 K1 launches three windows running): a window
+    without the chunk, or without K1 (its name as the trace spells it holds
+    ``logmel_fft_kernel``), is retaken, twice at most; K1 missing from the
+    last is noted, the chunk missing fails. Returns the line and the
+    frontend calls made (the chunk's inputs' two, then those in the
+    windows)."""
+    with torch.inference_mode():
+        style = eng._prepare(eng.wav_to_mel(ref))
+        mel_ext, _T, T_pad = eng._source_chunks(eng.wav_to_mel(src), True)
+        chunks, noise_chunks = eng.scan_inputs(mel_ext, eng._f0_noise(1, T_pad, None, None))
+        cap = eng._captured_step(eng.init_state(1), chunks[0], style, noise_chunks[0])
+        calls = 2                                       # the mels of src and ref above
+        for attempt in range(3):
+            log_dir = os.path.join(root, f"trace{attempt}")
+            shutil.rmtree(log_dir, ignore_errors=True)
+            with device_trace(log_dir) as prof:
+                cap.mel.copy_(chunks[0])
+                cap.noise.copy_(noise_chunks[0])
+                cap.graph.replay()
+                mels = [eng.wav_to_mel(src) for _ in range(TRACE_FRONTEND_CALLS)]
+                sync([mels, cap.wav])
+            calls += TRACE_FRONTEND_CALLS
+            files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+            if len(files) != 1:
+                fail(f"trace: {len(files)} trace files in {log_dir}")
+            with open(os.path.join(log_dir, files[0])) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"]
+            counted = sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and not e.key.startswith(("Memcpy", "Memset")))
+            names = {e["name"] for e in kernels}
+            k1 = [n for n in names if "logmel_fft_kernel" in n]
+            if k1 and len(kernels) > TRACE_MIN_KERNELS:
+                break
+            print(f"trace: profiler window {attempt} recorded {len(kernels)} kernels, K1 "
+                  f"{'among them' if k1 else 'not among them'}; retaken", flush=True)
+    if len(kernels) != counted or len(kernels) <= TRACE_MIN_KERNELS:
+        fail(f"trace: {len(kernels)} kernel events in {files[0]} ({counted} by key_averages)")
+    by_time: dict = {}
+    for e in kernels:
+        by_time[e["name"]] = by_time.get(e["name"], 0.0) + e.get("dur", 0.0)
+    top = sorted(by_time.items(), key=lambda kv: -kv[1])[:3]
+    k1_events = sum(e["name"] in k1 for e in kernels)
+    k1_text = (f"K1 as {k1[0][:60]!r} {k1_events} times" if k1
+               else "K1 not recorded (the profiler missed its launches)")
+    return (f"trace: device_trace around one captured r5 chunk and {TRACE_FRONTEND_CALLS} "
+            f"frontend calls (window {attempt + 1}): "
+            f"{os.path.relpath(os.path.join(log_dir, files[0]), ROOT)} "
+            f"({os.path.getsize(os.path.join(log_dir, files[0]))} bytes), {len(kernels)} kernel "
+            f"events ({counted} by key_averages), {len(names)} names, {k1_text}; longest: "
+            + "; ".join(f"{k[:60]} {v:.1f} us" for k, v in top)), calls
+
+
+def leftovers_phase(seed: int, dev: torch.device, eng, src: np.ndarray,
+                    ref: np.ndarray) -> int:
+    """Phase 14: the last modules ported from the JAX package, one line
+    each: the Emformer's two-head mode, the flow's dynamic clip captured,
+    the vocoder micro-harness's CLI and a device trace. Returns K1's
+    launches on this path (the trace's frontend calls)."""
+    root = os.path.join(ROOT, "build", "chip_smoke_leftovers")
+    shutil.rmtree(root, ignore_errors=True)
+    logmel.launches = 0
+    for check in (lambda: emformer_both_check(seed, dev, root),
+                  lambda: flow_dyn_clip_check(seed, dev, root),
+                  lambda: bench_vocoder_check(seed, root)):
+        t0 = time.perf_counter()
+        print(f"{check()} [{time.perf_counter() - t0:.1f} s]", flush=True)
+    t0 = time.perf_counter()
+    line, calls = trace_check(eng, src, ref, root)
+    print(f"{line} [{time.perf_counter() - t0:.1f} s]", flush=True)
+    launches = logmel.launches
+    if launches != calls:
+        fail(f"leftovers: the logmel kernel launched {launches} times, not {calls} (the "
+             f"trace's frontend calls)")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3029,7 +3355,7 @@ def main() -> None:
                                          mel_cfg, melw)
     print(f"kernels: logmel max_abs_err {err:.3g} (atol {LOGMEL_ATOL}, rtol {LOGMEL_RTOL}) "
           f"over {shapes}; at B=1 T={wav.shape[1]}: kernel {ms:.4f} ms (device "
-          f"{serve_device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"{ms_text(serve_device_ms)}), plain {plain_ms:.4f} ms, "
           f"torch.stft chain {library_ms:.4f} ms (max abs vs plain {lib_err:.3g}), "
           f"bound {bound_ms:.4g} ms by {bound_by}"
           + (f"; held to float64: {'; '.join(notes)}" if notes else ""), flush=True)
@@ -3146,6 +3472,8 @@ def main() -> None:
         dist_launches = dist_train_phase(args.seed, dev, smi)
         nccl_launches = nccl1_phase(args.seed, dev)
         by_path["shard"] = shard_phase(eng, rng)
+        # 14. leftovers
+        by_path["leftovers"] = leftovers_phase(args.seed, dev, eng, src, ref)
         for entry in train_kernels:
             entry["launches_by_path"].update(
                 dist_train=dist_launches.get(entry["name"], 0),

@@ -260,22 +260,33 @@ class RectifiedFlow:
         m = nonpadding[..., None] if nonpadding.dim() == 2 else nonpadding
         return torch.sum(err * m) / (dist.global_count(torch.sum(m.expand_as(err))) + 1e-8)
 
-    def euler_update(self, k: int, x: torch.Tensor, ut: torch.Tensor) -> torch.Tensor:
+    def euler_update(self, k: int, x: torch.Tensor, ut: torch.Tensor,
+                     dyn_clip: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
         """x after Euler step k from velocity ``ut``; with ``sample_clip`` the
-        implied x1 is clipped to [-1, 1] first, at the quantized t (the
-        reference Wrapper's)."""
+        implied x1 is clipped first, at the quantized t (the reference
+        Wrapper's): to [lo, hi] of ``dyn_clip`` (tensors broadcast against
+        x, read on the device, so a captured graph reads their values at
+        each replay), else to [-1, 1]."""
         if self.cfg.sample_clip:
-            x_recon = torch.clamp(ut * self._one_minus_tq[k] + x, -1.0, 1.0)
+            x_recon = ut * self._one_minus_tq[k] + x
+            if dyn_clip is None:
+                x_recon = torch.clamp(x_recon, -1.0, 1.0)
+            else:
+                lo, hi = dyn_clip
+                if not (torch.is_tensor(lo) and torch.is_tensor(hi)):
+                    raise TypeError("dyn_clip: pass the bounds as tensors")
+                x_recon = torch.minimum(torch.maximum(x_recon, lo), hi)
             ut = (x_recon - x) / self._denom[k]
         return x + ut / self.cfg.k_step
 
     def sample(self, params: Params, cond: torch.Tensor, x0: torch.Tensor,
+               dyn_clip: tuple[torch.Tensor, torch.Tensor] | None = None,
                ucond: torch.Tensor | None = None, cfg_scale: float = 1.0) -> torch.Tensor:
         """Fixed-step Euler from t=0 to 1 over k_step steps. cond [B, T, H],
-        x0 [B, T, C] initial noise → x1 [B, T, C]. With ``ucond`` (the
-        unconditional condition, [B, T, H]) each step's velocity is the
-        classifier-free guided v_u + cfg_scale · (v_c - v_u). (The JAX
-        package's dynamic clip has no caller and is not ported.)"""
+        x0 [B, T, C] initial noise → x1 [B, T, C]. ``dyn_clip`` (lo, hi)
+        clips the implied x1 in place of [-1, 1] (``euler_update``). With
+        ``ucond`` (the unconditional condition, [B, T, H]) each step's
+        velocity is the classifier-free guided v_u + cfg_scale · (v_c - v_u)."""
         net = self.net
         bias = net.step_bias(params, self.steps(x0.device))
         cproj = net.cond_projection(params, cond)
@@ -287,7 +298,7 @@ class RectifiedFlow:
             if uproj is not None:
                 v_u = net.denoise(params, x, bk, uproj)
                 ut = v_u + cfg_scale * (ut - v_u)
-            x = self.euler_update(k, x, ut)
+            x = self.euler_update(k, x, ut, dyn_clip)
         return x
 
 
@@ -307,8 +318,10 @@ class StreamingRectifiedFlow:
                 for k, v in self.flow.net.init_state(batch, prefix="dn").items()}
 
     def step(self, params: Params, conv_states: dict, cond_chunk: torch.Tensor,
-             x0_chunk: torch.Tensor):
-        """cond [B, Tc, H], x0 [B, Tc, C] → (x1 [B, Tc, C], states')."""
+             x0_chunk: torch.Tensor,
+             dyn_clip: tuple[torch.Tensor, torch.Tensor] | None = None):
+        """cond [B, Tc, H], x0 [B, Tc, C] → (x1 [B, Tc, C], states');
+        ``dyn_clip`` as in ``RectifiedFlow.sample``, the chunk's bounds."""
         flow, net = self.flow, self.flow.net
         bias = net.step_bias(params, flow.steps(x0_chunk.device))
         cproj = net.cond_projection(params, cond_chunk)
@@ -318,7 +331,7 @@ class StreamingRectifiedFlow:
             s = Stream({key: v[k] for key, v in conv_states.items()})
             ut = net.denoise(params, x, [b[k:k + 1] for b in bias], cproj, stream=s,
                              prefix="dn")
-            x = flow.euler_update(k, x, ut)
+            x = flow.euler_update(k, x, ut, dyn_clip)
             for key, carry in s.new_state.items():
                 carries[key].append(carry)
         return x, {key: torch.stack(v) for key, v in carries.items()}

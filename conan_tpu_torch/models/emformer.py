@@ -202,27 +202,42 @@ class Emformer:
 
 
 class EmformerDistillModel:
-    """Emformer + Linear code head."""
+    """Emformer + Linear code head. ``mode="both"`` has the two heads of the
+    reference (``emformer.py:28-30,41-44``): ``proj1`` for the 100-way codes
+    and ``proj2`` for 768-dim features; ``apply`` and ``step`` then return
+    (logits, features)."""
 
-    def __init__(self, cfg: EmformerConfig):
+    def __init__(self, cfg: EmformerConfig, mode: str | None = None):
+        if mode not in (None, "both"):
+            raise ValueError(f"EmformerDistillModel: unknown mode {mode!r}")
         self.cfg = cfg
+        self.mode = mode
         self.emformer = Emformer(cfg)
 
+    def _heads(self) -> dict[str, int]:
+        if self.mode == "both":
+            return {"proj1": 100, "proj2": 768}
+        return {"proj": self.cfg.output_dim}
+
     def init(self, gen: torch.Generator) -> Params:
-        D, O = self.cfg.input_dim, self.cfg.output_dim
+        D = self.cfg.input_dim
         p = self.emformer.init(gen)
-        p["proj"] = {"w": inits.kaiming_uniform(gen, (O, D)),
-                     "b": inits.default_bias(gen, (O,), (O, D))}
+        for name, o in self._heads().items():
+            p[name] = {"w": inits.kaiming_uniform(gen, (o, D)),
+                       "b": inits.default_bias(gen, (o,), (o, D))}
         return p
 
-    def apply(self, params: Params, mel: torch.Tensor,
-              lengths: torch.Tensor | None = None) -> torch.Tensor:
-        """[B, T_in, 80] → logits [B, T_utt, output_dim]."""
-        return linear(self.emformer.apply(params, mel, lengths), params["proj"])
+    def _project(self, params: Params, h: torch.Tensor):
+        outs = tuple(linear(h, params[name]) for name in self._heads())
+        return outs if self.mode == "both" else outs[0]
+
+    def apply(self, params: Params, mel: torch.Tensor, lengths: torch.Tensor | None = None):
+        """[B, T_in, 80] → logits [B, T_utt, output_dim] (or the two heads)."""
+        return self._project(params, self.emformer.apply(params, mel, lengths))
 
     def init_state(self, batch: int, device: torch.device | str = "cpu") -> State:
         return self.emformer.init_state(batch, device)
 
     def step(self, params: Params, state: State, chunk: torch.Tensor):
         h, state = self.emformer.step(params, state, chunk)
-        return linear(h, params["proj"]), state
+        return self._project(params, h), state

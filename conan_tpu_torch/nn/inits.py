@@ -51,3 +51,21 @@ def xavier_uniform(gen: torch.Generator, shape, gain: float = 1.0) -> torch.Tens
     fan_in, fan_out = _fan_in_out(shape)
     bound = gain * math.sqrt(6.0 / (fan_in + fan_out))
     return uniform(gen, shape, -bound, bound)
+
+
+def fan_in_redraw(tree, gen: torch.Generator):
+    """``tree`` with each float leaf redrawn: leaves of two or more dims
+    N(0, 1/fan_in) (fan-in over all dims but the first), vectors N(0, 0.01).
+    For random-weight smoke runs of a vocoder: its own init (weight norm's v
+    ~ N(0, 0.01)) leaves the wav at its bias DC, which no chunking can
+    change; these weights keep its signal at the order of its input."""
+    from conan_tpu_torch.checkpoint import tree_map
+
+    def leaf(x):
+        if not torch.is_tensor(x) or not x.is_floating_point():
+            return x
+        if x.dim() >= 2:
+            return torch.randn(x.shape, generator=gen) / math.sqrt(math.prod(x.shape[1:]))
+        return 0.1 * torch.randn(x.shape, generator=gen)
+
+    return tree_map(leaf, tree)

@@ -85,22 +85,29 @@ def gan_pad(wav: torch.Tensor, cfg) -> torch.Tensor:
     return F.pad(torch.clamp(wav, -1.0, 1.0)[:, None], (p, p), mode="reflect")[:, 0]
 
 
-def _gan_padded_reference(padded: torch.Tensor, cfg) -> torch.Tensor:
-    """ln-mel of the padded wav. Each frame is centred before the DFT and its
-    mean's transform added back, frames @ basis = (frames - m) @ basis +
-    m · Σ_t basis[t] (the column sums in float64): the same function, with
-    fp32's rounding set by the frame's variation rather than its offset. A
-    generator's wav carries a DC offset, under which the uncentred fp32
-    product lost the quiet low bins to 1e-4 in the log, and a spectrogram
-    discriminator's gradients amplify that thousandfold."""
-    basis, melw = (torch.from_numpy(c.copy()).to(padded.device, padded.dtype)
-                   for c in _constants_np(cfg))
+def _centred_dft(padded: torch.Tensor, cfg, basis: torch.Tensor):
+    """(re, im, mag) of the padded wav's frames, the GAN form's DFT and
+    magnitude. Each frame is centred before the DFT and its mean's transform
+    added back, frames @ basis = (frames - m) @ basis + m · Σ_t basis[t] (the
+    column sums in float64): the same function, with fp32's rounding set by
+    the frame's variation rather than its offset. A generator's wav carries a
+    DC offset, under which the uncentred fp32 product lost the quiet low bins
+    to 1e-4 in the log, and a spectrogram discriminator's gradients amplify
+    that thousandfold. The plain forward and the backward both call it, so
+    the backward's ``g / mel`` and ``dmag / mag`` see the forward's numbers."""
     frames = padded.unfold(-1, cfg.n_fft, cfg.hop)                # [B, F, n_fft]
     mean = frames.mean(-1, keepdim=True)
     ri = (frames - mean) @ basis + mean * basis.double().sum(0).to(padded.dtype)
     n_bins = cfg.n_fft // 2 + 1
     re, im = ri[..., :n_bins], ri[..., n_bins:]
-    mag = torch.sqrt(re * re + im * im + GAN_EPS)
+    return re, im, torch.sqrt(re * re + im * im + GAN_EPS)
+
+
+def _gan_padded_reference(padded: torch.Tensor, cfg) -> torch.Tensor:
+    """ln-mel of the padded wav (``_centred_dft``, filterbank, clip, ln)."""
+    basis, melw = (torch.from_numpy(c.copy()).to(padded.device, padded.dtype)
+                   for c in _constants_np(cfg))
+    _, _, mag = _centred_dft(padded, cfg, basis)
     return torch.log(torch.clamp(mag @ melw, min=GAN_CLIP))
 
 
@@ -113,13 +120,10 @@ def logmel_gan_reference(wav: torch.Tensor, cfg) -> torch.Tensor:
 def _gan_vjp(padded: torch.Tensor, g: torch.Tensor, cfg, basis: torch.Tensor,
              melw: torch.Tensor) -> torch.Tensor:
     """d(sum(g · ln-mel))/d(padded), the chain of pallas_stft.py:_logmel_bwd:
-    the forward's DFT, magnitude and mel are recomputed, then log → mel →
-    magnitude → DFT → overlap-add."""
-    n_bins = cfg.n_fft // 2 + 1
-    frames = padded.unfold(-1, cfg.n_fft, cfg.hop)               # [B, F, n_fft]
-    ri = frames @ basis
-    re, im = ri[..., :n_bins], ri[..., n_bins:]
-    mag = torch.sqrt(re * re + im * im + GAN_EPS)
+    the forward's DFT, magnitude and mel are recomputed as the plain forward
+    computes them (``_centred_dft``), then log → mel → magnitude → DFT →
+    overlap-add."""
+    re, im, mag = _centred_dft(padded, cfg, basis)
     mel = mag @ melw
     dmel = torch.where(mel > GAN_CLIP, g / torch.clamp(mel, min=GAN_CLIP), 0.0)
     scale = (dmel @ melw.T) / mag

@@ -20,8 +20,11 @@ from ``vq_start + 1`` on until it reports done. With
 ``use_random_ref_after`` n, the step gets ``use_random_ref=step >= n``.
 Gradient accumulation lives in the tasks' optimizers (``optim.Accumulate``):
 each batch here is one mini-step, and its accumulator rides in the state and
-the checkpoint. TensorBoard (the JAX trainer's writer is optional) is not
-ported (ROADMAP.md, modules still to port).
+the checkpoint. Where ``torch.utils.tensorboard`` imports, rank 0 also
+writes every scalar of ``metrics.jsonl`` to TensorBoard event files under
+``<work_dir>/tb``, tagged ``"{prefix}/{key}"`` at the same step (the JAX
+trainer's optional writer); where it does not, one log line says so and
+training goes on without it. The writer is closed at the end of ``fit``.
 
 Data parallelism (the JAX trainer's mesh, ``trainer.py:45-51, 106, 137``):
 with the task's ``world`` (``parallel/dist.py``) each rank
@@ -57,6 +60,17 @@ def _plain(hp):
     return {k: _plain(v) if isinstance(v, Mapping) else v for k, v in hp.items()}
 
 
+def _summary_writer(log_dir: str):
+    """A TensorBoard ``SummaryWriter`` on ``log_dir``, or None where
+    ``torch.utils.tensorboard`` does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        log.info("no TensorBoard writer (%s): metrics go to metrics.jsonl only", e)
+        return None
+    return SummaryWriter(log_dir)
+
+
 class Trainer:
     def __init__(self, task, hp, work_dir: str, *, use_random_ref_after: int | None = None):
         self.task = task
@@ -73,9 +87,11 @@ class Trainer:
         self.valid_monitor_key = self.hp.get("valid_monitor_key", "val_loss")
         self.save_best = self.hp.get("save_best", False)
         self._best = float("inf")
+        self._tb = None
         if self.is_main:
             os.makedirs(work_dir, exist_ok=True)
             self._snapshot_code()
+            self._tb = _summary_writer(os.path.join(work_dir, "tb"))
         dist.barrier(self.world)
 
     def _snapshot_code(self) -> None:
@@ -94,11 +110,13 @@ class Trainer:
         shutil.make_archive(dst[:-4], "zip", tmp)
         shutil.rmtree(tmp)
 
-    @staticmethod
-    def _write(f, step: int, prefix: str, metrics: dict) -> None:
-        f.write(json.dumps({"step": step, "prefix": prefix,
-                            **{k: float(v) for k, v in metrics.items()}}) + "\n")
+    def _write(self, f, step: int, prefix: str, metrics: dict) -> None:
+        values = {k: float(v) for k, v in metrics.items()}
+        f.write(json.dumps({"step": step, "prefix": prefix, **values}) + "\n")
         f.flush()
+        if self._tb is not None:
+            for k, v in values.items():
+                self._tb.add_scalar(f"{prefix}/{k}", v, step)
 
     def _validate(self, f, valid_fn, state: dict, step: int) -> None:
         vm = valid_fn(state, step)
@@ -181,4 +199,6 @@ class Trainer:
                     self._main_only(validate_and_save)
         self._main_only(lambda: save_checkpoint(self.work_dir, step, state, self.hp,
                                                 num_keep=self.num_ckpt_keep))
+        if self._tb is not None:
+            self._tb.close()
         return state

@@ -190,6 +190,28 @@ def test_emformer_mapping_matches_jax():
                       jcompat.emformer_from_torchaudio(_numpy_sd(two), n))
 
 
+def test_emformer_two_heads_mapping_matches_jax():
+    """``mode="both"``: the tree written by ``emformer_to_torchaudio`` and read
+    back by both packages' ``emformer_from_torchaudio`` is the same tree, and
+    the port runs it: (logits, features) equal JAX's at atol 1e-4."""
+    jm = JEmformer(SMALL.emformer, mode="both")
+    p_np = numpy_params(jm.init, seed=37)
+    sd = torch_compat.emformer_to_torchaudio(params_from_jax(p_np, "cpu"))
+    assert {"proj1.weight", "proj2.weight"} <= set(sd) and "proj.weight" not in sd
+    n = SMALL.emformer.num_layers
+    jp = jcompat.emformer_from_torchaudio(_numpy_sd(sd), n)
+    _assert_same_tree(jp, p_np)
+    pp = torch_compat.emformer_from_torchaudio(sd, n, device="cpu")
+    _assert_same_tree(pp, jp)
+    mel = np.random.default_rng(38).standard_normal((B, 7 * 4 + 2, 80)).astype(np.float32)
+    pm = EmformerDistillModel(EmformerConfig(**dataclasses.asdict(SMALL.emformer)),
+                              mode="both")
+    want = jax.jit(jm.apply)(jp, mel)
+    got = pm.apply(pp, _t(mel))
+    for a, b in zip(got, want, strict=True):
+        _close(a, b)
+
+
 def _vocoder(kind, upsample="shuffle", resblock="1"):
     jcfg = dataclasses.replace(JCFG, upsample=upsample, resblock=resblock)
     if kind == "nsf":

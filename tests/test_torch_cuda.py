@@ -6,6 +6,7 @@ nor conan_tpu, so they also run where only the port is installed:
 Without a card each test skips (decided inside the test).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -13,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from conan_tpu_torch.audio.mel import MelConfig
 from conan_tpu_torch.infer.build import build_engine, write_random_checkpoints
@@ -862,3 +864,143 @@ def test_concurrent_first_use_builds_produce_one_library():
     assert all(p.returncode == 0 for p in procs), outs
     assert outs == ["BUILT", "UP_TO_DATE"]
     assert native.LIB_PATH.exists()
+
+
+# the modules ported last: the Emformer's two heads, the flow's dynamic clip
+# in a captured step, the profiling helpers and the vocoder micro-harness
+
+
+@pytest.mark.cuda
+def test_emformer_two_heads_on_card_match_cpu():
+    """mode="both" on the card: apply against the CPU's on the same weights
+    and the card's step chunk by chunk against its apply, both heads to
+    1e-4, codes equal."""
+    from conan_tpu_torch.checkpoint import tree_map
+    from conan_tpu_torch.models.emformer import EmformerConfig, EmformerDistillModel
+
+    dev = _card()
+    model = EmformerDistillModel(EmformerConfig(**EMF_SMALL), mode="both")
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen)
+    mel = torch.randn(2, 6 * 4 + 2, 16, generator=gen)
+    cpu = model.apply(params, mel)
+    p_dev = tree_map(lambda x: x.to(dev), params)
+    full = model.apply(p_dev, mel.to(dev))
+    state, steps = model.init_state(2, dev), []
+    for s in range(6):
+        out, state = model.step(p_dev, state, mel[:, 4 * s:4 * s + 6].to(dev))
+        steps.append(out)
+    for i, width in enumerate((100, 768)):
+        assert full[i].shape == (2, 24, width)
+        torch.testing.assert_close(full[i].cpu(), cpu[i], atol=1e-4, rtol=0)
+        torch.testing.assert_close(torch.cat([o[i] for o in steps], 1), full[i], atol=1e-4,
+                                   rtol=0)
+    assert torch.equal(full[0].argmax(-1).cpu(), cpu[0].argmax(-1))
+
+
+@pytest.mark.cuda
+def test_flow_dynamic_clip_in_a_captured_step_equals_eager():
+    """StreamingRectifiedFlow.step with dyn_clip captured into a CUDA graph,
+    the bounds in static tensors refilled before each replay: each chunk
+    equals the eager step with that chunk's bounds (1e-5), and the bounds
+    bind."""
+    from conan_tpu_torch.checkpoint import tree_map
+    from conan_tpu_torch.models.conan import flow as pflow
+
+    dev = _card()
+    net = pflow.DiffNet(pflow.DiffNetConfig(in_dims=1, encoder_hidden=32, residual_layers=2,
+                                            residual_channels=16, dilation_cycle_length=2))
+    stream = pflow.StreamingRectifiedFlow(pflow.RectifiedFlow(net, pflow.ReflowConfig(k_step=6)))
+    gen = torch.Generator().manual_seed(0)
+    params = net.init(gen)
+    params["out_proj"]["w"] = 0.3 * torch.randn(params["out_proj"]["w"].shape, generator=gen)
+    params = tree_map(lambda x: x.to(dev), params)
+    n = 4
+    cond, x0 = torch.randn(n, 1, 4, 32, generator=gen), torch.randn(n, 1, 4, 1, generator=gen)
+    lo = -0.3 + 0.1 * torch.rand(n, 1, 4, 1, generator=gen)
+    hi = 0.1 + 0.1 * torch.rand(n, 1, 4, 1, generator=gen)
+    cond, x0, lo, hi = (t.to(dev) for t in (cond, x0, lo, hi))
+    state, eager = stream.init_state(1, dev), []
+    for i in range(n):
+        y, state = stream.step(params, state, cond[i], x0[i], dyn_clip=(lo[i], hi[i]))
+        eager.append(y)
+    unclipped, _ = stream.step(params, stream.init_state(1, dev), cond[0], x0[0])
+    assert float((eager[0] - unclipped).abs().max()) > 1e-2
+    bufs = {"state": stream.init_state(1, dev), "cond": cond[0].clone(), "x0": x0[0].clone(),
+            "lo": lo[0].clone(), "hi": hi[0].clone()}
+
+    def chunk():
+        return stream.step(params, bufs["state"], bufs["cond"], bufs["x0"],
+                           dyn_clip=(bufs["lo"], bufs["hi"]))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chunk()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_buf, new_state = chunk()
+        for k, v in new_state.items():
+            bufs["state"][k].copy_(v)
+    for v in bufs["state"].values():
+        v.zero_()
+    for i in range(n):
+        for name, src in (("cond", cond), ("x0", x0), ("lo", lo), ("hi", hi)):
+            bufs[name].copy_(src[i])
+        graph.replay()
+        torch.testing.assert_close(y_buf, eager[i], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_device_trace_and_sync_on_card(tmp_path):
+    """device_trace on the card writes a Chrome trace naming K1's kernel;
+    sync leaves no work queued on the card. The profiler misses a launch now
+    and then, so a window makes 8 K1 calls and is taken again, twice at
+    most, where it recorded none of them."""
+    from conan_tpu_torch.utils.profiling import device_trace, sync
+
+    dev = _card()
+    wav = torch.randn(1, 81920, device=dev) * 0.2
+    kernel = LogmelKernel()
+    for attempt in range(3):
+        log_dir = tmp_path / f"trace{attempt}"
+        with device_trace(str(log_dir)) as prof:
+            mels = [kernel(wav, MelConfig()) for _ in range(8)]
+            sync({"mel": mels, "wav": [wav]})
+            assert torch.cuda.current_stream().query()
+        files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+        assert len(files) == 1
+        with open(log_dir / files[0]) as f:
+            kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        recorded = sum("logmel_fft_kernel" in name for name in kernels)
+        counted = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and "logmel_fft_kernel" in e.key)
+        assert recorded == counted <= 8
+        if recorded:
+            break
+    assert recorded >= 1
+
+
+@pytest.mark.cuda
+def test_bench_vocoder_on_card(tmp_path, capsys):
+    """The micro-harness on the card (CUDA events) on a small vocoder with
+    fan-in scaled seeded weights: both lines, consistency OK, exit 0."""
+    from conan_tpu_torch.checkpoint import save_checkpoint
+    from conan_tpu_torch.infer import bench_vocoder
+    from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
+    from conan_tpu_torch.nn.inits import fan_in_redraw
+
+    _card()
+    hp = dict(SMALL["vocoder"], audio_sample_rate=16000)
+    gen = torch.Generator().manual_seed(0)
+    params = fan_in_redraw(HifiGanGenerator(HifiGanConfig.from_hparams(hp)).init(gen), gen)
+    save_checkpoint(str(tmp_path), 0, {"params_g": params}, hp)
+    with open(tmp_path / "config.yaml", "w") as f:
+        json.dump(hp, f)
+    bench_vocoder.main(["--ckpt_dir", str(tmp_path), "--chunks", "8"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("vocoder single-chunk (4 frames = 80 ms audio): p50 ")
+    assert lines[1].startswith("incremental-consistency (4 vs 8 frame chunks)")
+    assert lines[1].endswith("(OK)")

@@ -140,6 +140,41 @@ def test_rectified_flow_sample_and_stream_match_jax(rng):
     _close(torch.cat(outs, 1), got, atol=1e-5)
 
 
+def test_rectified_flow_dynamic_clip_matches_jax(rng):
+    """``dyn_clip`` (per-frame bounds [B, T, 1], tight enough to bind) in
+    ``sample`` and, chunk by chunk with the chunk's bounds, in
+    ``StreamingRectifiedFlow.step`` against JAX's, at 1e-5; the streamed
+    result equals the offline one. Bounds given as floats raise."""
+    jnet, pnet, p_np = _net(22)
+    jf = jflow.RectifiedFlow(jnet, jflow.ReflowConfig(timesteps=1000, k_step=6))
+    pf = pflow.RectifiedFlow(pnet, pflow.ReflowConfig(timesteps=1000, k_step=6))
+    p = params_from_jax(p_np, "cpu")
+    cond = rng.standard_normal((2, 12, 64)).astype(np.float32)
+    x0 = rng.standard_normal((2, 12, 1)).astype(np.float32)
+    lo = (-0.2 - 0.1 * rng.random((2, 12, 1))).astype(np.float32)
+    hi = (0.1 + 0.1 * rng.random((2, 12, 1))).astype(np.float32)
+    want = np.asarray(jax.jit(jf.sample)(p_np, cond, x0, (lo, hi)))
+    got = pf.sample(p, _t(cond), _t(x0), dyn_clip=(_t(lo), _t(hi)))
+    _close(got, want, atol=1e-5)
+    unclipped = pf.sample(p, _t(cond), _t(x0))
+    assert (got - unclipped).abs().max() > 1e-2          # the bounds bind
+    with pytest.raises(TypeError, match="tensors"):
+        pf.sample(p, _t(cond), _t(x0), dyn_clip=(-0.5, 0.5))
+
+    js, ps = jflow.StreamingRectifiedFlow(jf), pflow.StreamingRectifiedFlow(pf)
+    jst, st = js.init_state(2), ps.init_state(2)
+    jstep = jax.jit(js.step)
+    outs = []
+    for s in range(0, 12, 4):
+        sl = slice(s, s + 4)
+        jy, jst = jstep(p_np, jst, cond[:, sl], x0[:, sl], (lo[:, sl], hi[:, sl]))
+        y, st = ps.step(p, st, _t(cond[:, sl]), _t(x0[:, sl]),
+                        dyn_clip=(_t(lo[:, sl]), _t(hi[:, sl])))
+        _close(y, jy, atol=1e-5)
+        outs.append(y)
+    _close(torch.cat(outs, 1), got, atol=1e-5)
+
+
 def test_conan_flow_apply_and_stream_step_match_jax(rng):
     jm, pm = JConan(FLOW.conan), Conan(PORT.conan)
     p_np = _voiced_conan_params(22)

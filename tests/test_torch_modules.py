@@ -130,6 +130,55 @@ def test_emformer_apply_step_match_jax():
     _close(torch.cat(steps, 1), got, atol=1e-5)
 
 
+def test_emformer_two_heads_match_jax():
+    """``mode="both"``: the init tree's shapes equal JAX's; ``apply`` with and
+    without ``lengths`` and ``step`` return (logits, features) equal to JAX's
+    at atol 1e-4, codes equal; the port's steps chunk by chunk equal its
+    ``apply`` at 1e-5."""
+    cfg = SMALL.emformer
+    jm, pm = JEmformer(cfg, mode="both"), EmformerDistillModel(PORT.emformer, mode="both")
+    assert (leaf_shapes(pm.init(torch.Generator().manual_seed(0)))
+            == leaf_shapes(jax.eval_shape(jm.init, jax.random.PRNGKey(0))))
+    p_np = numpy_params(jm.init, seed=4)
+    assert p_np["proj1"]["w"].shape == (100, cfg.input_dim)
+    assert p_np["proj2"]["w"].shape == (768, cfg.input_dim)
+    p = params_from_jax(p_np, "cpu")
+    rng = np.random.default_rng(5)
+    seg, rc = cfg.segment_length, cfg.right_context_length
+    n_segs = 5
+    mel = rng.standard_normal((2, n_segs * seg + rc, 80)).astype(np.float32)
+    lengths = np.array([n_segs * seg + rc, n_segs * seg - 3], np.int32)
+
+    got = pm.apply(p, _t(mel))
+    for lens in (None, lengths):
+        want = jax.jit(jm.apply)(p_np, mel, None if lens is None else jnp.asarray(lens))
+        out = got if lens is None else pm.apply(p, _t(mel), _t(lens))
+        assert len(out) == len(want) == 2
+        for a, b in zip(out, want):
+            _close(a, b)
+        np.testing.assert_array_equal(out[0].argmax(-1).numpy(), np.asarray(want[0]).argmax(-1))
+    assert got[0].shape[-1] == 100 and got[1].shape[-1] == 768
+
+    jstep = jax.jit(jm.step)
+    jst, st = jm.init_state(2), pm.init_state(2)
+    steps = []
+    for s in range(n_segs):
+        chunk = mel[:, s * seg:s * seg + seg + rc]
+        (jl, jf), jst = jstep(p_np, jst, chunk)
+        (pl, pf), st = pm.step(p, st, _t(chunk))
+        _close(pl, jl)
+        _close(pf, jf)
+        np.testing.assert_array_equal(pl.argmax(-1).numpy(), np.asarray(jl).argmax(-1))
+        steps.append((pl, pf))
+    for i in range(2):
+        _close(torch.cat([s[i] for s in steps], 1), got[i], atol=1e-5)
+
+
+def test_emformer_unknown_mode_raises():
+    with pytest.raises(ValueError, match="mode"):
+        EmformerDistillModel(PORT.emformer, mode="features")
+
+
 # ---------------------------------------------------------------------------
 # Conan acoustic model
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ the vocoder) whichever way the sum is ordered; float64 leaves the order of
 summation below 1e-6 everywhere. The ranks agree bit for bit.
 """
 
+import importlib.util
 import os
 
 import numpy as np
@@ -36,6 +37,8 @@ from conan_tpu_torch.parallel import dist
 from tests import torch_dist_worker as W
 
 CASES = ("vocoder", "conan", "postnet", "emformer")
+# rank 0's TensorBoard directory, where TensorBoard is installed
+TB = ["tb"] if importlib.util.find_spec("tensorboard") else []
 
 
 @pytest.fixture(scope="module")
@@ -148,7 +151,7 @@ def test_trainer_writes_on_rank0_and_resumes_on_both(runs):
         lines = [line.split('"prefix": "')[1].split('"')[0] for line in f]
     assert lines == ["tr", "val", "tr", "val", "tr", "val"]
     assert sorted(os.listdir(work)) == sorted(
-        ["codes.zip", "metrics.jsonl"] + [f"model_ckpt_steps_{s}.ckpt" for s in (1, 2, 3)])
+        ["codes.zip", "metrics.jsonl"] + TB + [f"model_ckpt_steps_{s}.ckpt" for s in (1, 2, 3)])
     for key in ("trainer", "trainer_resumed"):
         s0, s1 = r0[key]["state"], r1[key]["state"]
         assert all(np.array_equal(s0[p], s1[p]) for p in s0)
@@ -201,8 +204,8 @@ def test_training_cli_under_torchrun(tmp_path):
     assert "rank 1 of 2" in outs[1] and "rank 0 of 2" in outs[0]
     with open(os.path.join(work, "metrics.jsonl")) as f:
         assert [line.count('"prefix": "tr"') for line in f] == [1, 1]
-    assert sorted(os.listdir(work)) == ["codes.zip", "config.yaml", "metrics.jsonl",
-                                        "model_ckpt_steps_2.ckpt"]
+    assert sorted(os.listdir(work)) == sorted(["codes.zip", "config.yaml", "metrics.jsonl",
+                                               "model_ckpt_steps_2.ckpt"] + TB)
 
 
 @pytest.mark.parametrize("name", ["vocoder_plain", "conan_fixed", "emformer"])

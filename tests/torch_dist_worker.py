@@ -31,10 +31,13 @@ import os
 import pickle
 import subprocess
 import sys
+import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
+# as tests/torch_port_util.py: TensorBoard through its stub, no TensorFlow
+sys.modules.setdefault("tensorboard.compat.notf", types.ModuleType("tensorboard.compat.notf"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402

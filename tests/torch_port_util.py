@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
+import types
 
 import jax
 import numpy as np
@@ -27,6 +29,13 @@ from conan_tpu_torch.audio.mel import MelConfig as PortMelConfig
 from conan_tpu_torch.models.conan.model import ConanConfig as PortConanConfig
 from conan_tpu_torch.models.emformer import EmformerConfig as PortEmformerConfig
 from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig as PortHifiGanConfig
+
+# TensorBoard's writer reaches TensorFlow, where it is installed, through
+# ``tensorboard.compat.tf``, which takes TensorBoard's own stub instead where
+# ``tensorboard.compat.notf`` imports. The port's trainer writes TensorBoard
+# where it can; in the tests it writes the same event files through the stub
+# and no process imports TensorFlow (tens of seconds each).
+sys.modules.setdefault("tensorboard.compat.notf", types.ModuleType("tensorboard.compat.notf"))
 
 # the SMALL engine of tests/test_streaming_engine.py
 SMALL = StreamingConfig(
