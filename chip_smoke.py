@@ -168,6 +168,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import dataclasses
 import datetime
 import hashlib
@@ -202,8 +203,8 @@ from conan_tpu_torch.models.vocoder.discriminators import DiscriminatorS
 from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
 from conan_tpu_torch.nn.inits import fan_in_redraw
 from conan_tpu_torch.ops import native
-from conan_tpu_torch.ops.groupconv import (groupconv, grouped_conv1d_bf16_reference,
-                                           grouped_conv1d_reference)
+from conan_tpu_torch.ops.groupconv import (bf16_plan, groupconv, grouped_conv1d_bf16_reference,
+                                           grouped_conv1d_reference, kernel_weights_bf16)
 from conan_tpu_torch.ops.precision import precision_scope, rounded_dot, training_scope
 from conan_tpu_torch.parallel import dist
 from conan_tpu_torch.ops.logmel import (GAN_CLIP, GAN_EPS, _gan_vjp, gan_pad, logmel,
@@ -612,14 +613,52 @@ def groupconv_bf16_bound_ms(B: int, T: int, ci: int, co: int, k: int, s: int, g:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def groupconv_bf16_launch_ms(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
+                             groups: int, lib=None, tiles=None,
+                             iters: int = 50) -> tuple[float, torch.Tensor, torch.Tensor]:
+    """K2-bf16's conv kernel alone, by CUDA events, where the profiler may
+    miss launches: the C entry point ``groupconv_bf16_conv`` launched
+    ``iters`` times back to back after a warm-up, on weights laid out
+    (``groupconv_bf16_weights``) and tensor maps encoded
+    (``groupconv_bf16_describe``) once. ``lib`` and ``tiles`` default to
+    the shipped library and plan. Returns (ms a launch, y, the weights'
+    layout)."""
+    lib = lib or native.load()
+    B, T, Ci = x.shape
+    Co, cig, K = w.shape
+    T_out = (T + 2 * pad - K) // stride + 1
+    plan = bf16_plan(B, T_out, Ci, Co, groups, K, stride, tiles)
+    wq = torch.empty(Co, K * (-(-cig // 16) * 16), dtype=torch.bfloat16, device=x.device)
+    y = torch.full((B, T_out, Co), float("nan"), device=x.device)
+    maps = ctypes.create_string_buffer(256)
+    stream = torch.cuda.current_stream().cuda_stream
+    geometry = (B, T, Ci, T_out, Co, groups, K, stride, pad)
+    err = (lib.groupconv_bf16_weights(w.data_ptr(), wq.data_ptr(), Co, cig, K, stream)
+           or lib.groupconv_bf16_describe(x.data_ptr(), wq.data_ptr(), B, T, Ci, Co, groups, K,
+                                          plan.bn, ctypes.addressof(maps)))
+
+    def launch():
+        if lib.groupconv_bf16_conv(ctypes.addressof(maps), y.data_ptr(), *geometry, *plan.args,
+                                   stream):
+            fail(f"groupconv_bf16_conv refused {geometry} with {plan}")
+
+    if err:
+        fail(f"groupconv_bf16 weights or tensor maps: cudaError {err} for {geometry}")
+    return cuda_ms(launch, iters=iters), y, wq
+
+
 def groupconv_bf16_phase(geoms: list[tuple], gen: torch.Generator, dev: torch.device
                          ) -> tuple[list[dict], float, float]:
     """K2-bf16 under the "default" rung on each grouped geometry at B =
     TRAIN_B: the value against its plain version (max abs, relative L2), dx
     and dw through its autograd Function against rounded_dot's (relative
-    L2), then its time beside the plain version, cuDNN's F.conv1d on bf16
-    tensors and the bound. Returns the rows, the max abs value error and the
-    worst gradient relative L2."""
+    L2), the kernel's weight layout against its plain version (bit for
+    bit), then its time (the wrapper call; the kernel by the profiler and by
+    bare launches) beside the plain version, cuDNN's F.conv1d on bf16
+    tensors and the bound, and the backward's at this rung (cuDNN on
+    bf16-rounded operands: dx + dw as in the discriminator step, dx alone as
+    in the generator step). Returns the rows, the max abs value error and
+    the worst gradient relative L2."""
     rows, err, grad_err = [], 0.0, 0.0
     for scale, t, ci, co, k, s, g, pd in geoms:
         x = torch.randn(TRAIN_B, t, ci, generator=gen).to(dev)
@@ -643,6 +682,10 @@ def groupconv_bf16_phase(geoms: list[tuple], gen: torch.Generator, dev: torch.de
             grad_err = max(grad_err, row[f"{which}_rel_l2"])
         x_cf, w_b = x.transpose(1, 2).contiguous().bfloat16(), w.bfloat16()
         with torch.no_grad(), training_scope("default", dev):
+            row["launch_ms"], y_bare, wq = groupconv_bf16_launch_ms(x, w, s, pd, g)
+            if not torch.equal(wq, kernel_weights_bf16(w)):
+                fail(f"{name}: the kernel's weight layout differs from kernel_weights_bf16")
+            compare(f"{name} (bare launches)", y_bare, want, LOGMEL_ATOL, LOGMEL_RTOL)
             row.update(
                 ms=cuda_ms(lambda: groupconv(x, w, **k2)),
                 kernel_device_ms=kernel_device_ms(lambda: groupconv(x, w, **k2),
@@ -650,15 +693,25 @@ def groupconv_bf16_phase(geoms: list[tuple], gen: torch.Generator, dev: torch.de
                 plain_ms=cuda_ms(lambda: grouped_conv1d_bf16_reference(x, w, **k2)),
                 library_ms=cuda_ms(lambda: F.conv1d(x_cf, w_b, stride=s, padding=pd,
                                                     groups=g)))
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        with training_scope("default", dev):
+            y_both, y_dx = groupconv(xg, wg, **k2), groupconv(xg, w, **k2)
+            gy = torch.randn_like(y_both)
+            row["bwd_dx_dw_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(y_both, (xg, wg), gy, retain_graph=True), iters=20)
+            row["bwd_dx_ms"] = cuda_ms(
+                lambda: torch.autograd.grad(y_dx, xg, gy, retain_graph=True), iters=20)
         row["bound_ms"], row["bound_by"] = groupconv_bf16_bound_ms(TRAIN_B, t, ci, co, k, s,
                                                                    g, pd)
         rows.append(row)
         print(f"train groupconv_bf16 geometry: scale {scale} {ci}->{co} s{s} g{g} B={TRAIN_B} "
               f"T={t}: vs plain max abs {float((got - want).abs().max()):.3g}, rel L2 "
               f"{row['rel_l2']:.3g}, dx {row['dx_rel_l2']:.3g}, dw {row['dw_rel_l2']:.3g}; "
-              f"kernel {row['ms']:.4f} ms (device {ms_text(row['kernel_device_ms'])}), cuDNN "
-              f"bf16 F.conv1d {row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.4g} ms by {row['bound_by']}", flush=True)
+              f"kernel {row['ms']:.4f} ms (device {ms_text(row['kernel_device_ms'])}, bare "
+              f"launches {row['launch_ms']:.4f} ms), cuDNN bf16 F.conv1d "
+              f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4g} ms by {row['bound_by']}; backward (cuDNN, bf16 operands) "
+              f"dx+dw {row['bwd_dx_dw_ms']:.4f} ms, dx {row['bwd_dx_ms']:.4f} ms", flush=True)
     return rows, err, grad_err
 
 
@@ -1179,17 +1232,23 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
           f"{2 * k2_sum['bwd_dx_dw_ms'] + k2_sum['bwd_dx_ms']:.4f} ms", flush=True)
     bf16_rows, bf16_err, bf16_grad_err = groupconv_bf16_phase(geoms, gen, dev)
     bf16_sum = {key: total(r[key] for r in bf16_rows)
-                for key in ("ms", "kernel_device_ms", "plain_ms", "library_ms", "bound_ms")}
+                for key in ("ms", "kernel_device_ms", "launch_ms", "plain_ms", "library_ms",
+                            "bound_ms", "bwd_dx_dw_ms", "bwd_dx_ms")}
     bf16_by = {by: sum(r["bound_ms"] for r in bf16_rows if r["bound_by"] == by)
                for by in ("bytes", "operations")}
     print(f"train groupconv_bf16 sums over the {len(geoms)} geometries: values max abs "
           f"{bf16_err:.3g} (atol {LOGMEL_ATOL}, rtol {LOGMEL_RTOL}), max rel L2 "
           f"{max(r['rel_l2'] for r in bf16_rows):.3g}; dx/dw max rel L2 {bf16_grad_err:.3g} "
           f"(limit {BF16_GRAD_REL}); kernel {bf16_sum['ms']:.4f} ms (device "
-          f"{ms_text(bf16_sum['kernel_device_ms'])}), cuDNN bf16 {bf16_sum['library_ms']:.4f} "
+          f"{ms_text(bf16_sum['kernel_device_ms'])}, bare launches "
+          f"{bf16_sum['launch_ms']:.4f} ms), cuDNN bf16 {bf16_sum['library_ms']:.4f} "
           f"ms, plain {bf16_sum['plain_ms']:.4f} ms, bound {bf16_sum['bound_ms']:.4g} ms "
-          f"(3xTF32 K2 {k2_sum['ms']:.4f} ms, device {ms_text(k2_sum['kernel_device_ms'])})",
-          flush=True)
+          f"(3xTF32 K2 {k2_sum['ms']:.4f} ms, device {ms_text(k2_sum['kernel_device_ms'])}); "
+          f"backward (cuDNN, bf16 operands) dx+dw {bf16_sum['bwd_dx_dw_ms']:.4f} ms, dx "
+          f"{bf16_sum['bwd_dx_ms']:.4f} ms, so per default step (2 MSD passes with dx+dw in "
+          f"the discriminator step, 1 with dx in the generator step) forward "
+          f"{3 * bf16_sum['ms']:.4f} ms, backward "
+          f"{2 * bf16_sum['bwd_dx_dw_ms'] + bf16_sum['bwd_dx_ms']:.4f} ms", flush=True)
     with torch.no_grad():
         k1_ms = k1_plain_ms = k1_library_ms = k1_bound_ms = 0.0
         k1_device = []
@@ -1233,9 +1292,11 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
          "kernel_device_ms": bf16_sum["kernel_device_ms"], "plain_ms": bf16_sum["plain_ms"],
          "bound_ms": bf16_sum["bound_ms"], "bound_by": max(bf16_by, key=bf16_by.get),
          "library_ms": bf16_sum["library_ms"], "grad_rel_l2": bf16_grad_err,
-         "geometries": len(geoms),
+         "launch_ms": bf16_sum["launch_ms"], "bwd_dx_dw_ms": bf16_sum["bwd_dx_dw_ms"],
+         "bwd_dx_ms": bf16_sum["bwd_dx_ms"], "geometries": len(geoms),
          "scale1_layer": {key: bf16_rows[0][key] for key in
-                          ("ms", "kernel_device_ms", "plain_ms", "library_ms", "bound_ms")}},
+                          ("ms", "kernel_device_ms", "launch_ms", "plain_ms", "library_ms",
+                           "bound_ms")}},
     ]
 
 

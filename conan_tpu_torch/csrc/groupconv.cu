@@ -74,34 +74,75 @@
 // which the per-tap rows need; wgmma with A from registers and B through TMA
 // into a swizzled tile is the next step, since K2 still trails its bound.
 //
-// K2-bf16 (groupconv_bf16_kernel, entry groupconv_forward_bf16) is the same
-// per-group implicit GEMM for the "default" training rung, which the TPU
-// kernel serves by running its dots at the input dtype
-// (pallas_groupconv.py:60-62, 78-98): one bf16 product per multiply-add,
-// fp32 accumulation, fp32 output. x is rounded to bf16 (to nearest even) as
-// it is staged into shared memory: a plain load, two __floats2bfloat162_rn
-// and one 8-byte store per 4 channels, where the tf32 kernel uses cp.async;
-// the weights come pre-rounded by the wrapper (ops/groupconv.py:
-// kernel_weights_bf16) as [G, K*cigp/16, cog, 16] bf16, k-steps of 16
-// channels of one tap, with cig padded with zero channels to cigp, the next
-// multiple of 16 (the MSD's 128 -> 256 layer has cig 8; the staging
-// zero-fills x's padded channels too, so the padding adds only zero
-// products). The product is mma.sync.m16n8k16 bf16 accumulating in fp32
-// registers directly: at bf16's operand rounding (2^-9) the tensor cores'
-// accumulation truncation (~1e-6 over a layer) is below what the rung gives
-// up, so there is no second accumulation level. Fragment columns are
-// permuted alike for A and B (k-slots 2q, 2q+1, 2q+8, 2q+9 of thread q take
-// channels 4q..4q+3), so each thread's A row and B column are one 64-bit
-// shared load; x's row pitch is cigp or cigp + 16 bf16, whichever is 16
-// mod 32, so 8 rows of a fragment fall in distinct bank groups. Tiles and
-// the double-buffered weight slices are the tf32 kernel's. What bounds it
-// on the card: one bf16 product at the dense bf16 peak (989 TFLOP/s)
-// against the fp32 x and y over HBM; at scale 1's first grouped layer the
-// bytes are the larger (chip_smoke.py:groupconv_bound_ms).
+// K2-bf16 (groupconv_bf16_kernel, entry groupconv_forward_bf16) computes the
+// same grouped conv for the "default" training rung, which the TPU kernel
+// serves by running its dots at the input dtype (pallas_groupconv.py:60-62,
+// 78-98): x and w rounded to bf16 (nearest even), one bf16 product per
+// multiply-add, fp32 accumulation, fp32 output. It is written for Hopper's
+// warpgroup products, both operands from shared memory:
+//   - M runs over m64 slots: 64 outputs of one batch row each, slots =
+//     ceil(T_out / 64) a row, the rows' slots one after another. A tile is
+//     MI*NWG slots, so at scale 2-3's deep layers (T_out 63, 32) it holds
+//     several batch rows; only a row's last slot past T_out is padding. Its
+//     window is staged as one segment a batch row, rows t_lo*s - pad_l ..
+//     t_hi*s - pad_l + K - 1, from a multiple of kRowBox rows;
+//   - the window comes in by TMA (a 3-D map over x [B, T, Ci], boxes of
+//     kRowBox rows x cig channels, zero-filled outside [0, T): the conv's
+//     padding) into an fp32 staging buffer; the block's next window is
+//     issued as soon as this one is converted, so it lands while this tile
+//     multiplies. One pass in shared memory rounds it to bf16 into the
+//     wgmma's no-swizzle K-major layout, polyphase: 16-byte core-matrix rows
+//     of 8 channels at [channel chunk][row % s][row / s], zero chunks past
+//     cig up to cigp (cig rounded up to 16; the MSD's 128 -> 256 layer has
+//     cig 8). Output t's tap j is then row t + j/s of phase j % s, so an
+//     m64 slot's k-step (tap j, 16 channels) is one descriptor: 8-row groups
+//     128 bytes apart, the second 8 channels one chunk plane on;
+//   - the product is wgmma.mma_async m64nBNk16 with A and B from shared
+//     memory. B, the weights, come by TMA in 64-wide K-major boxes with the
+//     128-byte swizzle, from a [Co, K*cigp] bf16 layout that a preparation
+//     kernel writes once a call (k2bf16_weights_kernel; its plain version
+//     ops/groupconv.py:kernel_weights_bf16);
+//   - warp-specialized and persistent: one producer warp keeps a ring of
+//     STAGES weight stages (KC boxes each) full by TMA on mbarriers and
+//     issues the windows; one consumer warpgroup (NWG) issues a stage's
+//     wgmmas back to back and keeps two stages in flight (wgmma.wait_group
+//     1), releasing each stage's weights by mbarrier; a tile's first product
+//     passes scale-d 0, and the last stage stops at the reduction's end.
+//     Two consumer-only named barriers a tile guard the bf16 window; no
+//     block-wide barrier runs after the set-up;
+//   - y is stored from the accumulators with 8-byte stores (whole 32-byte
+//     sectors per warp), masked past T_out and the last slot.
+// What bounds it on the card: its fp32 x and y over HBM on 13 of the 15 MSD
+// geometries, its bf16 product at the dense bf16 peak on scale 1-2's
+// 1024 -> 1024 (chip_smoke.py:groupconv_bf16_bound_ms). Inside the kernel
+// the shared-memory reads of the operands: an m64nBNk16 reads 2 KB of A and
+// BN*32 bytes of B, which at BN 16-32 takes the port longer than the tensor
+// cores take for the product, and the wgmmas of a stage are one dependent
+// chain; tiles of two or four slots a warpgroup give more chains.
+// Designs built first and measured slower (bare launches, 15 geometries at
+// B=18, tools/torch_kernel_lab.py bf16; NVIDIA H100 80GB HBM3, 700 W):
+//   - A from registers (the mma.m16n8k16 A layout, one 8-byte load per row
+//     and k-step): 0.696-0.716 ms. Loading a k-step's A while the last
+//     wgmma ran made ptxas serialize every wgmma; loading a stage's A before
+//     its wgmmas cost the registers that held two blocks on an SM;
+//   - rounding at fragment load from fp32 staging (no pass; two staging
+//     buffers): 15-40% slower per geometry than the pass in shared memory;
+//   - converting the next window during this tile's stages into a second
+//     bf16 window: 0.763 ms against 0.599, the second window's shared
+//     memory cost the scale-1 128 -> 128 layer its second block on an SM.
+// Tiles (BN, CIGP, MI, NWG, KC, STAGES), chosen by that sweep over the
+// swept list below: one consumer warpgroup throughout, its slots MI 2
+// (MI 4 at cig 8) and stages of two 64-wide boxes; 0.549 ms, the parent's
+// mma.sync kernel 0.981 ms in the same call.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 
 #include <cstdint>
+#include <cstring>
+#include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -326,173 +367,604 @@ int launch(const float* x, const float* w_hi, const float* w_lo, float* y, int B
 }
 
 
-// d += a * b on the tensor cores (m16n8k16, bf16 in, fp32 accumulate)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// ---------------------------------------------------------------------------
+// K2-bf16: warp-specialized wgmma implicit GEMM (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kRowBox = 16;   // window rows a TMA box
+constexpr int kSlot = 64;     // outputs of one batch row an m64 block holds
+
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int BM, int BN, int WM, int WN, int KS, int STAGES>
-__global__ void __launch_bounds__(threads_of<BM, BN, WM, WN>())
-groupconv_bf16_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ wq,
-                      float* __restrict__ y, int T, int Ci, int T_out, int Co, int cig,
-                      int cigp, int cog, int K, int stride, int pad_l, int n_co_tiles, int rpp,
-                      int xpitch) {
-  constexpr int THREADS = threads_of<BM, BN, WM, WN>();
-  constexpr int MI = WM / 16, NI = WN / 8;
-  constexpr int W_STAGE = KS * BN * 16;   // bf16 of one stage's weight slice
-  extern __shared__ __align__(16) __nv_bfloat16 smem_bf16[];
-  __nv_bfloat16* xs = smem_bf16;                            // [s][rpp][xpitch]
-  __nv_bfloat16* ws = smem_bf16 + stride * rpp * xpitch;    // [STAGES][KS][BN][16]
-
-  const int g = blockIdx.y / n_co_tiles;
-  const int co0 = (blockIdx.y - g * n_co_tiles) * BN;
-  const int b = blockIdx.z;
-  const int t0 = blockIdx.x * BM;
-  const int W = (BM - 1) * stride + K;
-  const int NKS = K * cigp / 16;     // k-steps
-  const int n_slices = (NKS + KS - 1) / KS;
-
-  const __nv_bfloat16* wg = wq + (size_t)g * NKS * cog * 16;
-  auto load_slice = [&](int i) {
-    __nv_bfloat16* dst = ws + (i % STAGES) * W_STAGE;
-    for (int e = threadIdx.x; e < KS * BN * 2; e += THREADS) {
-      const int ksl = e / (2 * BN), rem = e - ksl * 2 * BN, n = rem >> 1, h = rem & 1;
-      const int ks = i * KS + ksl;
-      const bool ok = ks < NKS && co0 + n < cog;
-      cp_async16(dst + (ksl * BN + n) * 16 + h * 8,
-                 ok ? wg + ((size_t)ks * cog + co0 + n) * 16 + h * 8 : wq, ok);
-    }
-  };
-#pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < n_slices) load_slice(i);
-    cp_async_commit();
-  }
-
-  // the window, rounded to bf16 on its way in; channels cig..cigp-1 are zero
-  const float* xb = x + (size_t)b * T * Ci + (size_t)g * cig;
-  const int tin0 = t0 * stride - pad_l;
-  const int CQ = cigp / 4;
-  for (int e = threadIdx.x; e < W * CQ; e += THREADS) {
-    const int r = e / CQ, q = e - r * CQ;
-    const int tin = tin0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (tin >= 0 && tin < T && q * 4 < cig)
-      v = *reinterpret_cast<const float4*>(xb + (size_t)tin * Ci + q * 4);
-    const int row = (r % stride) * rpp + r / stride;
-    *reinterpret_cast<uint2*>(xs + row * xpitch + q * 4) =
-        make_uint2(bf16x2_bits(v.x, v.y), bf16x2_bits(v.z, v.w));
-  }
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int wm0 = (warp % (BM / WM)) * WM;
-  const int wn0 = (warp / (BM / WM)) * WN;
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
-
-  // the k-step's channel block c16 and phase, and the shared offset of this
-  // thread's A values: row (j % s)*rpp + j/s + wm0 + gid, column c16 + 4*tig
-  int c16 = 0, phase = 0;
-  int a_off = (wm0 + gid) * xpitch + 4 * tig;
-  const int phase_step = rpp * xpitch;
-
-  for (int i = 0; i < n_slices; ++i) {
-    if (i + STAGES - 1 < n_slices) load_slice(i + STAGES - 1);
-    cp_async_commit();
-    cp_async_wait<STAGES - 1>();   // slice i is in (and, after the barrier, the window)
-    __syncthreads();
-    const __nv_bfloat16* wsi = ws + (i % STAGES) * W_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      if (i * KS + kk >= NKS) break;
-      uint32_t a[MI][4], bq[NI][2];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int o = a_off + mi * 16 * xpitch;
-        const uint2 r0 = *reinterpret_cast<const uint2*>(xs + o);
-        const uint2 r1 = *reinterpret_cast<const uint2*>(xs + o + 8 * xpitch);
-        a[mi][0] = r0.x;   // row gid,     k-slots 2tig, 2tig+1 (channels 4tig, 4tig+1)
-        a[mi][1] = r1.x;   // row gid + 8
-        a[mi][2] = r0.y;   // row gid,     k-slots 2tig+8, 2tig+9 (channels 4tig+2, 4tig+3)
-        a[mi][3] = r1.y;   // row gid + 8
-      }
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const uint2 v = *reinterpret_cast<const uint2*>(
-            wsi + (kk * BN + wn0 + ni * 8 + gid) * 16 + 4 * tig);
-        bq[ni][0] = v.x;   // column gid, k-slots 2tig, 2tig+1
-        bq[ni][1] = v.y;   // column gid, k-slots 2tig+8, 2tig+9
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], a[mi], bq[ni]);
-      c16 += 16;
-      a_off += 16;
-      if (c16 == cigp) {
-        c16 = 0;
-        a_off += phase_step - cigp;
-        if (++phase == stride) {
-          phase = 0;
-          a_off += xpitch - stride * phase_step;
-        }
-      }
-    }
-    __syncthreads();   // slice i is consumed before slice i + STAGES lands in its buffer
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int n = co0 + wn0 + ni * 8 + 2 * tig;
-      if (n >= cog) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = t0 + wm0 + mi * 16 + gid + 8 * h;
-        if (t < T_out)
-          *reinterpret_cast<float2*>(y + ((size_t)b * T_out + t) * Co + (size_t)g * cog + n) =
-              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-    }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int BM, int BN, int WM, int WN, int KS, int STAGES>
-int launch_bf16(const float* x, const __nv_bfloat16* wq, float* y, int B, int T, int Ci,
-                int T_out, int Co, int groups, int K, int stride, int pad_l, cudaStream_t s) {
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// returns once the barrier's phase of parity `parity` has completed; built
+// with -DK2BF16_WATCHDOG (tools/torch_kernel_lab.py), a wait of ~2^26 tries
+// traps, so a pipeline that deadlocks fails its launch instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+#ifdef K2BF16_WATCHDOG
+  uint32_t tries = 0;
+#endif
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+#ifdef K2BF16_WATCHDOG
+    if (++tries == (1u << 26)) __trap();
+#endif
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the consumer warpgroups' own barrier (named barrier 1; the producer warp
+// never joins it)
+template <int THREADS>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory descriptor of the weights' B tile: K-major, 128-byte
+// swizzle, rows of 64 bf16 (128 bytes), 8-row swizzle atoms 1024 bytes
+// apart; a k-step of 16 within a row advances the start address by 32 bytes
+__device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// shared-memory descriptor of the window's A tile: K-major, no swizzle; a
+// core matrix is 8 rows x 16 bytes (8 channels) stored contiguously, the
+// next 8 channels `lbo` bytes on, the next 8 rows 128 bytes on
+__device__ __forceinline__ uint64_t a_desc(uint32_t saddr, uint32_t lbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
+// d = a * b + (scale_d ? d : 0): wgmma m64nNk16, A and B (bf16) through
+// descriptors, fp32 accumulators in the m64nN layout. A tile's first product
+// passes scale_d 0, so no other instruction writes the accumulators inside
+// the pipeline (ptxas serializes the wgmmas otherwise).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// keeps the compiler from moving accesses of an accumulator across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+struct Bf16Args {
+  float* y;
+  int B, T_out, Co, cig, cog, K, stride, pad_l, groups;
+  int nks;          // k-steps of 16: K * cigp / 16
+  int slots;        // m64 slots a batch row: ceil(T_out / 64)
+  int win_rows;     // fp32 staging rows
+  int win_u;        // bf16 window rows a phase: win_rows / stride, and a slot's reach
+  int alloc_full;   // staging rows of a whole batch row's window (a multiple of kRowBox)
+  int n_co_tiles, n_tiles;
+};
+
+// M tile mt: the m64 slots v0 .. v1-1 (slot v: batch row v / slots, outputs
+// 64 * (v % slots) ..), and the window segments they read, one a batch row
+// b_first .. b_last: the first from output t_lo_first, its window taking
+// alloc_first staging rows, each later one alloc_full (the last no more)
+struct TileRows {
+  int v0, v1, b_first, b_last, t_lo_first, alloc_first;
+};
+
+__device__ __forceinline__ int seg_t_hi(const Bf16Args& a, int v1, int b) {
+  return min((v1 - b * a.slots) * kSlot, a.T_out) - 1;
+}
+
+__device__ __forceinline__ TileRows tile_rows(const Bf16Args& a, int mt, int mb) {
+  TileRows r;
+  r.v0 = mt * mb;
+  r.v1 = min(r.v0 + mb, a.B * a.slots);
+  r.b_first = r.v0 / a.slots;
+  r.b_last = (r.v1 - 1) / a.slots;
+  r.t_lo_first = (r.v0 - r.b_first * a.slots) * kSlot;
+  const int t_hi = r.b_first == r.b_last ? seg_t_hi(a, r.v1, r.b_first) : a.T_out - 1;
+  r.alloc_first = round_up((t_hi - r.t_lo_first) * a.stride + a.K, kRowBox);
+  return r;
+}
+
+// the staging row of output t of batch row b (b_first <= b <= b_last)
+__device__ __forceinline__ int window_row(const Bf16Args& a, const TileRows& r, int b, int t) {
+  if (b == r.b_first) return (t - r.t_lo_first) * a.stride;
+  return r.alloc_first + (b - r.b_first - 1) * a.alloc_full + t * a.stride;
+}
+
+template <int BN, int CIGP, int MI, int NWG, int KC, int STAGES>
+struct Bf16Tiles {
+  static constexpr int MB = MI * NWG;                // m64 slots a tile
+  static constexpr int CONSUMERS = NWG * 128;
+  static constexpr int THREADS = CONSUMERS + 32;     // + the producer warp
+  static constexpr int BOX_BYTES = BN * 128;         // one [BN][64] bf16 weight box
+  static constexpr int STAGE_BYTES = KC * BOX_BYTES;
+  static constexpr int KSTEPS = 4 * KC;              // k-steps of 16 a stage
+  static constexpr int TAPS = KC * 64 / CIGP;        // taps a stage
+  static_assert(CIGP == 16 || CIGP == 32 || CIGP == 64, "cigp divides a 64-wide box");
+  static_assert(BN == 16 || BN == 32 || BN == 64, "wgmma widths instantiated");
+};
+
+size_t bf16_smem_bytes(int bn, int kc, int stages, int win_rows, int win_u, int cig, int stride) {
+  const int cigp = round_up(cig, 16);
+  size_t bytes = 1024 + (size_t)stages * kc * bn * 128 + (size_t)win_rows * cig * 4 +
+                 (size_t)(cigp / 8) * stride * win_u * 16;
+  return bytes + 8 * (2 * stages + 2);
+}
+
+// the staging rows tile r's segments take
+__device__ __forceinline__ int staged_rows(const Bf16Args& a, const TileRows& r) {
+  const int span = r.b_last - r.b_first;
+  if (span == 0) return r.alloc_first;
+  return r.alloc_first + (span - 1) * a.alloc_full +
+         round_up(seg_t_hi(a, r.v1, r.b_last) * a.stride + a.K, kRowBox);
+}
+
+template <int BN, int CIGP, int MI, int NWG, int KC, int STAGES>
+__global__ void __launch_bounds__(Bf16Tiles<BN, CIGP, MI, NWG, KC, STAGES>::THREADS, 1)
+groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap xmap, const Bf16Args a) {
+  using P = Bf16Tiles<BN, CIGP, MI, NWG, KC, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* wring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* stg = reinterpret_cast<float*>(wring + STAGES * P::STAGE_BYTES);   // [win_rows][cig]
+  unsigned char* win = reinterpret_cast<unsigned char*>(stg + a.win_rows * a.cig);
+  const int plane = a.stride * a.win_u * 16;   // bytes of one 8-channel chunk's phases
+  uint64_t* full = reinterpret_cast<uint64_t*>(win + (CIGP / 8) * plane);
+  uint64_t* empty = full + STAGES;
+  uint64_t* wfull = empty + STAGES;
+  uint64_t* wempty = wfull + 1;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, NWG * 4);   // lane 0 of each consumer warp
+    }
+    mbar_init(wfull, 1);
+    mbar_init(wempty, NWG * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int nchunks = (a.nks + P::KSTEPS - 1) / P::KSTEPS;   // stages a tile
+  const int per_m = a.groups * a.n_co_tiles;
+
+  if (warp == NWG * 4) {
+    // the producer: window of the block's first tile, then for each tile its
+    // weight stages, with the next tile's window issued once this tile's
+    // window is converted (before stage STAGES, or after the last stage)
+    if (lane != 0) return;
+    auto load_window = [&](int tile, int i) {
+      mbar_wait(wempty, (i & 1) ^ 1);
+      const TileRows r = tile_rows(a, tile / per_m, P::MB);
+      const int g = (tile % per_m) / a.n_co_tiles;
+      mbar_expect_tx(wfull, (uint32_t)staged_rows(a, r) * a.cig * 4);
+      int row = 0;
+      for (int b = r.b_first; b <= r.b_last; ++b) {
+        const int t_lo = b == r.b_first ? r.t_lo_first : 0;
+        const int t_hi = b == r.b_last ? seg_t_hi(a, r.v1, b) : a.T_out - 1;
+        const int n = (t_hi - t_lo) * a.stride + a.K;
+        const int in0 = t_lo * a.stride - a.pad_l;
+        for (int k = 0; k < n; k += kRowBox)
+          tma_load_3d(stg + (row + k) * a.cig, &xmap, wfull, g * a.cig, in0 + k, b);
+        row += b == r.b_first ? r.alloc_first : a.alloc_full;
+      }
+    };
+    int chunk = 0, it = 0;
+    if (blockIdx.x < a.n_tiles) load_window(blockIdx.x, 0);
+    for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, ++it) {
+      const int rest = tile % per_m, g = rest / a.n_co_tiles, ct = rest % a.n_co_tiles;
+      const int next = tile + gridDim.x;
+      const int w_row = g * a.cog + ct * BN;
+      for (int c = 0; c < nchunks; ++c, ++chunk) {
+        if (c == STAGES && next < a.n_tiles) load_window(next, it + 1);
+        const int st = chunk % STAGES;
+        mbar_wait(empty + st, ((chunk / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + st, P::STAGE_BYTES);
+#pragma unroll
+        for (int kb = 0; kb < KC; ++kb)
+          tma_load_2d(wring + st * P::STAGE_BYTES + kb * P::BOX_BYTES, &wmap, full + st,
+                      (c * KC + kb) * 64, w_row);
+      }
+      if (nchunks <= STAGES && next < a.n_tiles) load_window(next, it + 1);
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg multiplies the tile's m64 slots wg*MI ..
+  // wg*MI + MI - 1; warp wl of it holds rows 16*wl .. 16*wl + 15 of each
+  const int wg = warp / 4, wl = warp % 4;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int lg_s = __ffs(a.stride) - 1;   // the stride is a power of two (checked on the host)
+  float acc[MI][BN / 2];
+  int chunk = 0, it = 0;
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, ++it) {
+    const int rest = tile % per_m, g = rest / a.n_co_tiles, ct = rest % a.n_co_tiles;
+    const TileRows r = tile_rows(a, tile / per_m, P::MB);
+    mbar_wait(wfull, it & 1);
+    // one pass: staging row q (fp32, cig channels) rounded to bf16 into the
+    // window as 16-byte chunks of 8 channels at [chunk][q % s][q / s],
+    // chunks past cig zero
+    const int rows = staged_rows(a, r);
+    consumer_sync<P::CONSUMERS>();   // every consumer's wgmmas are done with the last window
+    constexpr int C8 = CIGP / 8;
+    for (int e = threadIdx.x; e < rows * C8; e += P::CONSUMERS) {
+      const int q = e / C8, c8 = e - q * C8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (c8 * 8 < a.cig) {
+        const float4 x0 = *reinterpret_cast<const float4*>(stg + q * a.cig + c8 * 8);
+        const float4 x1 = *reinterpret_cast<const float4*>(stg + q * a.cig + c8 * 8 + 4);
+        v = make_uint4(bf16x2_bits(x0.x, x0.y), bf16x2_bits(x0.z, x0.w), bf16x2_bits(x1.x, x1.y),
+                       bf16x2_bits(x1.z, x1.w));
+      }
+      *reinterpret_cast<uint4*>(win + c8 * plane +
+                                ((q & (a.stride - 1)) * a.win_u + (q >> lg_s)) * 16) = v;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(wempty);   // the staging buffer may be refilled
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // the window, to wgmma
+    consumer_sync<P::CONSUMERS>();
+
+    // each m64 slot's first window row, in rows of its phase plane
+    int u0[MI];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const int v = min(r.v0 + wg * MI + mi, r.v1 - 1);   // a slot past the tile: any, unstored
+      const int b = v / a.slots;
+      u0[mi] = window_row(a, r, b, (v - b * a.slots) * kSlot) >> lg_s;
+    }
+    const uint32_t win_s = smem_u32(win);
+    for (int c = 0; c < nchunks; ++c, ++chunk) {
+      const int st = chunk % STAGES;
+      const uint32_t ws = smem_u32(wring + st * P::STAGE_BYTES);
+      const int tap0 = c * P::TAPS;
+      mbar_wait(full + st, (chunk / STAGES) & 1);
+      wgmma_fence();
+      // the stage's k-steps; the last stage's stop at the reduction's end
+      // (the window rows past it may hold anything, and NaN * 0 is NaN), a
+      // check that full stages go without
+      auto issue = [&](auto partial) {
+#pragma unroll
+        for (int kk = 0; kk < P::KSTEPS; ++kk) {
+          if (decltype(partial)::value && c * P::KSTEPS + kk >= a.nks) break;
+          // k-step kk: tap j, channels c16*16 .. +15 (chunks 2*c16, 2*c16 + 1)
+          const int j = tap0 + (kk * 16) / CIGP, c16 = ((kk * 16) % CIGP) / 16;
+          const uint32_t a_base =
+              win_s + 2 * c16 * plane + ((j & (a.stride - 1)) * a.win_u + (j >> lg_s)) * 16;
+          const uint64_t bd = b_desc(ws + (kk / 4) * P::BOX_BYTES + (kk % 4) * 32);
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi)
+            Wgmma<BN>::mma(acc[mi], a_desc(a_base + u0[mi] * 16, plane), bd, c > 0 || kk > 0);
+        }
+      };
+      if ((c + 1) * P::KSTEPS <= a.nks)
+        issue(std::false_type{});
+      else
+        issue(std::true_type{});
+      wgmma_commit();
+      wgmma_wait<1>();   // the stage before this one is done: release its weights
+      if (c > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + (chunk - 1) % STAGES);
+      }
+    }
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + (chunk - 1) % STAGES);
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) fence_acc(acc[mi]);
+
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const int v = r.v0 + wg * MI + mi;
+      if (v >= r.v1) continue;
+      const int b = v / a.slots;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = (v - b * a.slots) * kSlot + wl * 16 + gid + 8 * h;
+        if (t >= a.T_out) continue;
+        float* yr = a.y + ((size_t)b * a.T_out + t) * a.Co + g * a.cog + ct * BN + 2 * tig;
+#pragma unroll
+        for (int nb = 0; nb < BN / 8; ++nb)
+          *reinterpret_cast<float2*>(yr + 8 * nb) =
+              make_float2(acc[mi][4 * nb + 2 * h], acc[mi][4 * nb + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// wq[n, j*cigp + ci] = bf16(w[n, ci, j]), 0 where ci >= cig: the weights in
+// the layout groupconv_bf16_kernel's TMA reads (ops/groupconv.py:
+// kernel_weights_bf16). A block an out-channel: its cig x K weights read in
+// order into shared memory, its K*cigp written in order.
+__global__ void k2bf16_weights_kernel(const float* __restrict__ w, __nv_bfloat16* __restrict__ wq,
+                                      int cig, int cigp, int K) {
+  extern __shared__ float w_n[];   // [cig][K]
+  const int n = blockIdx.x;
+  for (int e = threadIdx.x; e < cig * K; e += blockDim.x) w_n[e] = w[(size_t)n * cig * K + e];
+  __syncthreads();
+  for (int p = threadIdx.x; p < K * cigp; p += blockDim.x) {
+    const int j = p / cigp, ci = p - j * cigp;
+    wq[(size_t)n * K * cigp + p] = __float2bfloat16_rn(ci < cig ? w_n[ci * K + j] : 0.f);
+  }
+}
+
+// cuTensorMapEncodeTiled, found once in libcuda.so.1 by dlopen (no link against it)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// The tile plan ops/groupconv.py:bf16_plan chooses, checked here.
+struct Bf16Plan {
+  int bn, mi, nwg, kc, stages, win_rows, win_u;
+};
+
+// the geometry's kernel arguments, or false for what the kernel does not take
+bool bf16_args(int B, int T, int Ci, int T_out, int Co, int groups, int K, int stride,
+               int pad_l, const Bf16Plan& p, Bf16Args* a) {
+  if (groups < 1 || Ci % groups || Co % groups || B < 1 || T < 1 || T_out < 1 || K < 1 ||
+      stride < 1 || stride > 8 || (stride & (stride - 1)) || pad_l < 0 || p.bn < 1 ||
+      p.mi < 1 || p.nwg < 1 || p.win_rows < 1 || p.win_rows % kRowBox)
+    return false;
   const int cig = Ci / groups, cog = Co / groups;
-  const int cigp = (cig + 15) / 16 * 16;
-  const long long W = (long long)(BM - 1) * stride + K;
-  const long long rpp = (W + stride - 1) / stride;
-  const int xpitch = (cigp / 16) % 2 ? cigp : cigp + 16;
-  const long long smem = (1LL * stride * rpp * xpitch + 1LL * STAGES * KS * BN * 16) *
-                         (long long)sizeof(__nv_bfloat16);
+  const int cigp = round_up(cig, 16);
+  if (cig % 8 || cig > 64 || cog % p.bn) return false;
+  const int mb = p.mi * p.nwg, slots = (T_out + kSlot - 1) / kSlot;
+  const long long n_slots = (long long)B * slots;
+  if (n_slots + mb > (1LL << 31) || (long long)Co * K * cigp >= (1LL << 31)) return false;
+  const int alloc_full = round_up((T_out - 1) * stride + K, kRowBox);
+  // the most staging rows a tile's segments take, and the window rows its
+  // descriptors reach (ops/groupconv.py:bf16_plan)
+  const int nseg = min(B, (mb - 1) / slots + 2);
+  const int outs = min(mb * kSlot, nseg * T_out);
+  const int need = min(nseg * alloc_full, (outs - nseg) * stride + nseg * (K + kRowBox - 1));
+  if (p.win_rows < round_up(need, kRowBox) || p.win_u < p.win_rows / stride + kSlot) return false;
+  const long long n_tiles = (n_slots + mb - 1) / mb * groups * (cog / p.bn);
+  if (n_tiles >= (1LL << 31)) return false;
+  *a = Bf16Args{nullptr, B, T_out, Co, cig, cog, K, stride, pad_l, groups, K * cigp / 16,
+                slots, p.win_rows, p.win_u, alloc_full, cog / p.bn, (int)n_tiles};
+  return true;
+}
+
+// the weights' and x's tensor maps for tile width bn: maps[0] over wq
+// [Co, K*cigp] bf16 (boxes [bn][64], 128-byte swizzle), maps[1] over x
+// [B, T, Ci] fp32 (boxes [1][kRowBox][cig], zero fill outside)
+int bf16_maps(const float* x, const void* wq, int B, int T, int Ci, int Co, int groups, int K,
+              int bn, CUtensorMap* maps) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorInitializationError;
+  const int cig = Ci / groups, cigp = round_up(cig, 16);
+  const cuuint64_t w_dim[2] = {(cuuint64_t)K * cigp, (cuuint64_t)Co};
+  const cuuint64_t w_stride[1] = {(cuuint64_t)K * cigp * 2};
+  const cuuint32_t w_box[2] = {64, (cuuint32_t)bn}, ones[3] = {1, 1, 1};
+  CUresult e = encode(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(wq),
+                      w_dim, w_stride, w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (e != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  const cuuint64_t x_dim[3] = {(cuuint64_t)Ci, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t x_stride[2] = {(cuuint64_t)Ci * 4, (cuuint64_t)T * Ci * 4};
+  const cuuint32_t x_box[3] = {(cuuint32_t)cig, (cuuint32_t)kRowBox, 1};
+  e = encode(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(x), x_dim,
+             x_stride, x_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return e == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BN, int CIGP, int MI, int NWG, int KC, int STAGES>
+int launch_bf16(const CUtensorMap* maps, const Bf16Args& a, cudaStream_t s) {
+  using P = Bf16Tiles<BN, CIGP, MI, NWG, KC, STAGES>;
+  const size_t smem = bf16_smem_bytes(BN, KC, STAGES, a.win_rows, a.win_u, a.cig, a.stride);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = groupconv_bf16_kernel<BM, BN, WM, WN, KS, STAGES>;
+  auto kernel = groupconv_bf16_kernel<BN, CIGP, MI, NWG, KC, STAGES>;
   static size_t opted[conan::kMaxDevices] = {};
-  const cudaError_t e = conan::allow_dynamic_smem(kernel, (size_t)smem, opted);
+  cudaError_t e = conan::allow_dynamic_smem(kernel, smem, opted);
   if (e != cudaSuccess) return (int)e;
-  const int n_co_tiles = (cog + BN - 1) / BN;
-  const dim3 grid((T_out + BM - 1) / BM, groups * n_co_tiles, B);
-  kernel<<<grid, threads_of<BM, BN, WM, WN>(), smem, s>>>(
-      x, wq, y, T, Ci, T_out, Co, cig, cigp, cog, K, stride, pad_l, n_co_tiles, (int)rpp,
-      xpitch);
+  // the persistent grid: as many blocks as the device holds at once, kept
+  // per device and shared-memory size (the occupancy query costs each of a
+  // step's 45 calls host time otherwise)
+  struct Grid {
+    int dev;
+    size_t smem;
+    int blocks;
+  };
+  static Grid grids[16] = {};
+  static int n_grids = 0;
+  static std::mutex grids_mutex;
+  int dev = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  int blocks = 0;
+  {
+    const std::lock_guard<std::mutex> lock(grids_mutex);
+    for (int i = 0; i < min(n_grids, 16); ++i)
+      if (grids[i].dev == dev && grids[i].smem == smem) blocks = grids[i].blocks;
+  }
+  if (!blocks) {
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P::THREADS, smem)) !=
+        cudaSuccess)
+      return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidValue;
+    blocks = sms * per_sm;
+    const std::lock_guard<std::mutex> lock(grids_mutex);
+    grids[n_grids++ % 16] = Grid{dev, smem, blocks};
+  }
+  const int grid = min(a.n_tiles, blocks);
+  kernel<<<grid, P::THREADS, smem, s>>>(maps[0], maps[1], a);
+  return (int)cudaGetLastError();
+}
+
+// The instantiated tiles: (BN, CIGP, MI, NWG, KC, STAGES).
+// ops/groupconv.py:bf16_plan picks among the shipped ones.
+#define K2BF16_SHIPPED(X) \
+  X(64, 64, 2, 1, 2, 3)   \
+  X(64, 32, 2, 1, 2, 3)   \
+  X(32, 32, 2, 1, 2, 4)   \
+  X(32, 16, 2, 1, 2, 4)   \
+  X(16, 16, 4, 1, 2, 3)
+
+// Built only for tools/torch_kernel_lab.py's sweep (-DK2BF16_SWEEP).
+#ifdef K2BF16_SWEEP
+#define K2BF16_SWEPT(X) \
+  X(64, 64, 1, 2, 2, 3) \
+  X(64, 64, 1, 1, 2, 3) \
+  X(64, 64, 1, 1, 1, 3) \
+  X(64, 64, 1, 1, 1, 4) \
+  X(64, 64, 2, 2, 1, 3) \
+  X(64, 32, 1, 2, 2, 3) \
+  X(64, 32, 1, 1, 2, 4) \
+  X(64, 32, 1, 1, 1, 3) \
+  X(64, 32, 2, 1, 1, 3) \
+  X(32, 32, 1, 2, 2, 4) \
+  X(32, 32, 2, 1, 2, 3) \
+  X(32, 32, 1, 1, 2, 4) \
+  X(32, 32, 4, 1, 2, 3) \
+  X(32, 16, 1, 2, 2, 4) \
+  X(32, 16, 2, 1, 2, 3) \
+  X(32, 16, 1, 1, 2, 4) \
+  X(32, 16, 4, 1, 2, 3) \
+  X(16, 16, 2, 1, 2, 3) \
+  X(16, 16, 2, 1, 2, 4) \
+  X(16, 16, 4, 1, 1, 3) \
+  X(16, 16, 4, 1, 2, 4)
+#else
+#define K2BF16_SWEPT(X)
+#endif
+
+int dispatch_bf16(const CUtensorMap* maps, const Bf16Args& a, const Bf16Plan& p,
+                  cudaStream_t s) {
+  const int cigp = round_up(a.cig, 16);
+#define K2BF16_TRY(BN, CIGP, MI, NWG, KC, ST)                                                \
+  if (p.bn == BN && cigp == CIGP && p.mi == MI && p.nwg == NWG && p.kc == KC &&              \
+      p.stages == ST)                                                                        \
+    return launch_bf16<BN, CIGP, MI, NWG, KC, ST>(maps, a, s);
+  K2BF16_SHIPPED(K2BF16_TRY)
+  K2BF16_SWEPT(K2BF16_TRY)
+#undef K2BF16_TRY
+  return (int)cudaErrorInvalidValue;   // a tile not instantiated
+}
+
+int bf16_weights(const float* w, void* wq, int Co, int cig, int K, cudaStream_t s) {
+  if ((size_t)cig * K * sizeof(float) > 48 * 1024) return (int)cudaErrorInvalidValue;
+  k2bf16_weights_kernel<<<Co, 256, (size_t)cig * K * sizeof(float), s>>>(
+      w, static_cast<__nv_bfloat16*>(wq), cig, round_up(cig, 16), K);
   return (int)cudaGetLastError();
 }
 
@@ -527,30 +999,70 @@ extern "C" int groupconv_forward(const float* x, const float* w_hi, const float*
                                      pad_l, s);
 }
 
-// The "default" rung's forward: x [B, T, Ci] fp32 (16-byte aligned), rounded
-// to bf16 in the kernel; wq [groups, K*cigp/16, cog, 16] bf16, the weights
-// rounded and laid out by the wrapper with cigp = cig rounded up to 16 (zero
-// channels past cig); y [B, T_out, Co] fp32. cig and cog multiples of 8;
-// otherwise as groupconv_forward.
-extern "C" int groupconv_forward_bf16(const float* x, const void* wq, float* y, int B, int T,
-                                      int Ci, int T_out, int Co, int groups, int K, int stride,
-                                      int pad_l, void* stream) {
-  if (groups < 1 || Ci % groups || Co % groups || (Ci / groups) % 8 || (Co / groups) % 8 ||
-      K < 1 || stride < 1 || T_out < 1 || B < 1 || B > 65535 ||
-      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(wq) % 16)
+// K2-bf16's entry points. Geometry as groupconv_forward's; w [Co, cig, K]
+// fp32 contiguous; wq the [Co, K*cigp] bf16 layout k2bf16_weights_kernel
+// writes (16-byte aligned); y [B, T_out, Co] fp32 (8-byte aligned); the tile
+// plan (bn, mi, nwg, kc, stages, win_rows, win_u) from
+// ops/groupconv.py:bf16_plan. Each returns cudaGetLastError() after its
+// launches, cudaErrorInvalidValue for what the kernel does not take (cig
+// past 64 or not a multiple of 8, cog not a multiple of bn, a stride that is
+// not 1, 2, 4 or 8, a tile that is not instantiated or does not fit shared
+// memory).
+
+// the weights, rounded and laid out for the kernel: one launch on `stream`
+extern "C" int groupconv_bf16_weights(const float* w, void* wq, int Co, int cig, int K,
+                                      void* stream) {
+  if (Co < 1 || cig < 1 || cig > 64 || cig % 8 || K < 1 ||
+      reinterpret_cast<uintptr_t>(wq) % 16)
     return (int)cudaErrorInvalidValue;
-  const int cog = Co / groups;
+  return bf16_weights(w, wq, Co, cig, K, (cudaStream_t)stream);
+}
+
+// the two tensor maps of a call, copied to the 256 bytes at `maps` (host only)
+extern "C" int groupconv_bf16_describe(const float* x, const void* wq, int B, int T, int Ci,
+                                       int Co, int groups, int K, int bn, void* maps) {
+  if (groups < 1 || Ci % groups || Co % groups || (Ci / groups) % 8 || Ci / groups > 64 ||
+      bn < 1 || reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(wq) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[2];
+  const int err = bf16_maps(x, wq, B, T, Ci, Co, groups, K, bn, m);
+  if (!err) memcpy(maps, m, sizeof m);
+  return err;
+}
+
+// the conv alone, on maps from groupconv_bf16_describe
+extern "C" int groupconv_bf16_conv(const void* maps, float* y, int B, int T, int Ci, int T_out,
+                                   int Co, int groups, int K, int stride, int pad_l, int bn,
+                                   int mi, int nwg, int kc, int stages, int win_rows, int win_u,
+                                   void* stream) {
+  const Bf16Plan p{bn, mi, nwg, kc, stages, win_rows, win_u};
+  Bf16Args a;
+  if (!bf16_args(B, T, Ci, T_out, Co, groups, K, stride, pad_l, p, &a) ||
+      reinterpret_cast<uintptr_t>(y) % 8)
+    return (int)cudaErrorInvalidValue;
+  a.y = y;
+  CUtensorMap m[2];
+  memcpy(m, maps, sizeof m);
+  return dispatch_bf16(m, a, p, (cudaStream_t)stream);
+}
+
+// The "default" rung's forward, as the wrapper calls it: the weights laid
+// out into wq, the tensor maps, the conv.
+extern "C" int groupconv_forward_bf16(const float* x, const float* w, void* wq, float* y, int B,
+                                      int T, int Ci, int T_out, int Co, int groups, int K,
+                                      int stride, int pad_l, int bn, int mi, int nwg, int kc,
+                                      int stages, int win_rows, int win_u, void* stream) {
+  const Bf16Plan p{bn, mi, nwg, kc, stages, win_rows, win_u};
+  Bf16Args a;
+  if (!bf16_args(B, T, Ci, T_out, Co, groups, K, stride, pad_l, p, &a) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(wq) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 8)
+    return (int)cudaErrorInvalidValue;
+  a.y = y;
   const cudaStream_t s = (cudaStream_t)stream;
-  const auto* w = static_cast<const __nv_bfloat16*>(wq);
-  if (cog >= 64)
-    return launch_bf16<64, 64, 32, 32, 1, 2>(x, w, y, B, T, Ci, T_out, Co, groups, K, stride,
-                                             pad_l, s);
-  if (cog >= 32 && stride <= 2)
-    return launch_bf16<128, 32, 32, 32, 2, 2>(x, w, y, B, T, Ci, T_out, Co, groups, K, stride,
-                                              pad_l, s);
-  if (cog >= 32)
-    return launch_bf16<64, 32, 16, 32, 2, 2>(x, w, y, B, T, Ci, T_out, Co, groups, K, stride,
-                                             pad_l, s);
-  return launch_bf16<128, 16, 32, 16, 4, 2>(x, w, y, B, T, Ci, T_out, Co, groups, K, stride,
-                                            pad_l, s);
+  CUtensorMap maps[2];
+  int err = bf16_maps(x, wq, B, T, Ci, Co, groups, K, bn, maps);
+  if (err) return err;
+  if ((err = bf16_weights(w, wq, Co, Ci / groups, K, s))) return err;
+  return dispatch_bf16(maps, a, p, s);
 }

@@ -19,12 +19,21 @@ The training rung (``ops/precision.py``) picks the route at call time. Under
 product of bf16-rounded operands, fp32 accumulation, fp32 output, as the TPU
 kernel computes when handed bf16 operands; its plain version is
 ``grouped_conv1d_reference`` on the rounded operands, in fp32; the backward
-takes bf16-rounded operands too (``precision.bf16_dot``). Under "high" and
-"highest" (and outside training) the forward is the 3xTF32 kernel, more
-exact than "high" asks.
+takes bf16-rounded operands too (``precision.bf16_dot``). K2-bf16 is a
+warp-specialized ``wgmma`` kernel fed by TMA whose M runs over 64-output
+slots of the batch's rows; ``bf16_plan`` picks its tiles and sizes its
+window buffers, and the one C call lays the weights out
+(``kernel_weights_bf16`` is that layout's plain version), encodes the
+tensor maps and launches. Under
+"high" and "highest" (and outside training) the forward is the 3xTF32
+kernel, more exact than "high" asks.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -62,16 +71,99 @@ def kernel_weights(w: torch.Tensor, groups: int) -> tuple[torch.Tensor, torch.Te
     return tf32_split(wt.reshape(groups, K * cig // 8, Co // groups, 8))
 
 
-def kernel_weights_bf16(w: torch.Tensor, groups: int) -> torch.Tensor:
-    """w [Co, cig, K] as K2-bf16 takes it: rounded to bf16 (nearest even) in
-    [groups, K·cigp/16, cog, 16], the reduction r = j·cigp + ci in k-steps of
-    16 channels of one tap, cigp = cig rounded up to 16 with zero channels
-    (the mma's k is 16; the MSD's 128 → 256 layer has cig 8)."""
+def kernel_weights_bf16(w: torch.Tensor) -> torch.Tensor:
+    """w [Co, cig, K] as K2-bf16's TMA reads it, the plain version of the
+    kernel's own preparation (``k2bf16_weights_kernel``): rounded to bf16
+    (nearest even) in [Co, K·cigp], out-channel n's reduction r = j·cigp + ci
+    contiguous, cigp = cig rounded up to 16 with zero channels (the wgmma's
+    k is 16; the MSD's 128 → 256 layer has cig 8)."""
     Co, cig, K = w.shape
     cigp = -(-cig // 16) * 16
-    wt = F.pad(w, (0, 0, 0, cigp - cig)).reshape(groups, Co // groups, cigp // 16, 16, K)
-    return (wt.permute(0, 4, 2, 1, 3).reshape(groups, K * cigp // 16, Co // groups, 16)
-            .to(torch.bfloat16).contiguous())
+    wt = F.pad(w, (0, 0, 0, cigp - cig)).permute(0, 2, 1)                  # [Co, K, cigp]
+    return wt.reshape(Co, K * cigp).to(torch.bfloat16).contiguous()
+
+
+# K2-bf16's tiles by (wgmma width BN, cigp): (MI, NWG, KC, STAGES), the
+# instantiations csrc/groupconv.cu:K2BF16_SHIPPED builds. A tile is MI·NWG
+# m64 slots (64 outputs of one batch row each) by BN out-channels of one
+# group; NWG consumer warpgroups, KC 64-wide weight boxes a stage, STAGES
+# stages.
+BF16_TILES = {(64, 64): (2, 1, 2, 3), (64, 32): (2, 1, 2, 3), (32, 32): (2, 1, 2, 4),
+              (32, 16): (2, 1, 2, 4), (16, 16): (4, 1, 2, 3)}
+ROW_BOX = 16            # window rows a TMA box (csrc/groupconv.cu:kRowBox)
+SLOT = 64               # outputs of one batch row an m64 block holds (kSlot)
+SMEM_LIMIT = 227 * 1024
+
+
+class Bf16Plan(NamedTuple):
+    """K2-bf16's tile plan for one geometry: ``args`` go to the C entry
+    points; ``smem`` is the block's shared memory, ``n_tiles`` the tiles
+    the persistent blocks walk."""
+    bn: int
+    mi: int
+    nwg: int
+    kc: int
+    stages: int
+    win_rows: int
+    win_u: int
+    smem: int
+    n_tiles: int
+
+    @property
+    def args(self) -> tuple[int, ...]:
+        return tuple(self)[:7]
+
+    @property
+    def mb(self) -> int:
+        return self.mi * self.nwg
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@functools.lru_cache(maxsize=512)
+def bf16_plan(B: int, T_out: int, Ci: int, Co: int, groups: int, K: int, stride: int,
+              tiles: tuple[int, ...] | None = None) -> Bf16Plan:
+    """K2-bf16's plan: the widest wgmma width of 64, 32, 16 that divides cog
+    and is built for cigp, with its tile (``BF16_TILES``), or ``tiles`` =
+    (bn, mi, nwg, kc, stages). It sizes the fp32 staging buffer: a tile of
+    MB = mi·nwg slots touches at most nseg = min(B, (MB-1) // slots + 2)
+    batch rows (slots = ceil(T_out / 64) a row), and a segment of n outputs
+    reads (n-1)·s + K rows, staged from a multiple of ROW_BOX; and the bf16
+    window: its rows a phase, those over the stride and the 64 an m64 slot's
+    descriptor reads past its first. Raises ValueError for what the kernel
+    does not take."""
+    cig, cog = Ci // groups, Co // groups
+    if cig % 8 or cig > 64 or cog % 16:
+        raise ValueError(f"groupconv_bf16: channels per group {cig} in (a multiple of 8, at "
+                         f"most 64), {cog} out (a multiple of 16)")
+    if stride not in (1, 2, 4, 8):
+        raise ValueError(f"groupconv_bf16: stride {stride} (the window's phases: 1, 2, 4, 8)")
+    if cig * K * 4 > 48 * 1024:
+        raise ValueError(f"groupconv_bf16: an out-channel's {cig} x {K} weights past the "
+                         f"layout kernel's 48 KB")
+    cigp = _round_up(cig, 16)
+    if tiles is None:
+        bn = next((n for n in (64, 32, 16) if cog % n == 0 and (n, cigp) in BF16_TILES), None)
+        if bn is None:
+            raise ValueError(f"groupconv_bf16: no tile built for cog {cog}, cigp {cigp}")
+        tiles = (bn, *BF16_TILES[bn, cigp])
+    bn, mi, nwg, kc, stages = tiles
+    mb, slots = mi * nwg, -(-T_out // SLOT)
+    alloc_full = _round_up((T_out - 1) * stride + K, ROW_BOX)
+    nseg = min(B, (mb - 1) // slots + 2)
+    outs = min(mb * SLOT, nseg * T_out)
+    win_rows = _round_up(min(nseg * alloc_full,
+                             (outs - nseg) * stride + nseg * (K + ROW_BOX - 1)), ROW_BOX)
+    win_u = win_rows // stride + SLOT
+    smem = (1024 + stages * kc * bn * 128 + win_rows * cig * 4
+            + (cigp // 8) * stride * win_u * 16 + 8 * (2 * stages + 2))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"groupconv_bf16: a window of {win_rows} rows needs {smem} bytes of "
+                         f"shared memory")
+    n_tiles = -(-B * slots // mb) * groups * (cog // bn)
+    return Bf16Plan(bn, mi, nwg, kc, stages, win_rows, win_u, smem, n_tiles)
 
 
 def grouped_conv1d_bf16_reference(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -85,10 +177,11 @@ def grouped_conv1d_bf16_reference(x: torch.Tensor, w: torch.Tensor, *, stride: i
 
 
 class GroupConvKernel:
-    """Wrapper of the CUDA kernels: checks its inputs, splits and regroups
-    the weights (``kernel_weights``, or ``kernel_weights_bf16`` for K2-bf16),
-    allocates the output, launches on the current stream and counts the
-    launches of each kernel, ``launches`` (3xTF32) and ``launches_bf16``."""
+    """Wrapper of the CUDA kernels: checks its inputs, allocates the output,
+    launches on the current stream and counts the launches of each kernel,
+    ``launches`` (3xTF32: the weights split here, ``kernel_weights``) and
+    ``launches_bf16`` (K2-bf16: one allocation holds y and the weights'
+    layout, which the one C call writes)."""
 
     def __init__(self):
         self.launches = 0
@@ -119,17 +212,22 @@ class GroupConvKernel:
         from conan_tpu_torch.ops import native
 
         lib = native.load()
-        if x.data_ptr() % 16:      # the kernel copies x in 16-byte chunks
+        if x.data_ptr() % 16:      # the kernels read x in 16-byte chunks
             x = x.clone()
-        y = torch.empty(B, T_out, Co, device=x.device, dtype=torch.float32)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        with torch.cuda.device(x.device):
+        with _current(x.device):
             if bf16:
-                wq = kernel_weights_bf16(w, groups)
-                err = lib.groupconv_forward_bf16(x.data_ptr(), wq.data_ptr(), y.data_ptr(), B,
-                                                 T, Ci, T_out, Co, groups, K, stride,
-                                                 padding[0], stream)
+                plan = bf16_plan(B, T_out, Ci, Co, groups, K, stride)
+                # y, then the weights' bf16 layout from a 128-byte boundary
+                w_at = _round_up(B * T_out * Co, 32)
+                buf = torch.empty(w_at + Co * K * _round_up(cig, 16) // 2, device=x.device)
+                y = buf.as_strided((B, T_out, Co), (T_out * Co, Co, 1))
+                err = lib.groupconv_forward_bf16(
+                    x.data_ptr(), w.contiguous().data_ptr(), buf.data_ptr() + 4 * w_at,
+                    y.data_ptr(), B, T, Ci, T_out, Co, groups, K, stride, padding[0],
+                    *plan.args, stream)
             else:
+                y = torch.empty(B, T_out, Co, device=x.device, dtype=torch.float32)
                 w_hi, w_lo = kernel_weights(w, groups)
                 err = lib.groupconv_forward(x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
                                             y.data_ptr(), B, T, Ci, T_out, Co, groups, K,
@@ -147,6 +245,14 @@ class GroupConvKernel:
                  padding: tuple[int, int] = (0, 0), groups: int) -> torch.Tensor:
         """x [B, T, Ci], w [Co, Ci/groups, K] → [B, T_out, Co], no bias."""
         return _GroupConvFunction.apply(x, w, stride, tuple(padding), groups, self)
+
+
+def _current(device: torch.device):
+    """``torch.cuda.device(device)`` where it is not the current device
+    already (entering it costs each of a step's 45 calls host time)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 class _GroupConvFunction(torch.autograd.Function):

@@ -32,7 +32,7 @@ HEADERS = (CSRC / "common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "conan_tpu_torch"
 LIB_PATH = BUILD_DIR / "libconan_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v", "-ldl"]
 
 
 def _nvcc() -> str:
@@ -99,7 +99,18 @@ def load() -> ctypes.CDLL:
     # x, w_hi, w_lo, y, B, T, Ci, T_out, Co, groups, K, stride, pad_l, stream
     lib.groupconv_forward.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, I, P]
     lib.groupconv_forward.restype = ctypes.c_int
-    # x, w (bf16), y, B, T, Ci, T_out, Co, groups, K, stride, pad_l, stream
-    lib.groupconv_forward_bf16.argtypes = [P, P, P, I, I, I, I, I, I, I, I, I, P]
-    lib.groupconv_forward_bf16.restype = ctypes.c_int
+    # K2-bf16: geometry B, T, Ci, T_out, Co, groups, K, stride, pad_l and the
+    # plan's (bn, mi, nwg, kc, stages, win_rows, win_u)
+    geometry_plan = [I] * 16
+    # x, w, wq (the weights' layout, written), y, geometry and plan, stream
+    lib.groupconv_forward_bf16.argtypes = [P, P, P, P, *geometry_plan, P]
+    # w, wq, Co, cig, K, stream
+    lib.groupconv_bf16_weights.argtypes = [P, P, I, I, I, P]
+    # x, wq, B, T, Ci, Co, groups, K, bn, maps (256 bytes, written)
+    lib.groupconv_bf16_describe.argtypes = [P, P, I, I, I, I, I, I, I, P]
+    # maps, y, geometry and plan, stream
+    lib.groupconv_bf16_conv.argtypes = [P, P, *geometry_plan, P]
+    for fn in (lib.groupconv_forward_bf16, lib.groupconv_bf16_weights,
+               lib.groupconv_bf16_describe, lib.groupconv_bf16_conv):
+        fn.restype = ctypes.c_int
     return lib

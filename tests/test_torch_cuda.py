@@ -617,18 +617,15 @@ def _msd_geometries():
     return msd_grouped_geometries(8000)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("index", range(15))
-def test_groupconv_bf16_matches_plain_version(index):
+def _check_groupconv_bf16(B, T, ci, co, k, s, g, pd, seed):
     from chip_smoke import BF16_GRAD_REL, rel_l2
     from conan_tpu_torch.ops.groupconv import grouped_conv1d_bf16_reference
     from conan_tpu_torch.ops.precision import rounded_dot, training_scope
 
     dev = _card()
-    _scale, T, ci, co, k, s, g, pd = _msd_geometries()[index]
     kernel = GroupConvKernel()
-    rng = np.random.default_rng(index)
-    x = torch.from_numpy(rng.standard_normal((2, T, ci)).astype(np.float32)).to(dev)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, T, ci)).astype(np.float32)).to(dev)
     w = torch.from_numpy((rng.standard_normal((co, ci // g, k)) / np.sqrt(k * ci / g))
                          .astype(np.float32)).to(dev)
     conv = dict(stride=s, padding=(pd, pd), groups=g)
@@ -648,6 +645,36 @@ def test_groupconv_bf16_matches_plain_version(index):
                                atol=0)
     torch.testing.assert_close(y, y_ref, atol=2e-4, rtol=1e-4)
     assert rel_l2(dx, dx_ref) <= BF16_GRAD_REL and rel_l2(dw, dw_ref) <= BF16_GRAD_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(15))
+def test_groupconv_bf16_matches_plain_version(index):
+    _scale, T, ci, co, k, s, g, pd = _msd_geometries()[index]
+    _check_groupconv_bf16(2, T, ci, co, k, s, g, pd, seed=index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [3, 4, 8, 9, 13, 14])
+def test_groupconv_bf16_deep_layers_at_the_training_batch(index):
+    """The six short deep layers (T_out 125, 63, 32) at B = 18, where M
+    tiles hold several batch rows."""
+    _scale, T, ci, co, k, s, g, pd = _msd_geometries()[index]
+    _check_groupconv_bf16(18, T, ci, co, k, s, g, pd, seed=100 + index)
+
+
+# (B, T, ci, co, k, stride, groups, pad): B = 1 and 3, T_out 121 and 249 (no
+# tile's multiple), 13, 7 and 1 (under 16), the cig 8 layer
+BF16_RAGGED = [(1, 8000, 128, 128, 41, 2, 4, 20), (3, 121, 1024, 1024, 41, 1, 16, 20),
+               (5, 993, 256, 512, 41, 4, 16, 20), (7, 13, 1024, 1024, 41, 1, 16, 20),
+               (3, 13, 128, 128, 41, 2, 4, 20), (2, 497, 128, 256, 41, 2, 16, 20),
+               (1, 1, 512, 1024, 41, 4, 16, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_RAGGED)
+def test_groupconv_bf16_ragged(case):
+    _check_groupconv_bf16(*case, seed=sum(case))
 
 
 @pytest.mark.cuda

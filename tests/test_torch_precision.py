@@ -192,26 +192,25 @@ def test_cpu_route_under_default_is_the_bf16_reference_and_launches_nothing():
 
 @pytest.mark.parametrize("cig", [8, 16, 24, 64])
 def test_kernel_weights_bf16_layout_rebuilds_the_conv(cig):
-    """[groups, K·cigp/16, cog, 16] bf16 (cigp: cig rounded up to 16 with
-    zero channels): the grouped conv summed over that layout, with x rounded
-    and channel-padded as the kernel stages it, in float64, equals the bf16
-    plain version to fp32's sum-order error."""
+    """[Co, K·cigp] bf16 (cigp: cig rounded up to 16 with zero channels): the
+    grouped conv summed over that layout, with x rounded and channel-padded
+    as the kernel stages it, in float64, equals the bf16 plain version to
+    fp32's sum-order error."""
     G, cog, K, s, pad = 4, 16, 5, 2, 2
     rng = np.random.default_rng(cig)
     x = _randn(rng, 2, 23, G * cig)
     w = _randn(rng, G * cog, cig, K, scale=0.2)
-    wq = kernel_weights_bf16(w, G)
+    wq = kernel_weights_bf16(w)
     cigp = -(-cig // 16) * 16
-    assert wq.dtype == torch.bfloat16 and wq.shape == (G, K * cigp // 16, cog, 16)
+    assert wq.dtype == torch.bfloat16 and wq.shape == (G * cog, K * cigp)
     assert wq.is_contiguous()
     xp = F.pad(_r(x).double(), (0, 0, pad, pad)).reshape(2, -1, G, cig)
     xp = F.pad(xp, (0, cigp - cig))                                   # [B, Tp, G, cigp]
     win = xp.unfold(1, K, s).permute(0, 1, 2, 4, 3)                   # [B, T_out, G, K, cigp]
     rows = win.reshape(*win.shape[:3], K * cigp)                      # r = j·cigp + ci
-    wr = wq.double().permute(0, 1, 3, 2).reshape(G, K * cigp, cog)    # ks·16 + c = r
-    y = torch.einsum("btgr,grc->btgc", rows, wr).reshape(2, -1, G * cog)
+    y = torch.einsum("btgr,gcr->btgc", rows, wq.double().reshape(G, cog, K * cigp))
     want = grouped_conv1d_bf16_reference(x, w, stride=s, padding=(pad, pad), groups=G)
-    torch.testing.assert_close(y.float(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y.reshape(2, -1, G * cog).float(), want, rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ chip_smoke.py, which checks and times them as they ship.
     python3 tools/torch_kernel_lab.py accuracy
     python3 tools/torch_kernel_lab.py sweep '{"name": {"B": "256, 32, 32, 32, 32, 2"}, ...}'
     python3 tools/torch_kernel_lab.py step [N]
+    python3 tools/torch_kernel_lab.py bf16 [--sweep] [PARENT_DIR]
 
 accuracy  K2 on the MSD's five grouped layers (B=3, T=1000 or 300) and K1's
           GAN form at its three n_fft (chip_smoke.py's B=18 x 8000 train
@@ -39,6 +40,18 @@ step      chip_smoke.py's check of the card's B=2 vocoder train step against
           card's worst G leaf, each generator loss term's gradient on the
           card against the CPU float64's: its share of the leaf's gradient
           and the error it brings.
+bf16      K2-bf16 on the 15 MSD grouped geometries at B=18, T=8000 (and the
+          card tests' ragged ones), each against its plain version (atol
+          2e-4, rtol 1e-4) and timed as bare launches by CUDA events
+          (chip_smoke.py:groupconv_bf16_launch_ms), beside the wrapper call
+          and cuDNN's bf16 F.conv1d (CUDA events): the shipped tiles, run
+          twice between two runs of the kernel in PARENT_DIR/conan_tpu_torch/
+          csrc/groupconv.cu (a `git archive` of the commit before, its own
+          weight layout prepared once), when given; with --sweep, also every
+          tile of csrc/groupconv.cu's K2BF16_SWEPT list, built with
+          -DK2BF16_SWEEP into build/kernel_lab/ (and -DK2BF16_WATCHDOG: a
+          pipeline that deadlocks traps). Writes its rows to
+          build/kernel_lab/k2bf16_lab.json.
 
 Imports nothing of JAX or conan_tpu.
 """
@@ -61,9 +74,10 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from conan_tpu_torch.ops import native  # noqa: E402
-from conan_tpu_torch.ops.groupconv import (grouped_conv1d_reference, groupconv,  # noqa: E402
-                                           kernel_weights)
+from conan_tpu_torch.ops.groupconv import (bf16_plan, grouped_conv1d_bf16_reference,  # noqa: E402,E501
+                                           grouped_conv1d_reference, groupconv, kernel_weights)
 from conan_tpu_torch.ops.logmel import logmel_gan, logmel_gan_reference  # noqa: E402
+from conan_tpu_torch.ops.precision import training_scope  # noqa: E402
 from conan_tpu_torch.train.losses import gan_mel_configs  # noqa: E402
 
 MSD_LAYERS = [(128, 128, 2, 4), (128, 256, 2, 16), (256, 512, 4, 16), (512, 1024, 4, 16),
@@ -303,8 +317,134 @@ def step(dev: torch.device, n_seeds: int) -> None:
               flush=True)
 
 
+def _build(name: str, source: str, extra: list[str]) -> ctypes.CDLL | None:
+    """One source built alone into build/kernel_lab/<name>.so; None when
+    nvcc fails (its log printed)."""
+    out_dir = os.path.join(ROOT, "build", "kernel_lab")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{name}.so")
+    proc = subprocess.run([native._nvcc(), *native.NVCC_FLAGS, *extra, "-I",
+                           os.path.dirname(source), source, "-o", path],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", proc.stdout))
+    serial = len(re.findall(r"wgmma.mma_async instructions are serialized", proc.stdout))
+    print(f"{name}: nvcc rc {proc.returncode}, registers "
+          f"{re.findall(r'Used (\d+) registers', proc.stdout)}, spill bytes {spills}, "
+          f"wgmma serialization warnings {serial}", flush=True)
+    if proc.returncode:
+        print(proc.stdout[-6000:], flush=True)
+        return None
+    if serial:
+        print("\n".join(line for line in proc.stdout.splitlines() if "wgmma" in line)[:4000])
+    return ctypes.CDLL(path)
+
+
+def bf16(dev: torch.device, parent: str | None, do_sweep: bool) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    src = os.path.join(ROOT, "conan_tpu_torch", "csrc", "groupconv.cu")
+    text = open(src).read()
+    tile_re = r"X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+)\)"
+
+    def tiles_of(block: str) -> list[tuple]:
+        body = text[text.index(f"#define {block}(X)"):]
+        body = body[:body.index("\n\n")]
+        return [tuple(map(int, m)) for m in re.findall(tile_re, body)]
+
+    shipped, swept = tiles_of("K2BF16_SHIPPED"), tiles_of("K2BF16_SWEPT") if do_sweep else []
+    lib = _build("k2bf16_sweep", src,
+                 ["-DK2BF16_WATCHDOG", *(["-DK2BF16_SWEEP"] if do_sweep else [])])
+    if lib is None:
+        raise SystemExit("bf16: the K2-bf16 source does not build")
+    geometry_plan = [I] * 16
+    lib.groupconv_bf16_weights.argtypes = [P, P, I, I, I, P]
+    lib.groupconv_bf16_describe.argtypes = [P, P, I, I, I, I, I, I, I, P]
+    lib.groupconv_bf16_conv.argtypes = [P, P, *geometry_plan, P]
+    old = None
+    if parent:
+        old = _build("k2bf16_parent", os.path.join(parent, "conan_tpu_torch", "csrc",
+                                                   "groupconv.cu"), [])
+        old.groupconv_forward_bf16.argtypes = [P, P, P, *[I] * 9, P]
+
+    def old_weights(w, g):      # the parent's layout, [G, K*cigp/16, cog, 16]
+        co, cig, k = w.shape
+        cigp = -(-cig // 16) * 16
+        wt = F.pad(w, (0, 0, 0, cigp - cig)).reshape(g, co // g, cigp // 16, 16, k)
+        return (wt.permute(0, 4, 2, 1, 3).reshape(g, k * cigp // 16, co // g, 16)
+                .to(torch.bfloat16).contiguous())
+
+    gen = torch.Generator().manual_seed(0)
+    cases = [(f"scale {sc}", cs.TRAIN_B, t, ci, co, k, s, g, pd)
+             for sc, t, ci, co, k, s, g, pd in cs.msd_grouped_geometries(8000)]
+    cases += [("ragged", 3, 13, 128, 128, 41, 2, 4, 20), ("ragged", 1, 121, 1024, 1024, 41, 1, 16, 20),
+              ("ragged", 5, 993, 256, 512, 41, 4, 16, 20), ("ragged", 7, 1, 512, 1024, 41, 4, 16, 20),
+              ("ragged", 2, 497, 128, 256, 41, 2, 16, 20)]
+    rows, sums = [], {}
+    for label, B, t, ci, co, k, s, g, pd in cases:
+        x = torch.randn(B, t, ci, generator=gen).to(dev)
+        w = ((torch.rand(co, ci // g, k, generator=gen) * 2 - 1) * (3 / (k * ci // g)) ** 0.5
+             ).to(dev)
+        want = grouped_conv1d_bf16_reference(x, w, stride=s, padding=(pd, pd), groups=g)
+        T_out = want.shape[1]
+        row = {"case": f"{label} {ci}->{co} s{s} g{g} B={B} T={t}"}
+
+        def timed(tiles):
+            try:
+                ms, y, _ = cs.groupconv_bf16_launch_ms(x, w, s, pd, g, lib=lib, tiles=tiles)
+            except (SystemExit, ValueError) as e:
+                print(f"  {tiles}: {e}", flush=True)
+                return float("inf")
+            torch.cuda.synchronize()
+            ok = torch.allclose(y, want, atol=2e-4, rtol=1e-4)
+            return ms if ok else float("nan")
+
+        def parent_ms():
+            wq = old_weights(w, g)
+            y = torch.full(want.shape, float("nan"), device=dev)   # contiguous
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def call():
+                return old.groupconv_forward_bf16(x.data_ptr(), wq.data_ptr(), y.data_ptr(), B, t,
+                                                  ci, T_out, co, g, k, s, pd, stream)
+            if call():
+                return float("inf")
+            torch.cuda.synchronize()
+            ok = torch.allclose(y, want, atol=2e-4, rtol=1e-4)
+            return cs.cuda_ms(call) if ok else float("nan")
+
+        plan = bf16_plan(B, T_out, ci, co, g, k, s)
+        conv = dict(stride=s, padding=(pd, pd), groups=g)
+        x_cf, w_b = x.transpose(1, 2).contiguous().bfloat16(), w.bfloat16()
+        with torch.no_grad(), training_scope("default", dev):
+            row["wrapper"] = cs.cuda_ms(lambda: groupconv(x, w, **conv))
+            row["cuDNN bf16"] = cs.cuda_ms(lambda: F.conv1d(x_cf, w_b, stride=s, padding=pd,
+                                                            groups=g))
+        order = ["parent", "shipped", "shipped", "parent"] if old else ["shipped", "shipped"]
+        got = {}
+        for name in order:
+            got.setdefault(name, []).append(parent_ms() if name == "parent" else timed(None))
+        for name, v in got.items():
+            row[name] = v
+        cigp, cog = -(-(ci // g) // 16) * 16, co // g
+        for tiles in swept:
+            if tiles[1] == cigp and cog % tiles[0] == 0:
+                row[str(tiles)] = timed((tiles[0], *tiles[2:]))
+        row["plan"] = plan._asdict()
+        rows.append(row)
+        print(row["case"] + f" (tiles {plan.args}): " + " | ".join(
+            f"{n} {' / '.join(f'{v:.4f}' for v in (vs if isinstance(vs, list) else [vs]))}"
+            for n, vs in row.items() if n not in ("case", "plan")), flush=True)
+        if label.startswith("scale"):
+            for n, vs in row.items():
+                if n not in ("case", "plan"):
+                    sums[n] = sums.get(n, 0.0) + (min(vs) if isinstance(vs, list) else vs)
+    print("sums over the 15 MSD geometries (ms a launch, the better of each pair; nan: wrong, "
+          "inf: refused): " + " | ".join(f"{n} {v:.4f}" for n, v in sums.items()), flush=True)
+    with open(os.path.join(ROOT, "build", "kernel_lab", "k2bf16_lab.json"), "w") as f:
+        json.dump({"rows": rows, "sums": sums}, f, indent=1, default=str)
+
+
 def main() -> None:
-    if len(sys.argv) < 2 or sys.argv[1] not in ("accuracy", "sweep", "step"):
+    if len(sys.argv) < 2 or sys.argv[1] not in ("accuracy", "sweep", "step", "bf16"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_lab: needs a CUDA card")
@@ -317,6 +457,9 @@ def main() -> None:
         accuracy(dev)
     elif sys.argv[1] == "step":
         step(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 6)
+    elif sys.argv[1] == "bf16":
+        args = [a for a in sys.argv[2:] if a != "--sweep"]
+        bf16(dev, args[0] if args else None, "--sweep" in sys.argv[2:])
     else:
         sweep(dev, json.loads(sys.argv[2]) if len(sys.argv) > 2 else {})
 
