@@ -7,7 +7,8 @@ Phases, one line each (the train phase several), then a JSON line of kernels
 and the result line:
 
   1. device   the card's name and power limit (nvidia-smi); exits 1 without CUDA
-  2. build    one nvcc builds every kernel in conan_tpu_torch/csrc (sm_90a)
+  2. build    every kernel in conan_tpu_torch/csrc (sm_90a), one nvcc a
+              source, all started together, then linked
   3. kernels  each serving kernel against its plain PyTorch version on the
               card, at the main path's shapes: max abs error, times (CUDA
               events for the wrapper call, torch.profiler for the kernel
@@ -52,14 +53,19 @@ and the result line:
               skipped updates, ms per step, peak memory, kernel launches per
               step against the count the code predicts, and a profiled step;
               then the same batch through Trainer.fit at the shipped rung
-              (train_precision default: bf16 operands, K2-bf16 on the MSD,
-              its launches counted); then one step at B = 2 on the card
+              (train_precision default: bf16 operands, K2-bf16 on the MSD
+              with its hand-written dx and dw, their launches counted; the
+              profiled step's cuDNN grouped backward kernels, if any, with
+              the groups of their convs); then one step at B = 2 on the card
               against the same step on the CPU in fp32 (losses) and float64
               (gradients), and the "default" and "high" steps against the
               float64 one; then K2 on each grouped geometry beside cuDNN,
               its bound and cuDNN's backward there, K2-bf16 on each against
-              its plain version (values, dx, dw) beside cuDNN in bf16, and
-              K1's GAN form's times
+              its plain version (values, dx, dw) beside cuDNN in bf16, K2-bf16
+              dx and dw alone against theirs (relative L2 1e-4) with their
+              times (wrapper, device, bare launches) beside cuDNN's bf16
+              conv1d_input / conv1d_weight and the bound, the backward per
+              default step, and K1's GAN form's times
   6. conan_train  the Conan acoustic GAN at production width
               (egs/soak_r5/conan.yaml, train_precision highest set over the
               shipped default): 24
@@ -203,8 +209,12 @@ from conan_tpu_torch.models.vocoder.discriminators import DiscriminatorS
 from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
 from conan_tpu_torch.nn.inits import fan_in_redraw
 from conan_tpu_torch.ops import native
-from conan_tpu_torch.ops.groupconv import (bf16_plan, groupconv, grouped_conv1d_bf16_reference,
-                                           grouped_conv1d_reference, kernel_weights_bf16)
+from conan_tpu_torch.ops.groupconv import (bf16_dx_plan, bf16_plan, bf16_wgrad_plan, groupconv,
+                                           grouped_conv1d_bf16_input_grad_reference,
+                                           grouped_conv1d_bf16_reference,
+                                           grouped_conv1d_bf16_weight_grad_reference,
+                                           grouped_conv1d_reference, kernel_weights_bf16,
+                                           kernel_weights_bf16_dx, sm_count)
 from conan_tpu_torch.ops.precision import precision_scope, rounded_dot, training_scope
 from conan_tpu_torch.parallel import dist
 from conan_tpu_torch.ops.logmel import (GAN_CLIP, GAN_EPS, _gan_vjp, gan_pad, logmel,
@@ -309,12 +319,16 @@ EMF_WARM, EMF_TIMED, EMF_LONG = 3, 10, (2, 3000)
 EMF_CHECK = {"num_layers": 2, "ffn_dim": 64}
 EMF_CHECK_FRAMES = 128
 # K2-bf16 against its plain version (the fp32 grouped conv of the rounded
-# operands): values as K2's (fp32 sums in another order); dx and dw, which
-# cuDNN computes from bf16 operands and returns in bf16, against the same
-# convs in fp32 on the rounded operands with the incoming gradient rounded
-# (precision.rounded_dot): one bf16 rounding of each result, at most 2^-9
-# of an element, about 2^-9 / sqrt(3) = 1.1e-3 in relative L2.
+# operands): values as K2's (fp32 sums in another order); dx and dw through
+# its autograd Function against the same convs in fp32 on the rounded
+# operands with the incoming gradient rounded (precision.rounded_dot), the
+# bound set when cuDNN computed them from bf16 operands and returned bf16:
+# one bf16 rounding of each result, at most 2^-9 of an element, about 2^-9 /
+# sqrt(3) = 1.1e-3 in relative L2. K2-bf16 dx and dw return fp32; held to
+# their plain versions on the same inputs, which sum the same exact bf16
+# products in fp32 in another order, they keep BF16_KERNEL_GRAD_REL.
 BF16_GRAD_REL = 4e-3
+BF16_KERNEL_GRAD_REL = 1e-4
 # The shipped training rung ("default": bf16 operands) and TF32 ("high")
 # rows of each training phase: RUNG_STEPS steps on the phase's own batch
 # after one warm step. Each phase's small-width check also runs its step at
@@ -391,6 +405,21 @@ KERNEL_DEVICE_WINDOWS = 6
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def zero_train_launches() -> None:
+    """Sets the training path's launch counts to 0: K1-GAN's, K2's, and
+    K2-bf16's forward, dx and dw."""
+    logmel_gan.launches = groupconv.launches = groupconv.launches_bf16 = 0
+    groupconv.launches_bf16_dx = groupconv.launches_bf16_dw = 0
+
+
+def train_launches() -> dict:
+    """The training path's launch counts, by the kernels line's names."""
+    return {"logmel_gan": logmel_gan.launches, "groupconv": groupconv.launches,
+            "groupconv_bf16": groupconv.launches_bf16,
+            "groupconv_bf16_dx": groupconv.launches_bf16_dx,
+            "groupconv_bf16_dw": groupconv.launches_bf16_dw}
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -647,6 +676,119 @@ def groupconv_bf16_launch_ms(x: torch.Tensor, w: torch.Tensor, stride: int, pad:
     return cuda_ms(launch, iters=iters), y, wq
 
 
+def groupconv_bf16_dx_launch_ms(gy: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
+                                pad: int, groups: int, lib=None,
+                                iters: int = 50) -> tuple[float, torch.Tensor, torch.Tensor]:
+    """K2-bf16 dx's conv alone, by CUDA events, as groupconv_bf16_launch_ms
+    times the forward's: ``groupconv_bf16_dx_conv`` launched ``iters`` times
+    back to back on weights laid out (``groupconv_bf16_dx_weights``) and
+    tensor maps encoded once. Returns (ms a launch, dx, the weights'
+    layout)."""
+    lib = lib or native.load()
+    B, T, Ci = x_shape
+    T_out, Co = gy.shape[1], gy.shape[2]
+    K = w.shape[2]
+    geo, plan = bf16_dx_plan(B, T, Ci, T_out, Co, groups, K, stride, pad)
+    wq = torch.empty(stride * Ci, geo.kp * (-(-(Co // groups) // 16) * 16), dtype=torch.bfloat16,
+                     device=gy.device)
+    dx = torch.full((B, T, Ci), float("nan"), device=gy.device)
+    maps = ctypes.create_string_buffer(256)
+    stream = torch.cuda.current_stream().cuda_stream
+    geometry = (B, T, Ci, T_out, Co, groups, K, stride, pad)
+    err = (lib.groupconv_bf16_dx_weights(w.data_ptr(), wq.data_ptr(), Ci, Co, groups, K, stride,
+                                         stream)
+           or lib.groupconv_bf16_describe(gy.data_ptr(), wq.data_ptr(), B, T_out, Co,
+                                          stride * Ci, groups, geo.kp, plan.bn,
+                                          ctypes.addressof(maps)))
+
+    def launch():
+        if lib.groupconv_bf16_dx_conv(ctypes.addressof(maps), dx.data_ptr(), *geometry,
+                                      *plan.args, stream):
+            fail(f"groupconv_bf16_dx_conv refused {geometry} with {plan}")
+
+    if err:
+        fail(f"groupconv_bf16 dx weights or tensor maps: cudaError {err} for {geometry}")
+    return cuda_ms(launch, iters=iters), dx, wq
+
+
+def groupconv_bf16_dw_launch_ms(x: torch.Tensor, gy: torch.Tensor, w_shape, stride: int,
+                                pad: int, groups: int, lib=None, plan=None,
+                                iters: int = 50) -> tuple[float, torch.Tensor]:
+    """K2-bf16 dw alone (its two launches, the splits' product and their
+    sum), by CUDA events: the C entry point ``groupconv_weight_grad_bf16``
+    called ``iters`` times back to back on scratch allocated once. ``lib``
+    and ``plan`` default to the shipped library and the plan the wrapper
+    takes on this card. Returns (ms a call, dw)."""
+    lib = lib or native.load()
+    B, T, Ci = x.shape
+    T_out, Co = gy.shape[1], gy.shape[2]
+    plan = plan or bf16_wgrad_plan(B, T_out, Ci, Co, groups, w_shape[2], stride,
+                                   sm_count(x.device.index))
+    dw = torch.full(tuple(w_shape), float("nan"), device=x.device)
+    part = torch.empty(plan.part_floats, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    geometry = (B, T, Ci, T_out, Co, groups, w_shape[2], stride, pad)
+
+    def launch():
+        if lib.groupconv_weight_grad_bf16(x.data_ptr(), gy.data_ptr(), part.data_ptr(),
+                                          dw.data_ptr(), *geometry, *plan.args, stream):
+            fail(f"groupconv_weight_grad_bf16 refused {geometry} with {plan}")
+
+    return cuda_ms(launch, iters=iters), dw
+
+
+def groupconv_bf16_grad_row(name: str, x: torch.Tensor, w: torch.Tensor, gy: torch.Tensor,
+                            stride: int, pad: int, groups: int) -> dict:
+    """K2-bf16 dx and dw on one geometry, each against its plain version
+    (relative L2 within BF16_KERNEL_GRAD_REL, max abs beside it), through
+    the wrapper and as bare launches (dx's weight layout against
+    kernel_weights_bf16_dx, bit for bit), then timed: bare launches and
+    wrapper calls by CUDA events, the kernels' device time by the profiler
+    (dx: its conv; dw: its two kernels), the plain versions and cuDNN's bf16
+    conv1d_input / conv1d_weight (bf16 tensors, the yardstick only)."""
+    conv = dict(stride=stride, padding=(pad, pad), groups=groups)
+    row = {}
+    with torch.no_grad():
+        grads = {"dx": (lambda: groupconv.input_grad_bf16(gy, w, x.shape, **conv),
+                        lambda: grouped_conv1d_bf16_input_grad_reference(gy, w, x.shape,
+                                                                        **conv)),
+                 "dw": (lambda: groupconv.weight_grad_bf16(x, gy, w.shape, **conv),
+                        lambda: grouped_conv1d_bf16_weight_grad_reference(x, gy, w.shape,
+                                                                         **conv))}
+        bare = {}
+        row["dx_launch_ms"], bare["dx"], wq = groupconv_bf16_dx_launch_ms(gy, w, x.shape, stride,
+                                                                          pad, groups)
+        row["dw_launch_ms"], bare["dw"] = groupconv_bf16_dw_launch_ms(x, gy, w.shape, stride,
+                                                                      pad, groups)
+        if not torch.equal(wq, kernel_weights_bf16_dx(w, groups, stride)):
+            fail(f"{name}: dx's weight layout differs from kernel_weights_bf16_dx")
+        for which, (kernel_fn, plain_fn) in grads.items():
+            got, want = kernel_fn(), plain_fn()
+            torch.cuda.synchronize()
+            if not torch.equal(got, kernel_fn()):
+                fail(f"{name} {which}: two calls on the same inputs differ")
+            for label, g_ in (("wrapper", got), ("bare launches", bare[which])):
+                err = rel_l2(g_, want)
+                if not err <= BF16_KERNEL_GRAD_REL:
+                    fail(f"{name} {which} ({label}): relative L2 {err:.3g} from the plain "
+                         f"version (limit {BF16_KERNEL_GRAD_REL})")
+            row[f"{which}_kernel_rel_l2"] = rel_l2(got, want)
+            row[f"{which}_max_abs_err"] = float((got - want).abs().max())
+            row[f"{which}_ms"] = cuda_ms(kernel_fn, iters=20)
+            row[f"{which}_plain_ms"] = cuda_ms(plain_fn, iters=10)
+        row["dx_kernel_device_ms"] = kernel_device_ms(grads["dx"][0], "groupconv_bf16_kernel")
+        row["dw_kernel_device_ms"] = total(
+            kernel_device_ms(grads["dw"][0], key)
+            for key in ("k2bf16_wgrad_kernel", "k2bf16_wgrad_reduce_kernel"))
+        xp = F.pad(x.transpose(1, 2), (pad, pad)).bfloat16()
+        gy_b, w_b = gy.transpose(1, 2).bfloat16(), w.bfloat16()
+        row["dx_library_ms"] = cuda_ms(lambda: torch.nn.grad.conv1d_input(
+            xp.shape, w_b, gy_b, stride=stride, groups=groups), iters=10)
+        row["dw_library_ms"] = cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+            xp, w.shape, gy_b, stride=stride, groups=groups), iters=10)
+    return row
+
+
 def groupconv_bf16_phase(geoms: list[tuple], gen: torch.Generator, dev: torch.device
                          ) -> tuple[list[dict], float, float]:
     """K2-bf16 under the "default" rung on each grouped geometry at B =
@@ -655,10 +797,11 @@ def groupconv_bf16_phase(geoms: list[tuple], gen: torch.Generator, dev: torch.de
     L2), the kernel's weight layout against its plain version (bit for
     bit), then its time (the wrapper call; the kernel by the profiler and by
     bare launches) beside the plain version, cuDNN's F.conv1d on bf16
-    tensors and the bound, and the backward's at this rung (cuDNN on
-    bf16-rounded operands: dx + dw as in the discriminator step, dx alone as
-    in the generator step). Returns the rows, the max abs value error and
-    the worst gradient relative L2."""
+    tensors and the bound; K2-bf16 dx and dw alone (groupconv_bf16_grad_row,
+    the bound theirs too: the same bytes and products); and the backward's
+    time at this rung through the autograd Function (K2-bf16 dx + dw as in
+    the discriminator step, dx alone as in the generator step). Returns the
+    rows, the max abs value error and the worst gradient relative L2."""
     rows, err, grad_err = [], 0.0, 0.0
     for scale, t, ci, co, k, s, g, pd in geoms:
         x = torch.randn(TRAIN_B, t, ci, generator=gen).to(dev)
@@ -693,6 +836,8 @@ def groupconv_bf16_phase(geoms: list[tuple], gen: torch.Generator, dev: torch.de
                 plain_ms=cuda_ms(lambda: grouped_conv1d_bf16_reference(x, w, **k2)),
                 library_ms=cuda_ms(lambda: F.conv1d(x_cf, w_b, stride=s, padding=pd,
                                                     groups=g)))
+        row.update(groupconv_bf16_grad_row(
+            name, x, w, torch.randn(got.shape, generator=gen).to(dev), s, pd, g))
         xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
         with training_scope("default", dev):
             y_both, y_dx = groupconv(xg, wg, **k2), groupconv(xg, w, **k2)
@@ -710,9 +855,41 @@ def groupconv_bf16_phase(geoms: list[tuple], gen: torch.Generator, dev: torch.de
               f"kernel {row['ms']:.4f} ms (device {ms_text(row['kernel_device_ms'])}, bare "
               f"launches {row['launch_ms']:.4f} ms), cuDNN bf16 F.conv1d "
               f"{row['library_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4g} ms by {row['bound_by']}; backward (cuDNN, bf16 operands) "
-              f"dx+dw {row['bwd_dx_dw_ms']:.4f} ms, dx {row['bwd_dx_ms']:.4f} ms", flush=True)
+              f"{row['bound_ms']:.4g} ms by {row['bound_by']}; "
+              + "; ".join(
+                  f"K2-bf16 {k} vs plain rel L2 {row[k + '_kernel_rel_l2']:.3g} (max abs "
+                  f"{row[k + '_max_abs_err']:.3g}), kernel {row[k + '_ms']:.4f} ms (device "
+                  f"{ms_text(row[k + '_kernel_device_ms'])}, bare launches "
+                  f"{row[k + '_launch_ms']:.4f} ms), cuDNN bf16 {row[k + '_library_ms']:.4f} "
+                  f"ms, plain {row[k + '_plain_ms']:.4f} ms, bound {row['bound_ms']:.4g} ms"
+                  for k in ("dx", "dw"))
+              + f"; backward (K2-bf16 dx and dw) dx+dw {row['bwd_dx_dw_ms']:.4f} ms, dx "
+              f"{row['bwd_dx_ms']:.4f} ms", flush=True)
     return rows, err, grad_err
+
+
+def cudnn_grouped_backward(prof) -> list[tuple]:
+    """The cuDNN kernels in a torch.profiler trace (``record_shapes``)
+    whose names say grouped dgrad or wgrad, one (name, groups, shapes) a
+    launch: the groups of the conv whose backward launched it (input
+    channels over the weight's second dimension, None where the trace does
+    not say) and its grad, input and weight shapes. cuDNN also names
+    kernels of dense convs so (one channel in or out)."""
+    found = []
+    for evt in prof.events():
+        for k in evt.kernels:
+            if "grouped" not in k.name or not ("dgrad" in k.name or "wgrad" in k.name) \
+                    or "k2bf16" in k.name:
+                continue
+            op = evt
+            while op is not None and op.name != "aten::convolution_backward":
+                op = op.cpu_parent
+            shapes = list(op.input_shapes[:3]) if op is not None else []
+            groups = (shapes[1][1] // shapes[2][1]
+                      if len(shapes) == 3 and len(shapes[1]) > 1 and len(shapes[2]) > 1
+                      and shapes[2][1] else None)
+            found.append((k.name.split("<")[0][-40:], groups, shapes))
+    return found
 
 
 def step_rows(task, state, batch, step_kw: dict, gen=None) -> dict:
@@ -1133,10 +1310,11 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
     shutil.rmtree(work_default, ignore_errors=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    logmel_gan.launches = groupconv.launches = groupconv.launches_bf16 = 0
+    zero_train_launches()
     state_default = Trainer(task_default, hp_shipped, work_default).fit(default_batches())
     torch.cuda.synchronize()
     k2_bf16_launches, k2_default_tf32 = groupconv.launches_bf16, groupconv.launches
+    dx_launches, dw_launches = groupconv.launches_bf16_dx, groupconv.launches_bf16_dw
     k1_default = logmel_gan.launches
     default_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     default_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
@@ -1147,9 +1325,20 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
         fail(f"train_precision {shipped}: launches per step groupconv_bf16 "
              f"{k2_bf16_launches / n_default}, groupconv (3xTF32) {k2_default_tf32 / n_default}, "
              f"logmel_gan {k1_default / n_default}; predicted {k2_pred}, 0, {k1_pred}")
+    # K2-bf16's backward: dx on every grouped layer of the generator step's
+    # MSD pass (y_hat; the discriminator's weights take no gradient there)
+    # and of the discriminator step's two (y and y_hat), dw on those two
+    dx_pred, dw_pred = 3 * len(geoms), 2 * len(geoms)
+    if (dx_launches, dw_launches) != (dx_pred * n_default, dw_pred * n_default):
+        fail(f"train_precision {shipped}: launches per step groupconv_bf16 dx "
+             f"{dx_launches / n_default}, dw {dw_launches / n_default}; predicted {dx_pred}, "
+             f"{dw_pred}")
     if sum(r["skipped"] for r in records_d) or not all(
             np.isfinite(v) for r in records_d for v in r.values() if isinstance(v, float)):
         fail(f"train_precision {shipped}: skipped updates or non-finite metrics {records_d}")
+    # one profiled step without shapes (its wall and busy share, comparable
+    # across runs), then one recording shapes (host work on every op), read
+    # only for which convs cuDNN's grouped dgrad/wgrad kernels served
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         task_default.train_step(state_default, batch)
@@ -1157,22 +1346,45 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
         default_wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels_d = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     default_device_ms = sum(e.self_device_time_total for e in kernels_d) / 1e3
+    # the forward's and dx's convs are one kernel (dx runs it over the phases)
     bf16_evs = [e for e in kernels_d if "groupconv_bf16_kernel" in e.key]
-    if sum(e.count for e in bf16_evs) != k2_pred:
+    dw_evs = [e for e in kernels_d if "k2bf16_wgrad" in e.key]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof_shapes:
+        task_default.train_step(state_default, batch)
+        torch.cuda.synchronize()
+    cudnn_grouped = cudnn_grouped_backward(prof_shapes)
+    if sum(e.count for e in bf16_evs) != k2_pred + dx_pred \
+            or any(groups != 1 for _name, groups, _shapes in cudnn_grouped):
         fail(f"train_precision {shipped}: the profiled step ran groupconv_bf16_kernel "
-             f"{sum(e.count for e in bf16_evs)} times, predicted {k2_pred}")
+             f"{sum(e.count for e in bf16_evs)} times, k2bf16_wgrad's two kernels "
+             f"{sum(e.count for e in dw_evs)}, predicted {k2_pred} + {dx_pred}, {2 * dw_pred}; "
+             f"cuDNN's grouped dgrad/wgrad kernels (name, the conv's groups, shapes) "
+             f"{cudnn_grouped}")
+    grouped_by = {}
+    for name, groups, shapes in cudnn_grouped:
+        key = f"{name} for a conv of groups {groups}, grad/input/weight {shapes}"
+        grouped_by[key] = grouped_by.get(key, 0) + 1
     top_d = sorted(kernels_d, key=lambda e: -e.self_device_time_total)[:6]
     print(f"train {shipped}: the same batch through Trainer.fit at the shipped "
           f"train_precision {shipped!r} (bf16 operands for every dot and conv, K2-bf16 on the "
           f"MSD), {n_default} steps: ms per step {[round(x, 3) for x in default_ms]}, median "
           f"after 1 warmup step {np.median(default_ms[1:]):.3f} (highest's "
           f"{np.median(step_ms[1:]):.3f}); peak memory {default_peak_gb:.3f} GB; launches per "
-          f"step groupconv_bf16 {k2_bf16_launches / n_default:g}, groupconv (3xTF32) "
+          f"step groupconv_bf16 {k2_bf16_launches / n_default:g}, its dx "
+          f"{dx_launches / n_default:g} (predicted {dx_pred}) and dw "
+          f"{dw_launches / n_default:g} (predicted {dw_pred}), groupconv (3xTF32) "
           f"{k2_default_tf32 / n_default:g}, logmel_gan {k1_default / n_default:g}; "
-          f"one profiled step: wall {default_wall_ms:.3f} ms, device kernels "
+          f"one profiled step (shapes not recorded): wall {default_wall_ms:.3f} ms, device kernels "
           f"{default_device_ms:.3f} ms (busy {100 * default_device_ms / default_wall_ms:.1f}%), "
-          f"{sum(e.count for e in kernels_d)} kernels, K2-bf16 x{sum(e.count for e in bf16_evs)} "
-          f"{sum(e.self_device_time_total for e in bf16_evs) / 1e3:.3f} ms; largest: "
+          f"{sum(e.count for e in kernels_d)} kernels, K2-bf16 forward and dx convs "
+          f"x{sum(e.count for e in bf16_evs)} "
+          f"{sum(e.self_device_time_total for e in bf16_evs) / 1e3:.3f} ms, dw's two kernels "
+          f"x{sum(e.count for e in dw_evs)} "
+          f"{sum(e.self_device_time_total for e in dw_evs) / 1e3:.3f} ms; in a second step "
+          f"recording shapes, cuDNN kernels named grouped dgrad or wgrad {len(cudnn_grouped)}, "
+          f"none for a grouped conv: "
+          f"{'; '.join(f'{k} x{n}' for k, n in grouped_by.items()) or 'none'}; largest: "
           + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                       for e in top_d)
           + "; step losses: " + ", ".join(f"{k} {v:.5g}" for k, v in records_d[-1].items()
@@ -1231,9 +1443,13 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
           f"{3 * k2_sum['ms']:.4f} ms, backward "
           f"{2 * k2_sum['bwd_dx_dw_ms'] + k2_sum['bwd_dx_ms']:.4f} ms", flush=True)
     bf16_rows, bf16_err, bf16_grad_err = groupconv_bf16_phase(geoms, gen, dev)
+    grad_keys = [f"{k}_{key}" for k in ("dx", "dw")
+                 for key in ("ms", "kernel_device_ms", "launch_ms", "plain_ms", "library_ms")]
     bf16_sum = {key: total(r[key] for r in bf16_rows)
                 for key in ("ms", "kernel_device_ms", "launch_ms", "plain_ms", "library_ms",
-                            "bound_ms", "bwd_dx_dw_ms", "bwd_dx_ms")}
+                            "bound_ms", "bwd_dx_dw_ms", "bwd_dx_ms", *grad_keys)}
+    grad_err = {k: (max(r[f"{k}_kernel_rel_l2"] for r in bf16_rows),
+                    max(r[f"{k}_max_abs_err"] for r in bf16_rows)) for k in ("dx", "dw")}
     bf16_by = {by: sum(r["bound_ms"] for r in bf16_rows if r["bound_by"] == by)
                for by in ("bytes", "operations")}
     print(f"train groupconv_bf16 sums over the {len(geoms)} geometries: values max abs "
@@ -1244,11 +1460,19 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
           f"{bf16_sum['launch_ms']:.4f} ms), cuDNN bf16 {bf16_sum['library_ms']:.4f} "
           f"ms, plain {bf16_sum['plain_ms']:.4f} ms, bound {bf16_sum['bound_ms']:.4g} ms "
           f"(3xTF32 K2 {k2_sum['ms']:.4f} ms, device {ms_text(k2_sum['kernel_device_ms'])}); "
-          f"backward (cuDNN, bf16 operands) dx+dw {bf16_sum['bwd_dx_dw_ms']:.4f} ms, dx "
+          + "; ".join(
+              f"K2-bf16 {k}: max rel L2 {grad_err[k][0]:.3g} (limit {BF16_KERNEL_GRAD_REL}), "
+              f"max abs {grad_err[k][1]:.3g}, kernel {bf16_sum[k + '_ms']:.4f} ms (device "
+              f"{ms_text(bf16_sum[k + '_kernel_device_ms'])}, bare launches "
+              f"{bf16_sum[k + '_launch_ms']:.4f} ms), cuDNN bf16 "
+              f"{bf16_sum[k + '_library_ms']:.4f} ms, plain {bf16_sum[k + '_plain_ms']:.4f} ms, "
+              f"bound {bf16_sum['bound_ms']:.4g} ms" for k in ("dx", "dw"))
+          + f"; backward (K2-bf16 dx and dw) dx+dw {bf16_sum['bwd_dx_dw_ms']:.4f} ms, dx "
           f"{bf16_sum['bwd_dx_ms']:.4f} ms, so per default step (2 MSD passes with dx+dw in "
           f"the discriminator step, 1 with dx in the generator step) forward "
           f"{3 * bf16_sum['ms']:.4f} ms, backward "
-          f"{2 * bf16_sum['bwd_dx_dw_ms'] + bf16_sum['bwd_dx_ms']:.4f} ms", flush=True)
+          f"{2 * bf16_sum['bwd_dx_dw_ms'] + bf16_sum['bwd_dx_ms']:.4f} ms (through cuDNN, PR "
+          f"16: 79.9-105.2 ms)", flush=True)
     with torch.no_grad():
         k1_ms = k1_plain_ms = k1_library_ms = k1_bound_ms = 0.0
         k1_device = []
@@ -1297,6 +1521,21 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
          "scale1_layer": {key: bf16_rows[0][key] for key in
                           ("ms", "kernel_device_ms", "launch_ms", "plain_ms", "library_ms",
                            "bound_ms")}},
+        *({"name": f"groupconv_bf16_{k}", "route": "cuda", "source": source,
+           "replaces": "conan_tpu/ops/pallas_groupconv.py:151",
+           "replaces_note": "no Pallas kernel: the XLA VJP of the Pallas forward's custom_vjp",
+           "launches": launches, "max_abs_err": grad_err[k][1], "max_abs_diff": grad_err[k][1],
+           "rel_l2": grad_err[k][0], "ms": bf16_sum[f"{k}_ms"],
+           "kernel_device_ms": bf16_sum[f"{k}_kernel_device_ms"],
+           "launch_ms": bf16_sum[f"{k}_launch_ms"], "plain_ms": bf16_sum[f"{k}_plain_ms"],
+           "bound_ms": bf16_sum["bound_ms"], "bound_by": max(bf16_by, key=bf16_by.get),
+           "library_ms": bf16_sum[f"{k}_library_ms"], "geometries": len(geoms),
+           "scale1_layer": {key: bf16_rows[0][f"{k}_{key}"] for key in
+                            ("ms", "kernel_device_ms", "launch_ms", "plain_ms", "library_ms")}
+           | {"bound_ms": bf16_rows[0]["bound_ms"]}}
+          for k, launches, source in (
+              ("dx", dx_launches, "conan_tpu_torch/csrc/groupconv.cu"),
+              ("dw", dw_launches, "conan_tpu_torch/csrc/groupconv_bwd.cu"))),
     ]
 
 
@@ -2280,11 +2519,11 @@ def vocoder_options_phase(seed: int, dev: torch.device, rng: np.random.Generator
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    logmel_gan.launches = groupconv.launches = groupconv.launches_bf16 = 0
+    zero_train_launches()
     state = Trainer(task, hp, work).fit(batches())
     torch.cuda.synchronize()
-    launches = {"logmel_gan": logmel_gan.launches, "groupconv_bf16": groupconv.launches_bf16,
-                "groupconv": groupconv.launches}
+    launches = train_launches()
+    grad_launches = {k: launches.pop(k) for k in ("groupconv_bf16_dx", "groupconv_bf16_dw")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     with open(os.path.join(work, "metrics.jsonl")) as f:
@@ -2302,6 +2541,9 @@ def vocoder_options_phase(seed: int, dev: torch.device, rng: np.random.Generator
     if sum(r["skipped"] for r in records) or not all(
             np.isfinite(v) for r in records for v in r.values() if isinstance(v, float)):
         fail(f"vocoder_options: skipped updates or non-finite metrics {records}")
+    if not all(grad_launches.values()):
+        fail(f"vocoder_options: K2-bf16's backward launched {grad_launches}")
+    launches.update(grad_launches)
     updates = [int(state[o]["gradient_step"]) for o in ("opt_g", "opt_d")]
     if updates != [OPT_MINI_STEPS // 2] * 2 or int(state["opt_g"]["mini_step"]) != 0:
         fail(f"vocoder_options: {updates} updates after {OPT_MINI_STEPS} mini-steps of 2")
@@ -2348,7 +2590,9 @@ def vocoder_options_phase(seed: int, dev: torch.device, rng: np.random.Generator
           f"{np.median(step_ms[1:]):.3f}; peak memory {peak_gb:.3f} GB; launches per mini-step "
           f"logmel_gan {launches['logmel_gan'] / OPT_MINI_STEPS:g} (predicted {k1_pred}), "
           f"groupconv_bf16 {launches['groupconv_bf16'] / OPT_MINI_STEPS:g} (predicted "
-          f"{k2_pred}), groupconv (3xTF32) {launches['groupconv']}; one profiled mini-step: wall "
+          f"{k2_pred}), its dx {launches['groupconv_bf16_dx'] / OPT_MINI_STEPS:g} and dw "
+          f"{launches['groupconv_bf16_dw'] / OPT_MINI_STEPS:g}, groupconv (3xTF32) "
+          f"{launches['groupconv']}; one profiled mini-step: wall "
           f"{wall_ms:.3f} ms, device kernels {device_ms:.3f} ms (busy "
           f"{100 * device_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernels; largest: "
           + "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
@@ -2779,6 +3023,15 @@ def dist_conan_batch(seed: int) -> dict:
     return batch
 
 
+def highest_step_launches(hp) -> dict:
+    """What one vocoder step at "highest" launches, by the code's structure:
+    K1-GAN at the mel loss's resolutions on y and y_hat, K2 on the MSD's 15
+    grouped layers on y_hat in the generator step and on y and y_hat in the
+    discriminator step; K2-bf16, its dx and dw none (the "default" rung's)."""
+    return {"logmel_gan": 2 * len(hp["mel_loss_param"]["fft_sizes"]), "groupconv": 3 * 15,
+            "groupconv_bf16": 0, "groupconv_bf16_dx": 0, "groupconv_bf16_dw": 0}
+
+
 def dist_rank_main(rank: int, out_dir: str, seed: int) -> None:
     """One rank of the dist_train phase (this script run with --dist_rank):
     joins a gloo group of DIST_RANKS on cuda:0 through a file rendezvous in
@@ -2802,13 +3055,13 @@ def dist_rank_main(rank: int, out_dir: str, seed: int) -> None:
     task = VocoderTask(hp, world=world)
     state0 = dist.broadcast_state(task.init_state(torch.Generator().manual_seed(seed + 1)),
                                   world)
-    logmel_gan.launches = groupconv.launches = 0
+    zero_train_launches()
     new, metrics = task.train_step(state0, batch)
     torch.cuda.synchronize()
     res["check"] = {"metrics": {k: float(v) for k, v in metrics.items()},
                     "hash": tree_hash({k: new[k] for k in ("params_g", "params_d", "opt_g",
                                                            "opt_d")}),
-                    "launches": [logmel_gan.launches, groupconv.launches], "rows": len(batch["wavs"])}
+                    "launches": train_launches(), "rows": len(batch["wavs"])}
     if rank == 0:
         torch.save([t.cpu() for t in first_moments(new)], os.path.join(out_dir, "mu_rank0.pt"))
     del new, state0
@@ -2830,12 +3083,12 @@ def dist_rank_main(rank: int, out_dir: str, seed: int) -> None:
     work = os.path.join(out_dir, "vocoder")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    logmel_gan.launches = groupconv.launches = 0
+    zero_train_launches()
     state = Trainer(task, hp, work).fit(batches())
     torch.cuda.synchronize()
     res["fit"] = {"ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                  "launches": [logmel_gan.launches, groupconv.launches],
+                  "launches": train_launches(),
                   "hash": tree_hash(state), "step": int(state["step"])}
     # the gradients' all-reduce alone: one buffer per optimizer, as the step
     # sums them; both ranks hold the same parameters, so the sum is 2 x each
@@ -2884,8 +3137,9 @@ def dist_train_phase(seed: int, dev: torch.device, smi: str) -> dict:
     max(STEP_GRAD_REL, STEP_FP32_FACTOR x the one-rank fp32 step's worst
     leaf). The ranks' states agree bit for bit after that step, after
     Trainer.fit, and after ConanTask's run across the k-means hook; each
-    rank launches K1's GAN form and K2 as the code predicts. Returns the
-    launches of rank 0 (check step and Trainer.fit)."""
+    rank launches K1's GAN form and K2, and none of K2-bf16's three kernels,
+    as the code predicts (``highest_step_launches``). Returns the launches
+    of rank 0 (check step and Trainer.fit), every training kernel counted."""
     out = os.path.join(ROOT, "build", "chip_smoke_dist")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
@@ -2955,13 +3209,12 @@ def dist_train_phase(seed: int, dev: torch.device, smi: str) -> dict:
     if len(mu0) != len(mu64) or max(leaf_err) > limit:
         fail(f"dist_train: gradient leaf {int(np.argmax(leaf_err))} relative L2 "
              f"{max(leaf_err):.3g} from the one-rank float64 step (limit {limit:.3g})")
-    k1_pred, k2_pred = 2 * len(hp["mel_loss_param"]["fft_sizes"]), 3 * 15
+    pred = highest_step_launches(hp)
     for r in ranks:
-        if r["check"]["launches"] != [k1_pred, k2_pred] or r["fit"]["launches"] != [
-                k1_pred * DIST_STEPS, k2_pred * DIST_STEPS] or r["fit"]["step"] != DIST_STEPS:
+        if r["check"]["launches"] != pred or r["fit"]["launches"] != {
+                k: n * DIST_STEPS for k, n in pred.items()} or r["fit"]["step"] != DIST_STEPS:
             fail(f"dist_train: rank {r['rank']} launches check {r['check']['launches']}, fit "
-                 f"{r['fit']['launches']} ({r['fit']['step']} steps); predicted "
-                 f"{[k1_pred, k2_pred]} a step")
+                 f"{r['fit']['launches']} ({r['fit']['step']} steps); predicted {pred} a step")
         if r["conan"]["step"] != DIST_CONAN_STEPS or r["conan"]["initialized"] != 1.0:
             fail(f"dist_train: ConanTask on rank {r['rank']}: {r['conan']}")
     conan_m = r0["conan"]["metrics"]
@@ -2978,7 +3231,8 @@ def dist_train_phase(seed: int, dev: torch.device, smi: str) -> dict:
           f"after Trainer.fit ({DIST_STEPS} steps) and after ConanTask ({DIST_CONAN_STEPS} "
           f"steps of egs/soak_r5/conan.yaml at B={DIST_CONAN_B} x {DIST_CONAN_T}, gates "
           f"{CONAN_GATES}, the k-means hook run, VQ initialized); launches per rank per step "
-          f"logmel_gan {k1_pred}, groupconv {k2_pred} (predicted); ms per step (CUDA events) "
+          f"as predicted: " + ", ".join(f"{k} {n}" for k, n in pred.items())
+          + "; ms per step (CUDA events) "
           + "; ".join(f"rank {r['rank']} {[round(x, 3) for x in r['fit']['ms']]} median "
                       f"{np.median(r['fit']['ms'][1:]):.3f}" for r in ranks)
           + f"; one rank on the whole batch, timed after the ranks exit, "
@@ -2992,15 +3246,15 @@ def dist_train_phase(seed: int, dev: torch.device, smi: str) -> dict:
           f"{DIST_CONAN_STEPS}: " + ", ".join(f"{k} {v:.5g}" for k, v in conan_m[-1].items()
                                               if k not in ("step", "prefix", "skipped",
                                                            "steps_per_s")), flush=True)
-    return {"logmel_gan": sum(r0[k]["launches"][0] for k in ("check", "fit")),
-            "groupconv": sum(r0[k]["launches"][1] for k in ("check", "fit"))}
+    return {name: sum(r0[k]["launches"][name] for k in ("check", "fit")) for name in pred}
 
 
 def nccl1_phase(seed: int, dev: torch.device) -> dict:
     """Phase 12: one vocoder step (production width, B = CHECK_B) through
     an NCCL group of one rank against the same step with no group, with
     cuDNN's deterministic algorithms: every loss and every leaf of the new
-    state equal bit for bit. Returns its launches."""
+    state equal bit for bit, and the launches of every training kernel as
+    ``highest_step_launches`` predicts. Returns them."""
     out = os.path.join(ROOT, "build", "chip_smoke_nccl1")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
@@ -3017,10 +3271,10 @@ def nccl1_phase(seed: int, dev: torch.device) -> dict:
             task = VocoderTask(hp)
             state0 = task.init_state(torch.Generator().manual_seed(seed + 3))
             new, m = task.train_step(state0, small)
-            logmel_gan.launches = groupconv.launches = 0
+            zero_train_launches()
             new_w, m_w = VocoderTask(hp, world=world).train_step(state0, small)
             torch.cuda.synchronize()
-            launches = {"logmel_gan": logmel_gan.launches, "groupconv": groupconv.launches}
+            launches = train_launches()
     finally:
         dist.shutdown(world)
     leaves, leaves_w = tree_leaves(dist.sorted_keys(new)), tree_leaves(dist.sorted_keys(new_w))
@@ -3029,10 +3283,12 @@ def nccl1_phase(seed: int, dev: torch.device) -> dict:
             k: float(v) for k, v in m_w.items()}:
         fail(f"nccl1: {differ} of {len(leaves)} state leaves (or the losses) differ from the "
              f"step with no group")
+    if launches != highest_step_launches(hp):
+        fail(f"nccl1: launches {launches}, predicted {highest_step_launches(hp)}")
     print(f"nccl1: one vocoder step (egs/soak_r5/vocoder.yaml, highest, B={CHECK_B}) through an "
           f"NCCL group of one rank equals the step with no group bit for bit: losses and all "
-          f"{len(leaves)} state leaves; launches logmel_gan {launches['logmel_gan']}, groupconv "
-          f"{launches['groupconv']}", flush=True)
+          f"{len(leaves)} state leaves; launches as predicted: "
+          + ", ".join(f"{k} {n}" for k, n in launches.items()), flush=True)
     return launches
 
 
@@ -3369,7 +3625,7 @@ def main() -> None:
              if "registers" in line or "spill" in line]
     spills = [line for line in ptxas
               if any(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))]
-    print(f"build: {', '.join(src.name for src in native.SOURCES)} by one nvcc in "
+    print(f"build: {', '.join(src.name for src in native.SOURCES)} by one nvcc each in "
           f"{time.perf_counter() - t0:.2f} s [{'; '.join(ptxas)}]", flush=True)
     if spills:
         fail(f"ptxas reports register spills: {spills}")
@@ -3537,8 +3793,7 @@ def main() -> None:
         by_path["leftovers"] = leftovers_phase(args.seed, dev, eng, src, ref)
         for entry in train_kernels:
             entry["launches_by_path"].update(
-                dist_train=dist_launches.get(entry["name"], 0),
-                nccl1=nccl_launches.get(entry["name"], 0))
+                dist_train=dist_launches[entry["name"]], nccl1=nccl_launches[entry["name"]])
 
     kernel = {"name": "logmel", "route": "cuda", "source": "conan_tpu_torch/csrc/logmel.cu",
               "replaces": "conan_tpu/ops/pallas_stft.py:52", "launches": launches,

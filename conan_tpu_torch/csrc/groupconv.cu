@@ -134,10 +134,32 @@
 // swept list below: one consumer warpgroup throughout, its slots MI 2
 // (MI 4 at cig 8) and stages of two 64-wide boxes; 0.549 ms, the parent's
 // mma.sync kernel 0.981 ms in the same call.
+//
+// K2-bf16 dx (entry groupconv_input_grad_bf16) is the "default" rung's
+// input gradient of the same conv,
+//   dx[b, u, ci] = sum_o sum_{j = u + pad_l mod s} bf(w[o, ci, j])
+//                                               * bf(gy[b, (u + pad_l - j) / s, o]),
+// fp32 out. It replaces no Pallas kernel: it takes the place of the JAX
+// package's XLA VJP (pallas_groupconv.py:151-158), and was added because
+// the port's backward handed it to cuDNN (15-23 ms over the MSD's 15
+// geometries a pass, bf16 results where JAX's DEFAULT returns fp32). Its
+// bound is the forward's: bytes on 13 of the 15 geometries (gy and w read,
+// dx written once), the bf16 product on scales 1 and 2's 1024 -> 1024. Its design
+// runs the forward kernel above over the stride's phases, one conv a phase
+// and the phase in blockIdx.y: dx's padded row p = m*s + ph is the stride-1
+// conv of gy with the taps j = ph + s*i, flipped, and each group's channel
+// roles swapped (cig' = cog, cog' = cig), so no product of the zeros a
+// dilated gy would hold is computed. Phase ph has ceil((K - ph) / s) taps,
+// its k-steps and window offset in a table in the kernel's arguments (a
+// phase computed from the tile index made ptxas serialize every wgmma,
+// C7520); k2bf16_dx_weights_kernel lays the phases' weights out in the same
+// C call (plain version ops/groupconv.py:kernel_weights_bf16_dx); the
+// epilogue stores output t of phase ph at dx row t*s + ph - y_off, so each
+// dx row is written once. The MSD's 128 -> 256 layer has cig 8, dx's cog':
+// its tile is wgmma m64n8k16.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 
 #include <cstdint>
 #include <cstring>
@@ -145,6 +167,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "k2bf16.cuh"
 
 namespace {
 
@@ -371,75 +394,7 @@ int launch(const float* x, const float* w_hi, const float* w_lo, float* y, int B
 // K2-bf16: warp-specialized wgmma implicit GEMM (see the note at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int kRowBox = 16;   // window rows a TMA box
 constexpr int kSlot = 64;     // outputs of one batch row an m64 block holds
-
-__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
-
-__device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// returns once the barrier's phase of parity `parity` has completed; built
-// with -DK2BF16_WATCHDOG (tools/torch_kernel_lab.py), a wait of ~2^26 tries
-// traps, so a pipeline that deadlocks fails its launch instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-#ifdef K2BF16_WATCHDOG
-  uint32_t tries = 0;
-#endif
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-#ifdef K2BF16_WATCHDOG
-    if (++tries == (1u << 26)) __trap();
-#endif
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
 
 // the consumer warpgroups' own barrier (named barrier 1; the producer warp
 // never joins it)
@@ -448,102 +403,25 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
 }
 
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// shared-memory descriptor of the weights' B tile: K-major, 128-byte
-// swizzle, rows of 64 bf16 (128 bytes), 8-row swizzle atoms 1024 bytes
-// apart; a k-step of 16 within a row advances the start address by 32 bytes
-__device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// shared-memory descriptor of the window's A tile: K-major, no swizzle; a
-// core matrix is 8 rows x 16 bytes (8 channels) stored contiguously, the
-// next 8 channels `lbo` bytes on, the next 8 rows 128 bytes on
-__device__ __forceinline__ uint64_t a_desc(uint32_t saddr, uint32_t lbo) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>(128 >> 4) << 32);
-}
-
-// d = a * b + (scale_d ? d : 0): wgmma m64nNk16, A and B (bf16) through
-// descriptors, fp32 accumulators in the m64nN layout. A tile's first product
-// passes scale_d 0, so no other instruction writes the accumulators inside
-// the pipeline (ptxas serializes the wgmmas otherwise).
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-// keeps the compiler from moving accesses of an accumulator across a wgmma
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 struct Bf16Args {
   float* y;
   int B, T_out, Co, cig, cog, K, stride, pad_l, groups;
-  int nks;          // k-steps of 16: K * cigp / 16
   int slots;        // m64 slots a batch row: ceil(T_out / 64)
   int win_rows;     // fp32 staging rows
   int win_u;        // bf16 window rows a phase: win_rows / stride, and a slot's reach
   int alloc_full;   // staging rows of a whole batch row's window (a multiple of kRowBox)
-  int n_co_tiles, n_tiles;
+  int n_co_tiles, n_tiles;   // n_tiles: those of one phase
+  // The input gradient runs `phases` convs in one launch (the forward: 1),
+  // phase ph = blockIdx.y with nks[ph] k-steps of 16 (taps(ph) =
+  // ceil((taps - ph) / phases) of its K taps), its window pad[ph] = pad_l -
+  // (K - taps(ph)) rows to the left, its weights rows ph * Co .. of the
+  // layout, and output t of batch row b stored at row t * phases + ph -
+  // y_off of y's y_rows (rows outside not stored). The phase comes from the
+  // grid and its figures from this table, so that what bounds a tile's
+  // wgmmas stays uniform to the compiler (a phase computed from the tile
+  // index made ptxas serialize every wgmma, C7520).
+  int phases, y_rows, y_off;
+  int nks[8], pad[8];
 };
 
 // M tile mt: the m64 slots v0 .. v1-1 (slot v: batch row v / slots, outputs
@@ -586,7 +464,7 @@ struct Bf16Tiles {
   static constexpr int KSTEPS = 4 * KC;              // k-steps of 16 a stage
   static constexpr int TAPS = KC * 64 / CIGP;        // taps a stage
   static_assert(CIGP == 16 || CIGP == 32 || CIGP == 64, "cigp divides a 64-wide box");
-  static_assert(BN == 16 || BN == 32 || BN == 64, "wgmma widths instantiated");
+  static_assert(BN == 8 || BN == 16 || BN == 32 || BN == 64, "wgmma widths instantiated");
 };
 
 size_t bf16_smem_bytes(int bn, int kc, int stages, int win_rows, int win_u, int cig, int stride) {
@@ -632,7 +510,8 @@ groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
   }
   __syncthreads();
 
-  const int nchunks = (a.nks + P::KSTEPS - 1) / P::KSTEPS;   // stages a tile
+  const int ph = blockIdx.y, nks = a.nks[ph], pad = a.pad[ph];
+  const int nchunks = (nks + P::KSTEPS - 1) / P::KSTEPS;   // stages a tile
   const int per_m = a.groups * a.n_co_tiles;
 
   if (warp == NWG * 4) {
@@ -650,7 +529,7 @@ groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
         const int t_lo = b == r.b_first ? r.t_lo_first : 0;
         const int t_hi = b == r.b_last ? seg_t_hi(a, r.v1, b) : a.T_out - 1;
         const int n = (t_hi - t_lo) * a.stride + a.K;
-        const int in0 = t_lo * a.stride - a.pad_l;
+        const int in0 = t_lo * a.stride - pad;
         for (int k = 0; k < n; k += kRowBox)
           tma_load_3d(stg + (row + k) * a.cig, &xmap, wfull, g * a.cig, in0 + k, b);
         row += b == r.b_first ? r.alloc_first : a.alloc_full;
@@ -661,7 +540,7 @@ groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
     for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, ++it) {
       const int rest = tile % per_m, g = rest / a.n_co_tiles, ct = rest % a.n_co_tiles;
       const int next = tile + gridDim.x;
-      const int w_row = g * a.cog + ct * BN;
+      const int w_row = ph * a.Co + g * a.cog + ct * BN;
       for (int c = 0; c < nchunks; ++c, ++chunk) {
         if (c == STAGES && next < a.n_tiles) load_window(next, it + 1);
         const int st = chunk % STAGES;
@@ -732,7 +611,7 @@ groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
       auto issue = [&](auto partial) {
 #pragma unroll
         for (int kk = 0; kk < P::KSTEPS; ++kk) {
-          if (decltype(partial)::value && c * P::KSTEPS + kk >= a.nks) break;
+          if (decltype(partial)::value && c * P::KSTEPS + kk >= nks) break;
           // k-step kk: tap j, channels c16*16 .. +15 (chunks 2*c16, 2*c16 + 1)
           const int j = tap0 + (kk * 16) / CIGP, c16 = ((kk * 16) % CIGP) / 16;
           const uint32_t a_base =
@@ -743,7 +622,7 @@ groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
             Wgmma<BN>::mma(acc[mi], a_desc(a_base + u0[mi] * 16, plane), bd, c > 0 || kk > 0);
         }
       };
-      if ((c + 1) * P::KSTEPS <= a.nks)
+      if ((c + 1) * P::KSTEPS <= nks)
         issue(std::false_type{});
       else
         issue(std::true_type{});
@@ -768,8 +647,9 @@ groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int t = (v - b * a.slots) * kSlot + wl * 16 + gid + 8 * h;
-        if (t >= a.T_out) continue;
-        float* yr = a.y + ((size_t)b * a.T_out + t) * a.Co + g * a.cog + ct * BN + 2 * tig;
+        const int row = t * a.phases + ph - a.y_off;
+        if (t >= a.T_out || row < 0 || row >= a.y_rows) continue;
+        float* yr = a.y + ((size_t)b * a.y_rows + row) * a.Co + g * a.cog + ct * BN + 2 * tig;
 #pragma unroll
         for (int nb = 0; nb < BN / 8; ++nb)
           *reinterpret_cast<float2*>(yr + 8 * nb) =
@@ -795,38 +675,70 @@ __global__ void k2bf16_weights_kernel(const float* __restrict__ w, __nv_bfloat16
   }
 }
 
-// cuTensorMapEncodeTiled, found once in libcuda.so.1 by dlopen (no link against it)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
+// The input gradient's weights: for phase ph (taps(ph) = ceil((K - ph) / s))
+// wq[ph*Ci + n, k*cogp + c] = bf16(w[g*cog + c, ci, ph + s*(taps(ph) - 1 - k)])
+// for k < taps(ph) and c < cog, else 0, with n = g*cig + ci: the taps of the
+// phase flipped and each group's channel roles swapped, k < kp =
+// ceil(K / s) (ops/groupconv.py:kernel_weights_bf16_dx). A block an
+// in-channel n: its cog x K weights into shared memory, its s rows written
+// in order.
+__global__ void k2bf16_dx_weights_kernel(const float* __restrict__ w,
+                                         __nv_bfloat16* __restrict__ wq, int Ci, int cig, int cog,
+                                         int cogp, int K, int s, int kp) {
+  extern __shared__ float w_n[];   // [cog][K]
+  const int n = blockIdx.x, g = n / cig, ci = n - g * cig;
+  for (int e = threadIdx.x; e < cog * K; e += blockDim.x) {
+    const int c = e / K, j = e - c * K;
+    w_n[e] = w[((size_t)(g * cog + c) * cig + ci) * K + j];
+  }
+  __syncthreads();
+  const int row = kp * cogp;
+  for (int e = threadIdx.x; e < s * row; e += blockDim.x) {
+    const int ph = e / row, q = e - ph * row, k = q / cogp, c = q - k * cogp;
+    const int taps = (K - ph + s - 1) / s;
+    const float v = k < taps && c < cog ? w_n[c * K + ph + s * (taps - 1 - k)] : 0.f;
+    wq[((size_t)ph * Ci + n) * row + q] = __float2bfloat16_rn(v);
+  }
 }
+
+// The input gradient as `stride` stride-1 convs of gy, one a phase of dx's
+// padded rows p = m*s + ph (m = m0 + t, m0 = pad_l / s): kp = ceil(K / s)
+// taps, t_m outputs, the window `pad` rows to the left of t (phase ph: pad -
+// (kp - taps(ph))), output t stored at dx row t*s + ph - y_off.
+struct DxGeometry {
+  int kp, t_m, pad, y_off;
+};
+
+DxGeometry dx_geometry(int T, int K, int stride, int pad_l) {
+  const int m0 = pad_l / stride, kp = (K + stride - 1) / stride;
+  return {kp, (T - 1 + pad_l) / stride - m0 + 1, kp - 1 - m0, pad_l - m0 * stride};
+}
+
 
 // The tile plan ops/groupconv.py:bf16_plan chooses, checked here.
 struct Bf16Plan {
   int bn, mi, nwg, kc, stages, win_rows, win_u;
 };
 
-// the geometry's kernel arguments, or false for what the kernel does not take
+// the geometry's kernel arguments, or false for what the kernel does not take;
+// `phases` and what follows as Bf16Args has them (the forward: 1, K, T_out, 0)
 bool bf16_args(int B, int T, int Ci, int T_out, int Co, int groups, int K, int stride,
-               int pad_l, const Bf16Plan& p, Bf16Args* a) {
+               int pad_l, const Bf16Plan& p, Bf16Args* a, int phases = 1, int taps = 0,
+               int y_rows = 0, int y_off = 0) {
+  if (phases == 1) taps = K, y_rows = T_out;
   if (groups < 1 || Ci % groups || Co % groups || B < 1 || T < 1 || T_out < 1 || K < 1 ||
-      stride < 1 || stride > 8 || (stride & (stride - 1)) || pad_l < 0 || p.bn < 1 ||
-      p.mi < 1 || p.nwg < 1 || p.win_rows < 1 || p.win_rows % kRowBox)
+      stride < 1 || stride > 8 || (stride & (stride - 1)) || (pad_l < 0 && phases == 1) ||
+      p.bn < 1 || p.mi < 1 || p.nwg < 1 || p.win_rows < 1 || p.win_rows % kRowBox ||
+      phases < 1 || phases > 8 || taps < phases || (taps + phases - 1) / phases != K ||
+      y_rows < 1)
     return false;
   const int cig = Ci / groups, cog = Co / groups;
   const int cigp = round_up(cig, 16);
   if (cig % 8 || cig > 64 || cog % p.bn) return false;
   const int mb = p.mi * p.nwg, slots = (T_out + kSlot - 1) / kSlot;
   const long long n_slots = (long long)B * slots;
-  if (n_slots + mb > (1LL << 31) || (long long)Co * K * cigp >= (1LL << 31)) return false;
+  if (n_slots + mb > (1LL << 31) || (long long)phases * Co * K * cigp >= (1LL << 31))
+    return false;
   const int alloc_full = round_up((T_out - 1) * stride + K, kRowBox);
   // the most staging rows a tile's segments take, and the window rows its
   // descriptors reach (ops/groupconv.py:bf16_plan)
@@ -836,33 +748,34 @@ bool bf16_args(int B, int T, int Ci, int T_out, int Co, int groups, int K, int s
   if (p.win_rows < round_up(need, kRowBox) || p.win_u < p.win_rows / stride + kSlot) return false;
   const long long n_tiles = (n_slots + mb - 1) / mb * groups * (cog / p.bn);
   if (n_tiles >= (1LL << 31)) return false;
-  *a = Bf16Args{nullptr, B, T_out, Co, cig, cog, K, stride, pad_l, groups, K * cigp / 16,
-                slots, p.win_rows, p.win_u, alloc_full, cog / p.bn, (int)n_tiles};
+  *a = Bf16Args{nullptr, B, T_out, Co, cig, cog, K, stride, pad_l, groups, slots, p.win_rows,
+                p.win_u, alloc_full, cog / p.bn, (int)n_tiles, phases, y_rows, y_off, {}, {}};
+  for (int ph = 0; ph < phases; ++ph) {
+    const int taps_ph = (taps - ph + phases - 1) / phases;
+    a->nks[ph] = taps_ph * cigp / 16;
+    a->pad[ph] = pad_l - (K - taps_ph);
+  }
   return true;
 }
 
 // the weights' and x's tensor maps for tile width bn: maps[0] over wq
-// [Co, K*cigp] bf16 (boxes [bn][64], 128-byte swizzle), maps[1] over x
-// [B, T, Ci] fp32 (boxes [1][kRowBox][cig], zero fill outside)
-int bf16_maps(const float* x, const void* wq, int B, int T, int Ci, int Co, int groups, int K,
-              int bn, CUtensorMap* maps) {
+// [w_rows, K*cigp] bf16 (boxes [bn][64], 128-byte swizzle; w_rows is Co, or
+// phases x Co for the input gradient), maps[1] over x [B, T, Ci] fp32
+// (boxes [1][kRowBox][cig], zero fill outside)
+int bf16_maps(const float* x, const void* wq, int B, int T, int Ci, int w_rows, int groups,
+              int K, int bn, CUtensorMap* maps) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return (int)cudaErrorInitializationError;
   const int cig = Ci / groups, cigp = round_up(cig, 16);
-  const cuuint64_t w_dim[2] = {(cuuint64_t)K * cigp, (cuuint64_t)Co};
+  const cuuint64_t w_dim[2] = {(cuuint64_t)K * cigp, (cuuint64_t)w_rows};
   const cuuint64_t w_stride[1] = {(cuuint64_t)K * cigp * 2};
-  const cuuint32_t w_box[2] = {64, (cuuint32_t)bn}, ones[3] = {1, 1, 1};
+  const cuuint32_t w_box[2] = {64, (cuuint32_t)bn}, ones[2] = {1, 1};
   CUresult e = encode(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(wq),
                       w_dim, w_stride, w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (e != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  const cuuint64_t x_dim[3] = {(cuuint64_t)Ci, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t x_stride[2] = {(cuuint64_t)Ci * 4, (cuuint64_t)T * Ci * 4};
-  const cuuint32_t x_box[3] = {(cuuint32_t)cig, (cuuint32_t)kRowBox, 1};
-  e = encode(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(x), x_dim,
-             x_stride, x_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  e = fp32_rows_map(&maps[1], x, B, T, Ci, cig);
   return e == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -906,19 +819,25 @@ int launch_bf16(const CUtensorMap* maps, const Bf16Args& a, cudaStream_t s) {
     const std::lock_guard<std::mutex> lock(grids_mutex);
     grids[n_grids++ % 16] = Grid{dev, smem, blocks};
   }
-  const int grid = min(a.n_tiles, blocks);
+  // the phases share the device: blocks / phases persistent blocks each
+  const dim3 grid(min(a.n_tiles, max(1, blocks / a.phases)), a.phases);
   kernel<<<grid, P::THREADS, smem, s>>>(maps[0], maps[1], a);
   return (int)cudaGetLastError();
 }
 
 // The instantiated tiles: (BN, CIGP, MI, NWG, KC, STAGES).
 // ops/groupconv.py:bf16_plan picks among the shipped ones.
+// The last three serve the input gradient alone on the MSD (its cog' is the
+// forward's cig: 32 over cigp 64, 16 over 32, 8 over 16).
 #define K2BF16_SHIPPED(X) \
   X(64, 64, 2, 1, 2, 3)   \
   X(64, 32, 2, 1, 2, 3)   \
   X(32, 32, 2, 1, 2, 4)   \
   X(32, 16, 2, 1, 2, 4)   \
-  X(16, 16, 4, 1, 2, 3)
+  X(16, 16, 4, 1, 2, 3)   \
+  X(32, 64, 2, 1, 2, 3)   \
+  X(16, 32, 4, 1, 2, 3)   \
+  X(8, 16, 4, 1, 2, 3)
 
 // Built only for tools/torch_kernel_lab.py's sweep (-DK2BF16_SWEEP).
 #ifdef K2BF16_SWEEP
@@ -966,6 +885,25 @@ int bf16_weights(const float* w, void* wq, int Co, int cig, int K, cudaStream_t 
   k2bf16_weights_kernel<<<Co, 256, (size_t)cig * K * sizeof(float), s>>>(
       w, static_cast<__nv_bfloat16*>(wq), cig, round_up(cig, 16), K);
   return (int)cudaGetLastError();
+}
+
+int bf16_dx_weights(const float* w, void* wq, int Ci, int Co, int groups, int K, int stride,
+                    cudaStream_t s) {
+  const int cig = Ci / groups, cog = Co / groups;
+  if ((size_t)cog * K * sizeof(float) > 48 * 1024) return (int)cudaErrorInvalidValue;
+  k2bf16_dx_weights_kernel<<<Ci, 256, (size_t)cog * K * sizeof(float), s>>>(
+      w, static_cast<__nv_bfloat16*>(wq), Ci, cig, cog, round_up(cog, 16), K, stride,
+      (K + stride - 1) / stride);
+  return (int)cudaGetLastError();
+}
+
+// the input gradient's kernel arguments (its conv's Ci is Co, its Co is Ci)
+bool dx_args(int B, int T, int Ci, int T_out, int Co, int groups, int K, int stride, int pad_l,
+             const Bf16Plan& p, Bf16Args* a) {
+  if (stride < 1 || K < stride || pad_l < 0 || T < 1) return false;
+  const DxGeometry d = dx_geometry(T, K, stride, pad_l);
+  return d.t_m >= 1 && bf16_args(B, T_out, Co, d.t_m, Ci, groups, d.kp, 1, d.pad, p, a, stride,
+                                 K, T, d.y_off);
 }
 
 }  // namespace
@@ -1044,6 +982,60 @@ extern "C" int groupconv_bf16_conv(const void* maps, float* y, int B, int T, int
   CUtensorMap m[2];
   memcpy(m, maps, sizeof m);
   return dispatch_bf16(m, a, p, (cudaStream_t)stream);
+}
+
+// K2-bf16 dx, the "default" rung's input gradient of the same conv: dx
+// [B, T, Ci] fp32 (8-byte aligned, every row written) from gy [B, T_out, Co]
+// fp32 (16-byte aligned) and w [Co, cig, K]; wq the [stride * Ci, kp * cogp]
+// bf16 layout k2bf16_dx_weights_kernel writes (cogp = cog rounded up to 16;
+// 16-byte aligned); the plan from ops/groupconv.py:bf16_dx_plan, the
+// forward's plan of the phases' conv. Returns as the forward's entry points.
+
+// the weights' layout alone: one launch on `stream`
+extern "C" int groupconv_bf16_dx_weights(const float* w, void* wq, int Ci, int Co, int groups,
+                                         int K, int stride, void* stream) {
+  if (groups < 1 || Ci % groups || Co % groups || K < stride || stride < 1 ||
+      reinterpret_cast<uintptr_t>(wq) % 16)
+    return (int)cudaErrorInvalidValue;
+  return bf16_dx_weights(w, wq, Ci, Co, groups, K, stride, (cudaStream_t)stream);
+}
+
+// the phases' conv alone, on maps from groupconv_bf16_describe(gy, wq, B,
+// T_out, Co, stride * Ci, groups, kp, bn)
+extern "C" int groupconv_bf16_dx_conv(const void* maps, float* dx, int B, int T, int Ci,
+                                      int T_out, int Co, int groups, int K, int stride,
+                                      int pad_l, int bn, int mi, int nwg, int kc, int stages,
+                                      int win_rows, int win_u, void* stream) {
+  const Bf16Plan p{bn, mi, nwg, kc, stages, win_rows, win_u};
+  Bf16Args a;
+  if (!dx_args(B, T, Ci, T_out, Co, groups, K, stride, pad_l, p, &a) ||
+      reinterpret_cast<uintptr_t>(dx) % 8)
+    return (int)cudaErrorInvalidValue;
+  a.y = dx;
+  CUtensorMap m[2];
+  memcpy(m, maps, sizeof m);
+  return dispatch_bf16(m, a, p, (cudaStream_t)stream);
+}
+
+// as the wrapper calls it: the weights laid out, the tensor maps, the conv
+extern "C" int groupconv_input_grad_bf16(const float* gy, const float* w, void* wq, float* dx,
+                                         int B, int T, int Ci, int T_out, int Co, int groups,
+                                         int K, int stride, int pad_l, int bn, int mi, int nwg,
+                                         int kc, int stages, int win_rows, int win_u,
+                                         void* stream) {
+  const Bf16Plan p{bn, mi, nwg, kc, stages, win_rows, win_u};
+  Bf16Args a;
+  if (!dx_args(B, T, Ci, T_out, Co, groups, K, stride, pad_l, p, &a) ||
+      reinterpret_cast<uintptr_t>(gy) % 16 || reinterpret_cast<uintptr_t>(wq) % 16 ||
+      reinterpret_cast<uintptr_t>(dx) % 8)
+    return (int)cudaErrorInvalidValue;
+  a.y = dx;
+  const cudaStream_t s = (cudaStream_t)stream;
+  CUtensorMap maps[2];
+  int err = bf16_maps(gy, wq, B, T_out, Co, stride * Ci, groups, a.K, bn, maps);
+  if (err) return err;
+  if ((err = bf16_dx_weights(w, wq, Ci, Co, groups, K, stride, s))) return err;
+  return dispatch_bf16(maps, a, p, s);
 }
 
 // The "default" rung's forward, as the wrapper calls it: the weights laid

@@ -5,11 +5,11 @@
 grouped convs. On a CUDA tensor its forward launches the hand-written kernel
 in ``csrc/groupconv.cu``, an implicit GEMM on the tensor cores at fp32
 accuracy (the three-product tf32 split, whose weight half ``tf32_split``
-makes here); its backward (dx and dw) is plain torch
-(``torch.nn.grad.conv1d_input`` / ``conv1d_weight``), the counterpart of the
-JAX package's XLA VJP (``pallas_groupconv.py:151-158``), and computes only
-the gradients asked for. On a CPU tensor the forward runs the plain version,
-``grouped_conv1d_reference``, under the same backward. There is no other
+makes here); its backward (dx and dw), the counterpart of the JAX
+package's XLA VJP (``pallas_groupconv.py:151-158``), computes only the
+gradients asked for. On a CPU tensor the forward runs the plain version,
+``grouped_conv1d_reference``, and the backward plain torch
+(``torch.nn.grad.conv1d_input`` / ``conv1d_weight``). There is no other
 route: any other device raises. Layouts are the JAX package's: x [B, T, Ci]
 channels-last, w [Co, Ci/groups, K], y [B, T_out, Co]. Dilation is 1: the
 MSD, the only caller, dilates nothing.
@@ -19,14 +19,21 @@ The training rung (``ops/precision.py``) picks the route at call time. Under
 product of bf16-rounded operands, fp32 accumulation, fp32 output, as the TPU
 kernel computes when handed bf16 operands; its plain version is
 ``grouped_conv1d_reference`` on the rounded operands, in fp32; the backward
-takes bf16-rounded operands too (``precision.bf16_dot``). K2-bf16 is a
+takes bf16-rounded operands too: on a CUDA tensor the hand-written K2-bf16
+dx (the forward kernel run over the stride's phases, ``bf16_dx_plan``,
+weights laid out as ``kernel_weights_bf16_dx``) and K2-bf16 dw
+(``csrc/groupconv_bwd.cu``, ``bf16_wgrad_plan``; its (cig, cog) are the
+MSD's, ``WGRAD_TPW``), both with fp32 results;
+their plain versions ``grouped_conv1d_bf16_input_grad_reference`` and
+``grouped_conv1d_bf16_weight_grad_reference`` are the CPU route. K2-bf16 is a
 warp-specialized ``wgmma`` kernel fed by TMA whose M runs over 64-output
 slots of the batch's rows; ``bf16_plan`` picks its tiles and sizes its
 window buffers, and the one C call lays the weights out
 (``kernel_weights_bf16`` is that layout's plain version), encodes the
 tensor maps and launches. Under
 "high" and "highest" (and outside training) the forward is the 3xTF32
-kernel, more exact than "high" asks.
+kernel, more exact than "high" asks, and the backward cuDNN's fp32
+``conv1d_input`` / ``conv1d_weight``.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from conan_tpu_torch.ops.precision import bf16_dot, bf16_dots
+from conan_tpu_torch.ops import native
+from conan_tpu_torch.ops.precision import bf16_dots
 
 
 def grouped_conv1d_reference(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -83,16 +91,47 @@ def kernel_weights_bf16(w: torch.Tensor) -> torch.Tensor:
     return wt.reshape(Co, K * cigp).to(torch.bfloat16).contiguous()
 
 
+def phase_taps(K: int, stride: int, ph: int) -> int:
+    """Taps j < K with j ≡ ph (mod stride): those of the input gradient's
+    phase ph."""
+    return -(-(K - ph) // stride)
+
+
+def kernel_weights_bf16_dx(w: torch.Tensor, groups: int, stride: int) -> torch.Tensor:
+    """w [Co, cig, K] as K2-bf16 dx's TMA reads it, the plain version of the
+    kernel's own preparation (``k2bf16_dx_weights_kernel``):
+    [stride · Ci, kp · cogp] bf16, kp = ceil(K / stride), cogp = cog rounded
+    up to 16. Row ph · Ci + g · cig + ci holds phase ph's taps j = ph +
+    stride · (taps - 1 - k) at k = 0 .. taps - 1 (flipped; zero past
+    them), each tap's cog out-channels of group g (the conv's channel roles
+    swapped; zero past cog)."""
+    Co, cig, K = w.shape
+    cog, kp = Co // groups, -(-K // stride)
+    cogp = _round_up(cog, 16)
+    wg = w.reshape(groups, cog, cig, K).permute(0, 2, 3, 1)                # [G, cig, K, cog]
+    wq = w.new_zeros(stride, groups, cig, kp, cogp)
+    for ph in range(stride):
+        taps = phase_taps(K, stride, ph)
+        j = ph + stride * (taps - 1 - torch.arange(taps))
+        wq[ph, :, :, :taps, :cog] = wg[:, :, j]
+    return wq.reshape(stride * groups * cig, kp * cogp).to(torch.bfloat16)
+
+
 # K2-bf16's tiles by (wgmma width BN, cigp): (MI, NWG, KC, STAGES), the
 # instantiations csrc/groupconv.cu:K2BF16_SHIPPED builds. A tile is MI·NWG
 # m64 slots (64 outputs of one batch row each) by BN out-channels of one
 # group; NWG consumer warpgroups, KC 64-wide weight boxes a stage, STAGES
 # stages.
 BF16_TILES = {(64, 64): (2, 1, 2, 3), (64, 32): (2, 1, 2, 3), (32, 32): (2, 1, 2, 4),
-              (32, 16): (2, 1, 2, 4), (16, 16): (4, 1, 2, 3)}
+              (32, 16): (2, 1, 2, 4), (16, 16): (4, 1, 2, 3), (32, 64): (2, 1, 2, 3),
+              (16, 32): (4, 1, 2, 3), (8, 16): (4, 1, 2, 3)}
 ROW_BOX = 16            # window rows a TMA box (csrc/groupconv.cu:kRowBox)
 SLOT = 64               # outputs of one batch row an m64 block holds (kSlot)
 SMEM_LIMIT = 227 * 1024
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 class Bf16Plan(NamedTuple):
@@ -118,16 +157,13 @@ class Bf16Plan(NamedTuple):
         return self.mi * self.nwg
 
 
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
 @functools.lru_cache(maxsize=512)
 def bf16_plan(B: int, T_out: int, Ci: int, Co: int, groups: int, K: int, stride: int,
-              tiles: tuple[int, ...] | None = None) -> Bf16Plan:
-    """K2-bf16's plan: the widest wgmma width of 64, 32, 16 that divides cog
-    and is built for cigp, with its tile (``BF16_TILES``), or ``tiles`` =
-    (bn, mi, nwg, kc, stages). It sizes the fp32 staging buffer: a tile of
+              tiles: tuple[int, ...] | None = None, phases: int = 1) -> Bf16Plan:
+    """K2-bf16's plan: the widest wgmma width of 64, 32, 16, 8 that divides
+    cog and is built for cigp, with its tile (``BF16_TILES``), or ``tiles`` =
+    (bn, mi, nwg, kc, stages). ``phases`` convs of this geometry run in one
+    launch (the input gradient's, ``bf16_dx_plan``). It sizes the fp32 staging buffer: a tile of
     MB = mi·nwg slots touches at most nseg = min(B, (MB-1) // slots + 2)
     batch rows (slots = ceil(T_out / 64) a row), and a segment of n outputs
     reads (n-1)·s + K rows, staged from a multiple of ROW_BOX; and the bf16
@@ -135,9 +171,9 @@ def bf16_plan(B: int, T_out: int, Ci: int, Co: int, groups: int, K: int, stride:
     descriptor reads past its first. Raises ValueError for what the kernel
     does not take."""
     cig, cog = Ci // groups, Co // groups
-    if cig % 8 or cig > 64 or cog % 16:
+    if cig % 8 or cig > 64 or cog % 8:
         raise ValueError(f"groupconv_bf16: channels per group {cig} in (a multiple of 8, at "
-                         f"most 64), {cog} out (a multiple of 16)")
+                         f"most 64), {cog} out (a multiple of 8)")
     if stride not in (1, 2, 4, 8):
         raise ValueError(f"groupconv_bf16: stride {stride} (the window's phases: 1, 2, 4, 8)")
     if cig * K * 4 > 48 * 1024:
@@ -145,7 +181,8 @@ def bf16_plan(B: int, T_out: int, Ci: int, Co: int, groups: int, K: int, stride:
                          f"layout kernel's 48 KB")
     cigp = _round_up(cig, 16)
     if tiles is None:
-        bn = next((n for n in (64, 32, 16) if cog % n == 0 and (n, cigp) in BF16_TILES), None)
+        bn = next((n for n in (64, 32, 16, 8) if cog % n == 0 and (n, cigp) in BF16_TILES),
+                  None)
         if bn is None:
             raise ValueError(f"groupconv_bf16: no tile built for cog {cog}, cigp {cigp}")
         tiles = (bn, *BF16_TILES[bn, cigp])
@@ -162,8 +199,137 @@ def bf16_plan(B: int, T_out: int, Ci: int, Co: int, groups: int, K: int, stride:
     if smem > SMEM_LIMIT:
         raise ValueError(f"groupconv_bf16: a window of {win_rows} rows needs {smem} bytes of "
                          f"shared memory")
-    n_tiles = -(-B * slots // mb) * groups * (cog // bn)
+    n_tiles = -(-B * slots // mb) * phases * groups * (cog // bn)
     return Bf16Plan(bn, mi, nwg, kc, stages, win_rows, win_u, smem, n_tiles)
+
+
+class DxGeometry(NamedTuple):
+    """K2-bf16 dx's phases (``csrc/groupconv.cu:dx_geometry``): dx's padded
+    row p = m · stride + ph, m = m0 + t (m0 = pad_l // stride), is the
+    stride-1 conv of gy with phase ph's flipped taps; ``kp`` = ceil(K /
+    stride) taps, ``t_m`` outputs t a phase, the window ``pad`` rows to the
+    left of t (phase ph: pad - (kp - taps)), output t stored at dx row t ·
+    stride + ph - ``y_off`` where that lies in [0, T)."""
+    kp: int
+    t_m: int
+    pad: int
+    y_off: int
+
+
+def dx_geometry(T: int, K: int, stride: int, pad_l: int) -> DxGeometry:
+    m0, kp = pad_l // stride, -(-K // stride)
+    return DxGeometry(kp, (T - 1 + pad_l) // stride - m0 + 1, kp - 1 - m0, pad_l - m0 * stride)
+
+
+@functools.lru_cache(maxsize=512)
+def bf16_dx_plan(B: int, T: int, Ci: int, T_out: int, Co: int, groups: int, K: int,
+                 stride: int, pad_l: int) -> tuple[DxGeometry, Bf16Plan]:
+    """K2-bf16 dx's phases and plan: the forward's plan of a stride-1 conv
+    of gy (Co channels in, Ci out, kp taps, t_m outputs), ``stride`` phases
+    a launch. Raises ValueError for what the kernel does not take."""
+    if K < stride or pad_l < 0:
+        raise ValueError(f"groupconv_bf16 dx: {K} taps at stride {stride} (every phase a tap), "
+                         f"pad {pad_l}")
+    geo = dx_geometry(T, K, stride, pad_l)
+    return geo, bf16_plan(B, geo.t_m, Co, Ci, groups, geo.kp, 1, phases=stride)
+
+
+WGRAD_ROWS = 64         # gy rows a chunk of K2-bf16 dw's reduction (groupconv_bwd.cu:kRc)
+WGRAD_GY_LEAD = 16      # gy rows staged before a chunk's first, for the shifts (kGyLead)
+WGRAD_STAGING = 2       # chunks in flight a block (kStaging)
+# K2-bf16 dw's instantiations, csrc/groupconv_bwd.cu:K2BF16_WGRAD_BUILT: the
+# MSD's (cig, cog) and the B taps a warpgroup multiplies (tpw x cig / 2
+# accumulators a thread), at most WGRAD_MAX_WARPGROUPS warpgroups a block
+# (kMaxWarpgroups: 168 registers a thread)
+WGRAD_TPW = {(32, 32): 7, (8, 16): 6, (16, 32): 7, (32, 64): 7, (64, 64): 4}
+WGRAD_MAX_WARPGROUPS = 3
+
+
+class WgradPlan(NamedTuple):
+    """K2-bf16 dw's plan: ``args`` go to the C entry point, which checks
+    them against the geometry. M = 64 rows are ``shifts`` = 64 / cog shifts
+    of gy's out-channels, so only the ``nbt`` B taps (``wgrad_b_taps``) are
+    multiplied; a block takes ``nwg`` warpgroups of ``tpw`` B taps (one of
+    ``n_tb`` runs of a group's B taps) and one of ``splits`` ranges of the
+    reduction's ``n_chunks`` 64-row chunks (``wgrad_split``); ``stg_rows``
+    x rows stage a chunk's window; the partial sums take ``part_floats`` of
+    fp32 scratch."""
+    nwg: int
+    splits: int
+    stg_rows: int
+    tpw: int
+    nbt: int
+    n_tb: int
+    shifts: int
+    n_chunks: int
+    smem: int
+    part_floats: int
+
+    @property
+    def args(self) -> tuple[int, ...]:
+        return tuple(self)[:6]
+
+
+def wgrad_b_taps(K: int, stride: int, shifts: int) -> list[int]:
+    """The taps K2-bf16 dw multiplies: j with j mod (shifts · stride) <
+    stride, each giving taps j + d · stride, d < shifts, at once."""
+    return [j for j in range(K) if j % (shifts * stride) < stride]
+
+
+def wgrad_split(n_chunks: int, splits: int, sp: int) -> range:
+    """The chunks c of split sp (chunk c: batch row c // cpr, outputs 64 ·
+    (c % cpr) .. of it), as the kernel cuts them."""
+    return range(sp * n_chunks // splits, (sp + 1) * n_chunks // splits)
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=512)
+def bf16_wgrad_plan(B: int, T_out: int, Ci: int, Co: int, groups: int, K: int,
+                    stride: int, sms: int) -> WgradPlan:
+    """K2-bf16 dw's plan on a card of ``sms`` SMs: WGRAD_TPW's B taps a
+    warpgroup, as many warpgroups a block as the B taps need (at most
+    WGRAD_MAX_WARPGROUPS); splits enough for ``sms`` times the blocks an SM
+    holds by shared memory and by registers (reckoned at 40 a thread beside
+    the accumulators), at most 2, and at most one split a chunk. Raises
+    ValueError for what the kernel does not take."""
+    cig, cog = Ci // groups, Co // groups
+    if (cig, cog) not in WGRAD_TPW:
+        raise ValueError(f"groupconv_bf16 dw: channels per group {cig} in, {cog} out: built "
+                         f"for (in, out) {tuple(WGRAD_TPW)}")
+    if stride not in (1, 2, 4, 8):
+        raise ValueError(f"groupconv_bf16 dw: stride {stride} (the window's phases: 1, 2, 4, 8)")
+    if K * (cog + 1) * 4 > 48 * 1024:
+        raise ValueError(f"groupconv_bf16 dw: {K} taps x {cog} out-channels past the "
+                         f"reduction's 48 KB")
+    shifts, tpw = 64 // cog, WGRAD_TPW[cig, cog]
+    taps = wgrad_b_taps(K, stride, shifts)
+    nbt = len(taps)
+    nwg = min(WGRAD_MAX_WARPGROUPS, -(-nbt // tpw))
+    per = nwg * tpw
+    n_tb = -(-nbt // per)
+    span = max(taps[min(t * per + per, nbt) - 1] - taps[t * per] + 1 for t in range(n_tb))
+    stg_rows = _round_up((WGRAD_ROWS - 1) * stride + span, ROW_BOX)
+    smem = (128 + WGRAD_STAGING * (stg_rows * cig * 4 + (WGRAD_GY_LEAD + WGRAD_ROWS) * cog * 4)
+            + 2 * (stg_rows * cig * 2 + WGRAD_ROWS * 128) + 8 * WGRAD_STAGING)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"groupconv_bf16 dw: a window of {stg_rows} rows needs {smem} bytes "
+                         f"of shared memory")
+    n_chunks = B * -(-(T_out + shifts - 1) // WGRAD_ROWS)
+    blocks = sms * min(2, SMEM_LIMIT // smem, 65536 // (nwg * 128 * (40 + tpw * cig // 2)))
+    splits = max(1, min(n_chunks, -(-blocks // (groups * n_tb))))
+    return WgradPlan(nwg, splits, stg_rows, tpw, nbt, n_tb, shifts, n_chunks, smem,
+                     splits * groups * K * cig * cog)
+
+
+def _rnd(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16, in its own type (``precision.rounded_dot``'s
+    rounding of a dot's operands)."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def grouped_conv1d_bf16_reference(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -176,16 +342,46 @@ def grouped_conv1d_bf16_reference(x: torch.Tensor, w: torch.Tensor, *, stride: i
                                     groups=groups)
 
 
+def grouped_conv1d_bf16_input_grad_reference(gy: torch.Tensor, w: torch.Tensor, x_shape, *,
+                                             stride: int = 1,
+                                             padding: tuple[int, int] = (0, 0),
+                                             groups: int) -> torch.Tensor:
+    """K2-bf16 dx's plain version: ``conv1d_input`` in gy's type on
+    the bf16-rounded w and gy [B, T_out, Co], channels-last like x; returns
+    dx [B, T, Ci]."""
+    B, T, Ci = x_shape
+    pl, pr = padding
+    dxp = torch.nn.grad.conv1d_input((B, Ci, T + pl + pr), _rnd(w), _rnd(gy).transpose(1, 2),
+                                     stride=stride, groups=groups)
+    return dxp[:, :, pl:pl + T].transpose(1, 2)
+
+
+def grouped_conv1d_bf16_weight_grad_reference(x: torch.Tensor, gy: torch.Tensor, w_shape, *,
+                                              stride: int = 1,
+                                              padding: tuple[int, int] = (0, 0),
+                                              groups: int) -> torch.Tensor:
+    """K2-bf16 dw's plain version: ``conv1d_weight`` in x's type on
+    the bf16-rounded x [B, T, Ci] and gy [B, T_out, Co]; returns dw [Co,
+    Ci/groups, K]."""
+    xp = F.pad(_rnd(x).transpose(1, 2), tuple(padding))
+    return torch.nn.grad.conv1d_weight(xp, w_shape, _rnd(gy).transpose(1, 2), stride=stride,
+                                       groups=groups)
+
+
 class GroupConvKernel:
     """Wrapper of the CUDA kernels: checks its inputs, allocates the output,
     launches on the current stream and counts the launches of each kernel,
-    ``launches`` (3xTF32: the weights split here, ``kernel_weights``) and
+    ``launches`` (3xTF32: the weights split here, ``kernel_weights``),
     ``launches_bf16`` (K2-bf16: one allocation holds y and the weights'
-    layout, which the one C call writes)."""
+    layout, which the one C call writes), ``launches_bf16_dx`` (its input
+    gradient, likewise) and ``launches_bf16_dw`` (its weight gradient: dw
+    and the splits' partial sums)."""
 
     def __init__(self):
         self.launches = 0
         self.launches_bf16 = 0
+        self.launches_bf16_dx = 0
+        self.launches_bf16_dw = 0
 
     def launch(self, x: torch.Tensor, w: torch.Tensor, *, stride: int,
                padding: tuple[int, int], groups: int, bf16: bool = False) -> torch.Tensor:
@@ -209,8 +405,6 @@ class GroupConvKernel:
         T_out = (T + padding[0] + padding[1] - K) // stride + 1
         if T_out < 1:
             raise ValueError(f"groupconv: {T} samples give no output for K {K}")
-        from conan_tpu_torch.ops import native
-
         lib = native.load()
         if x.data_ptr() % 16:      # the kernels read x in 16-byte chunks
             x = x.clone()
@@ -241,10 +435,79 @@ class GroupConvKernel:
             self.launches += 1
         return y
 
+    def input_grad_bf16(self, gy: torch.Tensor, w: torch.Tensor, x_shape, *, stride: int,
+                        padding: tuple[int, int], groups: int) -> torch.Tensor:
+        """K2-bf16 dx: gy [B, T_out, Co] (fp32, CUDA) and w → dx [B, T, Ci]
+        fp32 for x of ``x_shape``, from bf16-rounded w and gy."""
+        B, T, Ci = x_shape
+        Co, cig, K = w.shape
+        _check_grad_operands("dx", gy, w, (B, None, Co))
+        geo, plan = bf16_dx_plan(B, T, Ci, gy.shape[1], Co, groups, K, stride, padding[0])
+        lib = native.load()
+        gy = _aligned(gy)
+        # dx, then the weights' phase layout from a 128-byte boundary
+        wq_at = _round_up(B * T * Ci, 32)
+        buf = torch.empty(wq_at + stride * Ci * geo.kp * _round_up(Co // groups, 16) // 2,
+                          device=gy.device)
+        dx = buf.as_strided((B, T, Ci), (T * Ci, Ci, 1))
+        with _current(gy.device):
+            err = lib.groupconv_input_grad_bf16(
+                gy.data_ptr(), w.contiguous().data_ptr(), buf.data_ptr() + 4 * wq_at,
+                dx.data_ptr(), B, T, Ci, gy.shape[1], Co, groups, K, stride, padding[0],
+                *plan.args, torch.cuda.current_stream(gy.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"groupconv_bf16 dx kernel launch failed: cudaError {err}")
+        self.launches_bf16_dx += 1
+        return dx
+
+    def weight_grad_bf16(self, x: torch.Tensor, gy: torch.Tensor, w_shape, *, stride: int,
+                         padding: tuple[int, int], groups: int) -> torch.Tensor:
+        """K2-bf16 dw: x [B, T, Ci] and gy [B, T_out, Co] (fp32, CUDA) → dw
+        of ``w_shape`` [Co, Ci/groups, K] fp32, from bf16-rounded x and gy."""
+        Co, cig, K = w_shape
+        B, T, Ci = x.shape
+        _check_grad_operands("dw", gy, x, (B, None, Co))
+        plan = bf16_wgrad_plan(B, gy.shape[1], Ci, Co, groups, K, stride,
+                               sm_count(x.device.index))
+        lib = native.load()
+        x, gy = _aligned(x), _aligned(gy)
+        dw = torch.empty(Co, cig, K, device=x.device)
+        part = torch.empty(plan.part_floats, device=x.device)
+        with _current(x.device):
+            err = lib.groupconv_weight_grad_bf16(
+                x.data_ptr(), gy.data_ptr(), part.data_ptr(), dw.data_ptr(), B, T, Ci,
+                gy.shape[1], Co, groups, K, stride, padding[0], *plan.args,
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"groupconv_bf16 dw kernel launch failed: cudaError {err}")
+        self.launches_bf16_dw += 1
+        return dw
+
     def __call__(self, x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                  padding: tuple[int, int] = (0, 0), groups: int) -> torch.Tensor:
         """x [B, T, Ci], w [Co, Ci/groups, K] → [B, T_out, Co], no bias."""
         return _GroupConvFunction.apply(x, w, stride, tuple(padding), groups, self)
+
+
+def _check_grad_operands(which: str, gy: torch.Tensor, other: torch.Tensor, shape) -> None:
+    """Raises where the gradient kernels cannot take gy (a CUDA fp32 [B,
+    T_out, Co] of ``shape``, None where any) beside ``other`` (w or x)."""
+    if gy.device.type != "cuda" or other.device != gy.device:
+        raise ValueError(f"groupconv_bf16 {which}: no kernel for gy on {gy.device}, "
+                         f"{other.device}")
+    if gy.dtype != torch.float32 or other.dtype != torch.float32:
+        raise TypeError(f"groupconv_bf16 {which}: operands must be float32, got {gy.dtype}, "
+                        f"{other.dtype}")
+    if gy.dim() != 3 or any(n is not None and n != m for n, m in zip(shape, gy.shape)) \
+            or gy.shape[1] < 1 or other.dim() != 3:
+        raise ValueError(f"groupconv_bf16 {which}: gy {tuple(gy.shape)}, expected "
+                         f"{shape} beside {tuple(other.shape)}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous from a 16-byte boundary, as the kernels' TMA reads it."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _current(device: torch.device):
@@ -257,8 +520,10 @@ def _current(device: torch.device):
 
 class _GroupConvFunction(torch.autograd.Function):
     """Forward: K2 (3xTF32, or K2-bf16 under the "default" rung) on a CUDA
-    tensor, the matching plain forward on a CPU one. Backward: plain torch,
-    the same on both, with bf16-rounded operands under "default"."""
+    tensor, the matching plain forward on a CPU one. Backward, only the
+    gradients asked for: under "default" K2-bf16 dx and dw on a CUDA tensor,
+    their plain versions on a CPU one; under the other rungs plain torch in
+    fp32 (cuDNN on the card)."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding, groups, kernel):
@@ -266,6 +531,7 @@ class _GroupConvFunction(torch.autograd.Function):
         ctx.conv = dict(stride=stride, groups=groups)
         ctx.padding = padding
         ctx.bf16 = bf16_dots()
+        ctx.kernel = kernel
         if x.device.type == "cpu":
             ref = grouped_conv1d_bf16_reference if ctx.bf16 else grouped_conv1d_reference
             return ref(x, w, padding=padding, **ctx.conv)
@@ -274,18 +540,27 @@ class _GroupConvFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
+        want_dx, want_dw = ctx.needs_input_grad[:2]
+        dx = dw = None
+        if ctx.bf16:
+            on_card = x.device.type == "cuda"
+            if want_dx:
+                fn = ctx.kernel.input_grad_bf16 if on_card else \
+                    grouped_conv1d_bf16_input_grad_reference
+                dx = fn(gy, w, x.shape, padding=ctx.padding, **ctx.conv)
+            if want_dw:
+                fn = ctx.kernel.weight_grad_bf16 if on_card else \
+                    grouped_conv1d_bf16_weight_grad_reference
+                dw = fn(x, gy, w.shape, padding=ctx.padding, **ctx.conv)
+            return dx, dw, None, None, None, None
         pl, pr = ctx.padding
         xp = F.pad(x.transpose(1, 2), (pl, pr))                     # [B, Ci, T + pl + pr]
         gy = gy.transpose(1, 2)                                     # [B, Co, T_out]
-        dot = bf16_dot if ctx.bf16 else (lambda fn, *ops: fn(*ops))
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dxp = dot(lambda w_, g_: torch.nn.grad.conv1d_input(xp.shape, w_, g_, **ctx.conv),
-                      w, gy)
+        if want_dx:
+            dxp = torch.nn.grad.conv1d_input(xp.shape, w, gy, **ctx.conv)
             dx = dxp[:, :, pl:pl + x.shape[1]].transpose(1, 2)
-        if ctx.needs_input_grad[1]:
-            dw = dot(lambda x_, g_: torch.nn.grad.conv1d_weight(x_, w.shape, g_, **ctx.conv),
-                     xp, gy)
+        if want_dw:
+            dw = torch.nn.grad.conv1d_weight(xp, w.shape, gy, **ctx.conv)
         return dx, dw, None, None, None, None
 
 

@@ -1,8 +1,10 @@
 """Build and load the port's hand-written CUDA kernel library.
 
-The sources in ``csrc/`` (``logmel.cu``: K1, ``groupconv.cu``: K2, and the
-header ``common.cuh`` they share) are compiled by one ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface,
+The sources in ``csrc/`` (``logmel.cu``: K1, ``groupconv.cu``: K2, K2-bf16
+and its input gradient, ``groupconv_bwd.cu``: K2-bf16's weight gradient, and
+the headers ``common.cuh`` and ``k2bf16.cuh`` they share) are compiled for
+``sm_90a``, one ``nvcc`` a source, all started together, then linked into a
+shared library with a plain C interface,
 ``build/conan_tpu_torch/libconan_kernels.so`` under the checkout root, which
 ``ctypes`` loads. The build runs at first use, and again whenever
 a source is newer than the library. Nothing here runs at import.
@@ -27,12 +29,14 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = tuple(CSRC / name for name in ("logmel.cu", "groupconv.cu"))
-HEADERS = (CSRC / "common.cuh",)
+SOURCES = tuple(CSRC / name for name in ("logmel.cu", "groupconv.cu", "groupconv_bwd.cu"))
+HEADERS = (CSRC / "common.cuh", CSRC / "k2bf16.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "conan_tpu_torch"
 LIB_PATH = BUILD_DIR / "libconan_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-ldl"]
+# NVCC_FLAGS as one source's compile to an object
+COMPILE_FLAGS = [f for f in NVCC_FLAGS if f not in ("-shared", "-ldl")] + ["-c"]
 
 
 def _nvcc() -> str:
@@ -75,11 +79,21 @@ def build(force: bool = False) -> str:
     nvcc's diagnostics (ptxas register and shared-memory report per kernel);
     empty when the library was already up to date."""
     def compile_fn(lib_tmp: Path) -> str:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *map(str, SOURCES), "-o", str(lib_tmp)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {[src.name for src in SOURCES]}:\n{proc.stdout}")
-        return proc.stdout
+        nvcc = _nvcc()
+        objs = [lib_tmp.parent / (src.stem + ".o") for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [src.name for src, proc in zip(SOURCES, procs) if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS, *map(str, objs), "-o", str(lib_tmp)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            failed = ["the link"] if link.returncode != 0 else []
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(logs))
+        return "".join(logs)
 
     return build_locked(LIB_PATH, SOURCES + HEADERS, compile_fn, force)
 
@@ -110,7 +124,19 @@ def load() -> ctypes.CDLL:
     lib.groupconv_bf16_describe.argtypes = [P, P, I, I, I, I, I, I, I, P]
     # maps, y, geometry and plan, stream
     lib.groupconv_bf16_conv.argtypes = [P, P, *geometry_plan, P]
+    # K2-bf16 dx: gy, w, wq (written), dx, the forward's geometry and the
+    # phases' plan, stream
+    lib.groupconv_input_grad_bf16.argtypes = [P, P, P, P, *geometry_plan, P]
+    # w, wq, Ci, Co, groups, K, stride, stream
+    lib.groupconv_bf16_dx_weights.argtypes = [P, P, I, I, I, I, I, P]
+    # maps, dx, geometry and plan, stream
+    lib.groupconv_bf16_dx_conv.argtypes = [P, P, *geometry_plan, P]
+    # K2-bf16 dw: x, gy, part, dw, geometry B, T, Ci, T_out, Co, groups, K,
+    # stride, pad_l and the plan's (nwg, splits, stg_rows, tpw, nbt, n_tb), stream
+    lib.groupconv_weight_grad_bf16.argtypes = [P, P, P, P, *[I] * 15, P]
     for fn in (lib.groupconv_forward_bf16, lib.groupconv_bf16_weights,
-               lib.groupconv_bf16_describe, lib.groupconv_bf16_conv):
+               lib.groupconv_bf16_describe, lib.groupconv_bf16_conv,
+               lib.groupconv_input_grad_bf16, lib.groupconv_bf16_dx_weights,
+               lib.groupconv_bf16_dx_conv, lib.groupconv_weight_grad_bf16):
         fn.restype = ctypes.c_int
     return lib

@@ -699,6 +699,117 @@ def test_groupconv_bf16_build_failure_raises(monkeypatch, tmp_path):
     assert kernel.launches_bf16 == kernel.launches == 0
 
 
+# K2-bf16 dx and dw, the "default" rung's backward, against their plain
+# versions (conv1d_input / conv1d_weight in fp32 on the bf16-rounded
+# operands): the same exact bf16 products summed in fp32 in another order,
+# relative L2 within 1e-4 (chip_smoke.py's BF16_KERNEL_GRAD_REL)
+def _check_groupconv_bf16_grads(B, T, ci, co, k, s, g, pd, seed):
+    from chip_smoke import BF16_KERNEL_GRAD_REL, rel_l2
+    from conan_tpu_torch.ops.groupconv import (grouped_conv1d_bf16_input_grad_reference,
+                                               grouped_conv1d_bf16_weight_grad_reference)
+
+    dev = _card()
+    kernel = GroupConvKernel()
+    rng = np.random.default_rng(seed)
+    T_out = (T + 2 * pd - k) // s + 1
+    x = torch.from_numpy(rng.standard_normal((B, T, ci)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((co, ci // g, k)) / np.sqrt(k * ci / g))
+                         .astype(np.float32)).to(dev)
+    gy = torch.from_numpy(rng.standard_normal((B, T_out, co)).astype(np.float32)).to(dev)
+    conv = dict(stride=s, padding=(pd, pd), groups=g)
+    dx = kernel.input_grad_bf16(gy, w, x.shape, **conv)
+    dw = kernel.weight_grad_bf16(x, gy, w.shape, **conv)
+    dx2 = kernel.input_grad_bf16(gy, w, x.shape, **conv)
+    dw2 = kernel.weight_grad_bf16(x, gy, w.shape, **conv)
+    torch.cuda.synchronize()
+    assert (kernel.launches_bf16_dx, kernel.launches_bf16_dw) == (2, 2)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    assert dx.dtype == dw.dtype == torch.float32
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)          # the same bits
+    want_dx = grouped_conv1d_bf16_input_grad_reference(gy, w, x.shape, **conv)
+    want_dw = grouped_conv1d_bf16_weight_grad_reference(x, gy, w.shape, **conv)
+    assert torch.isfinite(dx).all() and torch.isfinite(dw).all()
+    assert rel_l2(dx, want_dx) <= BF16_KERNEL_GRAD_REL, rel_l2(dx, want_dx)
+    assert rel_l2(dw, want_dw) <= BF16_KERNEL_GRAD_REL, rel_l2(dw, want_dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(15))
+def test_groupconv_bf16_grads_match_plain_versions(index):
+    _scale, T, ci, co, k, s, g, pd = _msd_geometries()[index]
+    _check_groupconv_bf16_grads(2, T, ci, co, k, s, g, pd, seed=200 + index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [3, 4, 8, 9, 13, 14])
+def test_groupconv_bf16_grads_deep_layers_at_the_training_batch(index):
+    _scale, T, ci, co, k, s, g, pd = _msd_geometries()[index]
+    _check_groupconv_bf16_grads(18, T, ci, co, k, s, g, pd, seed=300 + index)
+
+
+# the forward's ragged cases; pads no stride divides (dx's phases then start
+# off a row of gy) with T_out 1; T_out 64 under dw's 2 and 4 shifts of gy
+BF16_GRAD_RAGGED = BF16_RAGGED + [(2, 301, 128, 128, 41, 2, 4, 7), (3, 77, 256, 512, 41, 4, 16, 5),
+                                  (2, 3, 512, 1024, 41, 4, 16, 19),
+                                  (2, 128, 128, 128, 41, 2, 4, 20),
+                                  (1, 128, 128, 256, 41, 2, 16, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_GRAD_RAGGED)
+def test_groupconv_bf16_grads_ragged(case):
+    _check_groupconv_bf16_grads(*case, seed=sum(case))
+
+
+@pytest.mark.cuda
+def test_groupconv_bf16_input_grad_alone_launches_no_weight_grad():
+    """autograd.grad for dx alone where the weights take no gradient (the
+    generator step's MSD pass) runs K2-bf16 dx and not dw; where they do
+    (the discriminator step's), one of each. (A custom Function's backward
+    learns which inputs require a gradient, not which ones a call asks for.)"""
+    from conan_tpu_torch.ops.precision import training_scope
+
+    dev = _card()
+    kernel = GroupConvKernel()
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 500, 256, generator=gen).to(dev).requires_grad_(True)
+    w = (0.05 * torch.randn(512, 16, 41, generator=gen)).to(dev)
+    with training_scope("default", dev):
+        y = kernel(x, w, stride=4, padding=(20, 20), groups=16)
+        (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+        assert (kernel.launches_bf16_dx, kernel.launches_bf16_dw) == (1, 0)
+        w.requires_grad_(True)
+        y = kernel(x, w, stride=4, padding=(20, 20), groups=16)
+        torch.autograd.grad(y, (x, w), torch.ones_like(y))
+    assert (kernel.launches_bf16_dx, kernel.launches_bf16_dw) == (2, 1)
+    assert kernel.launches_bf16 == 2 and kernel.launches == 0 and torch.isfinite(dx).all()
+
+
+@pytest.mark.cuda
+def test_groupconv_bf16_grad_build_failure_raises(monkeypatch, tmp_path):
+    """No silent route for the backward either: a library that does not
+    build raises from dx and from dw, and nothing falls back to cuDNN."""
+    from conan_tpu_torch.ops import native
+
+    dev = _card()
+    kernel = GroupConvKernel()
+    x, w = torch.zeros(1, 100, 128, device=dev), torch.zeros(128, 32, 41, device=dev)
+    gy = torch.zeros(1, 100, 128, device=dev)
+    conv = dict(stride=1, padding=(20, 20), groups=4)
+    native.load.cache_clear()
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "LIB_PATH", tmp_path / "libconan_kernels.so")
+    monkeypatch.setattr(native, "_nvcc", lambda: "/bin/false")
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            kernel.input_grad_bf16(gy, w, x.shape, **conv)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            kernel.weight_grad_bf16(x, gy, w.shape, **conv)
+    finally:
+        native.load.cache_clear()
+    assert kernel.launches_bf16_dx == kernel.launches_bf16_dw == 0
+
+
 # Each task's step at the "default" (bf16 operands) and "high" (TF32) rungs
 # on the card at small width, against the port's own float64 step on the CPU
 # from the same state and batch: chip_smoke.py's rung_check and RUNG_BOUND

@@ -86,12 +86,39 @@ def test_groupconv_matches_jax_pallas_interpret():
         np.testing.assert_allclose(a, c, atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
-def test_backward_computes_only_what_is_asked():
+@pytest.mark.parametrize("rung", ["highest", "default"])
+def test_backward_computes_only_what_is_asked(rung, monkeypatch):
+    """Under each rung's backward (plain fp32; under "default" the plain
+    versions of K2-bf16 dx and dw) a CPU tensor launches nothing, and a
+    gradient nobody asked for is not computed: its function is not called."""
+    from conan_tpu_torch.ops import groupconv as gc_mod
+    from conan_tpu_torch.ops.precision import training_scope
+
     x, w, _ = _inputs(128, 256, 41, 16, seed=3)
-    xt = torch.from_numpy(x).requires_grad_(True)
-    y = _GroupConvFunction.apply(xt, torch.from_numpy(w), 2, (20, 20), 16, groupconv)
-    y.sum().backward()
-    assert xt.grad is not None and xt.grad.shape == xt.shape
+    kernel = GroupConvKernel()
+    calls = []
+    for name in ("grouped_conv1d_bf16_input_grad_reference",
+                 "grouped_conv1d_bf16_weight_grad_reference"):
+        fn = getattr(gc_mod, name)
+        monkeypatch.setattr(gc_mod, name, lambda *a, _fn=fn, _name=name, **kw: (
+            calls.append(_name), _fn(*a, **kw))[1])
+    for want_x, want_w in ((True, False), (False, True), (True, True)):
+        calls.clear()
+        xt = torch.from_numpy(x).requires_grad_(want_x)
+        wt = torch.from_numpy(w).requires_grad_(want_w)
+        with training_scope(rung, torch.device("cpu")):
+            y = _GroupConvFunction.apply(xt, wt, 2, (20, 20), 16, kernel)
+            y.sum().backward()
+        assert (xt.grad is not None) == want_x and (wt.grad is not None) == want_w
+        assert xt.grad is None or xt.grad.shape == xt.shape
+        assert wt.grad is None or wt.grad.shape == wt.shape
+        if rung == "default":
+            assert calls == ["grouped_conv1d_bf16_input_grad_reference"] * want_x + [
+                "grouped_conv1d_bf16_weight_grad_reference"] * want_w
+        else:
+            assert calls == []
+    assert (kernel.launches, kernel.launches_bf16, kernel.launches_bf16_dx,
+            kernel.launches_bf16_dw) == (0, 0, 0, 0)
 
 
 def test_cpu_route_launches_nothing_and_other_devices_raise():

@@ -17,6 +17,9 @@ and they run the conv through that staging in float64 against the bf16
 plain version.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -206,3 +209,19 @@ def test_bf16_plan_refuses_what_the_kernel_does_not_take():
         bf16_plan(2, 100, 128, 72, 4, 41, 1)                       # cog 18
     with pytest.raises(ValueError, match="shared memory"):
         bf16_plan(2, 4000, 64, 128, 4, 760, 4)                     # a window past 227 KB
+
+
+def test_bf16_plan_tiles_are_what_the_kernel_builds():
+    """The plan's tiles (BF16_TILES, by (BN, cigp): (MI, NWG, KC, STAGES))
+    are csrc/groupconv.cu's shipped instantiations, and its slot and box
+    rows the kernel's (a mismatch shows only on the card, as a refused
+    launch)."""
+    csrc = Path(__file__).resolve().parents[1] / "conan_tpu_torch" / "csrc"
+    src = (csrc / "groupconv.cu").read_text()
+    shipped = re.search(r"#define K2BF16_SHIPPED\(X\)(.*?)\n\n", src, re.S).group(1)
+    tiles = [tuple(int(v) for v in t) for t in
+             re.findall(r"X\((\d+), (\d+), (\d+), (\d+), (\d+), (\d+)\)", shipped)]
+    assert {t[:2]: t[2:] for t in tiles} == BF16_TILES and len(tiles) == len(BF16_TILES)
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src + (csrc / "k2bf16.cuh").read_text())}
+    assert (consts["kSlot"], consts["kRowBox"]) == (SLOT, ROW_BOX)

@@ -6,6 +6,7 @@ chip_smoke.py, which checks and times them as they ship.
     python3 tools/torch_kernel_lab.py sweep '{"name": {"B": "256, 32, 32, 32, 32, 2"}, ...}'
     python3 tools/torch_kernel_lab.py step [N]
     python3 tools/torch_kernel_lab.py bf16 [--sweep] [PARENT_DIR]
+    python3 tools/torch_kernel_lab.py bwd [PARENT_DIR]
 
 accuracy  K2 on the MSD's five grouped layers (B=3, T=1000 or 300) and K1's
           GAN form at its three n_fft (chip_smoke.py's B=18 x 8000 train
@@ -46,18 +47,31 @@ bf16      K2-bf16 on the 15 MSD grouped geometries at B=18, T=8000 (and the
           (chip_smoke.py:groupconv_bf16_launch_ms), beside the wrapper call
           and cuDNN's bf16 F.conv1d (CUDA events): the shipped tiles, run
           twice between two runs of the kernel in PARENT_DIR/conan_tpu_torch/
-          csrc/groupconv.cu (a `git archive` of the commit before, its own
-          weight layout prepared once), when given; with --sweep, also every
+          csrc/groupconv.cu (a `git archive` of the commit before, through
+          the same C entry points), when given; with --sweep, also every
           tile of csrc/groupconv.cu's K2BF16_SWEPT list, built with
           -DK2BF16_SWEEP into build/kernel_lab/ (and -DK2BF16_WATCHDOG: a
           pipeline that deadlocks traps). Writes its rows to
           build/kernel_lab/k2bf16_lab.json.
+bwd       K2-bf16's backward, dx and dw, on the 15 MSD grouped geometries
+          at B=18, T=8000: the shipped library built as native.build does
+          (the ptxas notes that serialize or wait on wgmma counted by
+          source), each kernel against its plain version (relative L2 at
+          most chip_smoke.py's BF16_KERNEL_GRAD_REL), timed as bare launches
+          by CUDA events (chip_smoke.py's groupconv_bf16_dx_launch_ms and
+          _dw_launch_ms) and as wrapper calls, beside cuDNN's bf16
+          conv1d_input / conv1d_weight; dw's plan swept here, not in the
+          program: at most 1-3 consumer warpgroups a block, splits planned
+          for half and all of the card's SMs. With PARENT_DIR, the forward's bare launches
+          of the parent's library and this one, parent, change, change,
+          parent. Writes its rows to build/kernel_lab/k2bf16_bwd_lab.json.
 
 Imports nothing of JAX or conan_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -74,7 +88,11 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 from conan_tpu_torch.ops import native  # noqa: E402
-from conan_tpu_torch.ops.groupconv import (bf16_plan, grouped_conv1d_bf16_reference,  # noqa: E402,E501
+from conan_tpu_torch.ops import groupconv as gc  # noqa: E402
+from conan_tpu_torch.ops.groupconv import (GroupConvKernel, bf16_plan,  # noqa: E402
+                                           grouped_conv1d_bf16_input_grad_reference,
+                                           grouped_conv1d_bf16_reference,
+                                           grouped_conv1d_bf16_weight_grad_reference,
                                            grouped_conv1d_reference, groupconv, kernel_weights)
 from conan_tpu_torch.ops.logmel import logmel_gan, logmel_gan_reference  # noqa: E402
 from conan_tpu_torch.ops.precision import training_scope  # noqa: E402
@@ -83,6 +101,17 @@ from conan_tpu_torch.train.losses import gan_mel_configs  # noqa: E402
 MSD_LAYERS = [(128, 128, 2, 4), (128, 256, 2, 16), (256, 512, 4, 16), (512, 1024, 4, 16),
               (1024, 1024, 1, 16)]   # (ci, co, stride, groups), k 41, padding 20
 CLASSES = "ABCD"                     # groupconv_forward's launch<...> lines, in order
+
+
+@contextlib.contextmanager
+def swapped(module, name, value):
+    """``module.name`` set to ``value`` for the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
 
 def accuracy(dev: torch.device) -> None:
@@ -189,23 +218,12 @@ def sweep(dev: torch.device, variants: dict) -> None:
 
 
 def step(dev: torch.device, n_seeds: int) -> None:
-    import contextlib
-
     from conan_tpu_torch.checkpoint import tree_leaves, tree_map
     from conan_tpu_torch.config import load_config
     from conan_tpu_torch.ops import conv as conv_mod
     from conan_tpu_torch.ops.precision import precision_scope
     from conan_tpu_torch.train import losses as losses_mod
     from conan_tpu_torch.train.tasks import VocoderTask, _with_grad
-
-    @contextlib.contextmanager
-    def swapped(module, name, fn):
-        old = getattr(module, name)
-        setattr(module, name, fn)
-        try:
-            yield
-        finally:
-            setattr(module, name, old)
 
     def dbl(t):
         return t.double() if t.is_floating_point() else t
@@ -359,18 +377,7 @@ def bf16(dev: torch.device, parent: str | None, do_sweep: bool) -> None:
     lib.groupconv_bf16_weights.argtypes = [P, P, I, I, I, P]
     lib.groupconv_bf16_describe.argtypes = [P, P, I, I, I, I, I, I, I, P]
     lib.groupconv_bf16_conv.argtypes = [P, P, *geometry_plan, P]
-    old = None
-    if parent:
-        old = _build("k2bf16_parent", os.path.join(parent, "conan_tpu_torch", "csrc",
-                                                   "groupconv.cu"), [])
-        old.groupconv_forward_bf16.argtypes = [P, P, P, *[I] * 9, P]
-
-    def old_weights(w, g):      # the parent's layout, [G, K*cigp/16, cog, 16]
-        co, cig, k = w.shape
-        cigp = -(-cig // 16) * 16
-        wt = F.pad(w, (0, 0, 0, cigp - cig)).reshape(g, co // g, cigp // 16, 16, k)
-        return (wt.permute(0, 4, 2, 1, 3).reshape(g, k * cigp // 16, co // g, 16)
-                .to(torch.bfloat16).contiguous())
+    old = _parent_lib(parent)
 
     gen = torch.Generator().manual_seed(0)
     cases = [(f"scale {sc}", cs.TRAIN_B, t, ci, co, k, s, g, pd)
@@ -398,18 +405,9 @@ def bf16(dev: torch.device, parent: str | None, do_sweep: bool) -> None:
             return ms if ok else float("nan")
 
         def parent_ms():
-            wq = old_weights(w, g)
-            y = torch.full(want.shape, float("nan"), device=dev)   # contiguous
-            stream = torch.cuda.current_stream().cuda_stream
-
-            def call():
-                return old.groupconv_forward_bf16(x.data_ptr(), wq.data_ptr(), y.data_ptr(), B, t,
-                                                  ci, T_out, co, g, k, s, pd, stream)
-            if call():
-                return float("inf")
+            ms, y, _ = cs.groupconv_bf16_launch_ms(x, w, s, pd, g, lib=old)
             torch.cuda.synchronize()
-            ok = torch.allclose(y, want, atol=2e-4, rtol=1e-4)
-            return cs.cuda_ms(call) if ok else float("nan")
+            return ms if torch.allclose(y, want, atol=2e-4, rtol=1e-4) else float("nan")
 
         plan = bf16_plan(B, T_out, ci, co, g, k, s)
         conv = dict(stride=s, padding=(pd, pd), groups=g)
@@ -443,8 +441,102 @@ def bf16(dev: torch.device, parent: str | None, do_sweep: bool) -> None:
         json.dump({"rows": rows, "sums": sums}, f, indent=1, default=str)
 
 
+def _parent_lib(parent: str | None) -> ctypes.CDLL | None:
+    """K2-bf16's forward entry points from PARENT_DIR's groupconv.cu, built
+    alone (None without a parent)."""
+    if not parent:
+        return None
+    P, I = ctypes.c_void_p, ctypes.c_int
+    old = _build("k2bf16_parent", os.path.join(parent, "conan_tpu_torch", "csrc",
+                                               "groupconv.cu"), [])
+    if old is None:
+        raise SystemExit("the parent's groupconv.cu does not build")
+    old.groupconv_bf16_weights.argtypes = [P, P, I, I, I, P]
+    old.groupconv_bf16_describe.argtypes = [P, P, I, I, I, I, I, I, I, P]
+    old.groupconv_bf16_conv.argtypes = [P, P, *[I] * 16, P]
+    return old
+
+
+def bwd(dev: torch.device, parent: str | None) -> None:
+    log = native.build(force=True)
+    notes = {"serialized": r"wgmma.mma_async instructions are serialized",
+             "wait injected": r"warpgroup.wait is injected",
+             "arrive injected": r"warpgroup.arrive is injected"}
+    for src in native.SOURCES:
+        lines = [ln for ln in log.splitlines() if f"_{src.stem}_cu_" in ln]
+        print(f"{src.name}: " + ", ".join(f"{k} {sum(bool(re.search(v, ln)) for ln in lines)}"
+                                          for k, v in notes.items()), flush=True)
+        for ln in [ln for ln in lines if any(re.search(v, ln) for v in notes.values())][:3]:
+            print("  " + ln[:240], flush=True)
+    entry = None
+    for ln in log.splitlines():     # registers and spills of K2-bf16 dw's kernels
+        if "Compiling entry function" in ln:
+            entry = ln if "wgrad" in ln else None
+        elif entry and ("registers" in ln or "spill" in ln):
+            print(f"  {entry.split(chr(39))[1][-60:]}: {ln.strip()}", flush=True)
+    native.load()
+    old = _parent_lib(parent)
+    kernel = GroupConvKernel()
+    gen = torch.Generator().manual_seed(0)
+    rows, sums = [], {}
+    for sc, t, ci, co, k, s, g, pd in cs.msd_grouped_geometries(8000):
+        B = cs.TRAIN_B
+        T_out = (t + 2 * pd - k) // s + 1
+        x = torch.randn(B, t, ci, generator=gen).to(dev)
+        w = ((torch.rand(co, ci // g, k, generator=gen) * 2 - 1) * (3 / (k * ci // g)) ** 0.5
+             ).to(dev)
+        gy = torch.randn(B, T_out, co, generator=gen).to(dev)
+        conv = dict(stride=s, padding=(pd, pd), groups=g)
+        want_dx = grouped_conv1d_bf16_input_grad_reference(gy, w, x.shape, **conv)
+        want_dw = grouped_conv1d_bf16_weight_grad_reference(x, gy, w.shape, **conv)
+        row = {"case": f"scale {sc} {ci}->{co} s{s} g{g} B={B} T={t}"}
+
+        def checked(ms, got, want):
+            ok = cs.rel_l2(got, want) <= cs.BF16_KERNEL_GRAD_REL
+            return ms if ok else float("nan")
+
+        row["dx"] = checked(*cs.groupconv_bf16_dx_launch_ms(gy, w, x.shape, s, pd, g)[:2],
+                            want_dx)
+        row["dx wrapper"] = cs.cuda_ms(lambda: kernel.input_grad_bf16(gy, w, x.shape, **conv))
+        row["dw wrapper"] = cs.cuda_ms(lambda: kernel.weight_grad_bf16(x, gy, w.shape, **conv))
+        row["dw"] = checked(*cs.groupconv_bf16_dw_launch_ms(x, gy, w.shape, s, pd, g), want_dw)
+        # the plan's two choices swept: warpgroups a block (at most 1-3) and
+        # the splits, planned for half and all of this card's SMs
+        sms = gc.sm_count(dev.index or 0)
+        for max_wg, n_sms in ((n, m) for n in (1, 2, 3) for m in (sms // 2, sms)):
+            name = f"dw max {max_wg} wg, {n_sms} SMs"
+            with swapped(gc, "WGRAD_MAX_WARPGROUPS", max_wg):
+                plan = gc.bf16_wgrad_plan.__wrapped__(B, T_out, ci, co, g, k, s, n_sms)
+            row[name] = checked(*cs.groupconv_bf16_dw_launch_ms(x, gy, w.shape, s, pd, g,
+                                                                plan=plan), want_dw)
+        xp = F.pad(x.transpose(1, 2), (pd, pd)).bfloat16()
+        gyb, wb = gy.transpose(1, 2).bfloat16(), w.bfloat16()
+        row["cuDNN bf16 dx"] = cs.cuda_ms(lambda: torch.nn.grad.conv1d_input(
+            xp.shape, wb, gyb, stride=s, groups=g), iters=10)
+        row["cuDNN bf16 dw"] = cs.cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+            xp, w.shape, gyb, stride=s, groups=g), iters=10)
+        if old is not None:
+            for name in ("parent fwd", "fwd", "fwd", "parent fwd"):
+                ms = cs.groupconv_bf16_launch_ms(x, w, s, pd, g,
+                                                 lib=old if name.startswith("parent") else None)[0]
+                row[name] = min(row.get(name, float("inf")), ms)
+        row["dw plan"] = gc.bf16_wgrad_plan(B, T_out, ci, co, g, k, s,
+                                            gc.sm_count(dev.index or 0))._asdict()
+        rows.append(row)
+        print(row["case"] + ": " + " | ".join(f"{n} {v:.4f}" for n, v in row.items()
+                                              if isinstance(v, float)), flush=True)
+        for n, v in row.items():
+            if isinstance(v, float):
+                sums[n] = sums.get(n, 0.0) + v
+    print("sums over the 15 MSD geometries (ms; nan: wrong): " + " | ".join(
+        f"{n} {v:.4f}" for n, v in sums.items()), flush=True)
+    os.makedirs(os.path.join(ROOT, "build", "kernel_lab"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "kernel_lab", "k2bf16_bwd_lab.json"), "w") as f:
+        json.dump({"rows": rows, "sums": sums}, f, indent=1, default=str)
+
+
 def main() -> None:
-    if len(sys.argv) < 2 or sys.argv[1] not in ("accuracy", "sweep", "step", "bf16"):
+    if len(sys.argv) < 2 or sys.argv[1] not in ("accuracy", "sweep", "step", "bf16", "bwd"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_lab: needs a CUDA card")
@@ -457,6 +549,8 @@ def main() -> None:
         accuracy(dev)
     elif sys.argv[1] == "step":
         step(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 6)
+    elif sys.argv[1] == "bwd":
+        bwd(dev, sys.argv[2] if len(sys.argv) > 2 else None)
     elif sys.argv[1] == "bf16":
         args = [a for a in sys.argv[2:] if a != "--sweep"]
         bf16(dev, args[0] if args else None, "--sweep" in sys.argv[2:])
