@@ -114,6 +114,19 @@ and the result line:
               update against the running mean alone, timed; one
               non-causal step; the causal "nn" + resblock-2 and the NSF
               generators' apply on one 5.12 s mel
+  8b. denseconv  (run right after 8) K3, the "default" rung's dense
+              conv1d (stride 1, groups 1), on every geometry the vocoder,
+              Conan and postnet default steps above ran through it (each
+              recorded at its step's B and T): K3, its dx and dw against
+              their plain versions in float64 (relative L2 1e-4) beside the
+              parent's route (cuDNN's bf16 convs cast to fp32), the weight
+              layouts bit for bit, dw twice the same bits; wrapper, device
+              and bare-launch ms, the bound, the plain versions' ms and
+              cuDNN's bf16 and fp32 (TF32 off) convs' ms; sums per task.
+              The default rows of 5, 5b, 6 and 8 count K3's launches (each
+              forward call of a geometry K3 takes launches it once), and 5
+              and 6 name the cuDNN dense conv1d kernels left in a step
+              profiled with shapes: only geometries K3 does not take
   9. infer    the training CLI's --infer: 4 synthesized test utterances of
               4-6 s binarized by ConanBinarizer (K1), converted by
               train.run.main --infer with the main phase's r5 random-weight
@@ -173,6 +186,8 @@ line holding logmel alone. Imports nothing of JAX or conan_tpu.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -208,7 +223,13 @@ from conan_tpu_torch.models.emformer import EmformerConfig, EmformerDistillModel
 from conan_tpu_torch.models.vocoder.discriminators import DiscriminatorS
 from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
 from conan_tpu_torch.nn.inits import fan_in_redraw
+from conan_tpu_torch.ops import conv as conv_ops
 from conan_tpu_torch.ops import native
+from conan_tpu_torch.ops.denseconv import (_bf16_operand, dense_conv1d_bf16_input_grad_reference,
+                                           dense_conv1d_bf16_reference,
+                                           dense_conv1d_bf16_weight_grad_reference,
+                                           dense_kernel_takes, dense_plan, dense_wgrad_plan,
+                                           denseconv, kernel_weights, kernel_weights_dx)
 from conan_tpu_torch.ops.groupconv import (bf16_dx_plan, bf16_plan, bf16_wgrad_plan, groupconv,
                                            grouped_conv1d_bf16_input_grad_reference,
                                            grouped_conv1d_bf16_reference,
@@ -329,6 +350,14 @@ EMF_CHECK_FRAMES = 128
 # products in fp32 in another order, they keep BF16_KERNEL_GRAD_REL.
 BF16_GRAD_REL = 4e-3
 BF16_KERNEL_GRAD_REL = 1e-4
+# K3 (the "default" rung's dense conv1d), its dx and dw against their plain
+# versions run in float64 on the same rounded operands: relative L2 per
+# tensor. The kernels sum the same exact bf16 products in fp32 in another
+# order (1e-7 to 3e-5 measured); the parent's route, cuDNN's bf16 convs cast
+# to fp32, lands at 1.6e-3 to 6.6e-3: one bf16 rounding of each result.
+# DENSE_ITERS calls a timing (after one warm call) and a profiler window.
+DENSE_REL = 1e-4
+DENSE_ITERS = 5
 # The shipped training rung ("default": bf16 operands) and TF32 ("high")
 # rows of each training phase: RUNG_STEPS steps on the phase's own batch
 # after one warm step. Each phase's small-width check also runs its step at
@@ -408,10 +437,11 @@ def fail(msg: str) -> None:
 
 
 def zero_train_launches() -> None:
-    """Sets the training path's launch counts to 0: K1-GAN's, K2's, and
-    K2-bf16's forward, dx and dw."""
+    """Sets the training path's launch counts to 0: K1-GAN's, K2's,
+    K2-bf16's forward, dx and dw, and K3's forward, dx and dw."""
     logmel_gan.launches = groupconv.launches = groupconv.launches_bf16 = 0
     groupconv.launches_bf16_dx = groupconv.launches_bf16_dw = 0
+    denseconv.launches = denseconv.launches_dx = denseconv.launches_dw = 0
 
 
 def train_launches() -> dict:
@@ -419,7 +449,126 @@ def train_launches() -> dict:
     return {"logmel_gan": logmel_gan.launches, "groupconv": groupconv.launches,
             "groupconv_bf16": groupconv.launches_bf16,
             "groupconv_bf16_dx": groupconv.launches_bf16_dx,
-            "groupconv_bf16_dw": groupconv.launches_bf16_dw}
+            "groupconv_bf16_dw": groupconv.launches_bf16_dw,
+            "denseconv": denseconv.launches, "denseconv_dx": denseconv.launches_dx,
+            "denseconv_dw": denseconv.launches_dw}
+
+
+K3_NAMES = ("denseconv", "denseconv_dx", "denseconv_dw")
+
+
+@dataclasses.dataclass
+class DenseRecord:
+    """What the "default" runs record for the denseconv phase and the
+    kernels line: ``geoms`` geometry (B, T, Ci, Co, K, stride, dilation,
+    pad_l, pad_r) → {task: dense conv1d calls a step}, ``launches`` path →
+    K3's launches there ({name: count})."""
+    geoms: dict = dataclasses.field(default_factory=dict)
+    launches: dict = dataclasses.field(default_factory=dict)
+
+    def add(self, task: str, seen, steps: int) -> None:
+        """The calls ``recording_convs`` counted over ``steps`` steps."""
+        for g, n in seen.items():
+            self.geoms.setdefault(g, {})[task] = n // steps
+
+
+@contextlib.contextmanager
+def recording_convs():
+    """Counts every dense conv1d call through the port's ops.conv.conv1d
+    (the modules that imported it by name too) inside the block by geometry
+    (B, T, Ci, Co, K, stride, dilation, pad_l, pad_r), into the yielded
+    Counter; grouped calls are not counted."""
+    seen = collections.Counter()
+    orig = conv_ops.conv1d
+
+    def rec(x, w, b=None, *, stride=1, dilation=1, padding=(0, 0), groups=1):
+        if groups == 1:
+            seen[(*x.shape, w.shape[0], w.shape[2], stride, dilation, *padding)] += 1
+        return orig(x, w, b, stride=stride, dilation=dilation, padding=padding, groups=groups)
+
+    patched = [m for name, m in sys.modules.items()
+               if name.startswith("conan_tpu_torch") and getattr(m, "conv1d", None) is orig]
+    for m in patched:
+        m.conv1d = rec
+    try:
+        yield seen
+    finally:
+        for m in patched:
+            m.conv1d = orig
+
+
+def k3_takes(g: tuple) -> bool:
+    """Whether the route sends geometry ``g`` (recording_convs') to K3."""
+    B, T, Ci, Co, K, s, d, pl, pr = g
+    return s == 1 and dense_kernel_takes(Ci, Co, K, d)
+
+
+def k3_forward_pred(seen) -> int:
+    """K3's forward launches the recorded calls make: one a call K3 takes."""
+    return sum(n for g, n in seen.items() if k3_takes(g))
+
+
+def conv_kernels(prof) -> dict:
+    """{(op, input shape, weight shape, (stride, dilation, transposed,
+    groups) as text, "?" where the trace lacks them): {kernel name: [count,
+    device ms]}} for the CUDA kernels under each aten::convolution and
+    aten::convolution_backward of a trace with shapes."""
+    out: dict = collections.defaultdict(dict)
+    for evt in prof.events():
+        for k in evt.kernels:
+            op = evt
+            while op is not None and op.name not in ("aten::convolution",
+                                                     "aten::convolution_backward"):
+                op = op.cpu_parent
+            if op is None or len(op.input_shapes) < 3:
+                continue
+            shapes = [tuple(s) for s in op.input_shapes[:3]]
+            x, w = (shapes[0], shapes[1]) if op.name == "aten::convolution" else shapes[1:3]
+            # stride, dilation, transposed, groups from the op's scalar
+            # arguments where the trace has them
+            at = (3, 5, 6, 8) if op.name == "aten::convolution" else (4, 6, 7, 9)
+            args = list(getattr(op, "concrete_inputs", None) or [])
+            conf = tuple(str(args[i]) if i < len(args) else "?" for i in at)
+            row = out[(op.name, x, w, conf)].setdefault(k.name, [0, 0.0])
+            row[0] += 1
+            row[1] += k.duration / 1e3
+    return out
+
+
+def dense_cudnn_left(prof) -> tuple[list[str], list[str]]:
+    """The kernels a trace with shapes ran under a 1-D convolution (3-D
+    input), by geometry, as (those of geometries K3 takes, the rest), each
+    "Ci->Co k=K: n kernels, ms (names)": the first must be empty under
+    "default". A transposed or grouped conv, or one of another stride,
+    counts with the rest."""
+    found: dict = {}
+    for (op, x, w, (stride, dil, transposed, groups)), kernels in conv_kernels(prof).items():
+        if len(x) != 3 or len(w) != 3:
+            continue
+        d = int(re.sub(r"\D", "", dil) or 1)
+        takes = (x[1] == w[1] and transposed != "True" and groups in ("1", "?")
+                 and re.sub(r"\D", "", stride) in ("1", "") and dense_kernel_takes(
+                     w[1], w[0], w[2], d))
+        row = found.setdefault((takes, f"{w[1]}->{w[0]} k={w[2]}"), [0, 0.0, set()])
+        for name, (count, ms) in kernels.items():
+            row[0] += count
+            row[1] += ms
+            row[2].add(re.sub(r"^void |<.*|\(.*", "", name).split("::")[-1][:48])
+    text = {True: [], False: []}
+    for (takes, geom), (count, ms, names) in sorted(found.items()):
+        text[takes].append(f"{geom}: {count} kernels, {ms:.3f} ms ({', '.join(sorted(names))})")
+    return text[True], text[False]
+
+
+def denseconv_bound_ms(B: int, T: int, ci: int, t_out: int, co: int,
+                       k: int) -> tuple[float, str]:
+    """Least time for one dense conv at the "default" rung, and for its dx
+    and its dw (the same products and bytes): the larger of its fp32 input,
+    weights and output once over HBM and its FLOPs as bf16 products at the
+    dense bf16 peak. Returns (ms, "bytes" or "operations")."""
+    t_bytes = 4 * (B * T * ci + co * ci * k + B * t_out * co) / PEAK_HBM_BYTES
+    t_ops = 2 * B * t_out * co * ci * k / PEAK_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -447,10 +596,13 @@ def kernel_device_ms(fn, key: str, iters: int = 20) -> float | None:
     (whole runs recorded none, or 8, of K1-GAN's 20 three windows running),
     so windows are taken, KERNEL_DEVICE_WINDOWS at most, until they have
     recorded ``iters`` launches between them, each window's count printed
-    when there is more than one. Where they record fewer than ``iters // 2``
-    between them, the kernel's device time is not measured in this run:
-    None, with a note. It fails where a window records more launches than
-    it made (``key`` names another kernel too)."""
+    when there is more than one. The profiler also records a launch too
+    many now and then (a window of 5 calls recorded 6 launches of one
+    kernel whose wrapper launches it once a call): such a window is
+    dropped, its count printed with a star. Where the windows kept record
+    fewer than ``iters // 2`` between them, the kernel's device time is not
+    measured in this run: None, with a note. It fails where ``key`` names
+    more than one kernel among the records."""
     fn()
     torch.cuda.synchronize()
     device_us, recorded, counts = 0.0, 0, []
@@ -468,21 +620,26 @@ def kernel_device_ms(fn, key: str, iters: int = 20) -> float | None:
                 prof.step()
         if len(active) != 1:
             fail(f"kernel_device_ms: the profiler's schedule gave {len(active)} active passes")
+        if len(active[0]) > 1:
+            fail(f"kernel_device_ms: {key} names {len(active[0])} kernels: "
+                 + "; ".join(e.key[:80] for e in active[0]))
         count = sum(e.count for e in active[0])
         if count > iters:
-            fail(f"kernel_device_ms: a window recorded {count} launches of {key} in {iters} "
-                 f"calls")
+            counts.append(f"{count}*")
+            continue
         counts.append(count)
         device_us += sum(e.self_device_time_total for e in active[0])
         recorded += count
         if recorded >= iters:
             break
     if len(counts) > 1:
-        print(f"kernel_device_ms: {key}: windows of {iters} calls recorded {counts} launches",
-              flush=True)
+        dropped = any(isinstance(c, str) for c in counts)
+        print(f"kernel_device_ms: {key}: windows of {iters} calls recorded "
+              f"[{', '.join(map(str, counts))}] launches"
+              + (" (* more than the calls: dropped)" if dropped else ""), flush=True)
     if recorded < iters // 2:
         print(f"kernel_device_ms: {key}: device time not measured ({recorded} launches "
-              f"recorded in {len(counts)} windows of {iters} calls)", flush=True)
+              f"recorded in the kept windows of {iters} calls, {len(counts)} taken)", flush=True)
         return None
     return device_us / 1e3 / recorded
 
@@ -1179,8 +1336,10 @@ def vocoder_step_check(phase: str, hp, task, state0: dict, small: dict,
     return new_64, m_64
 
 
-def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[dict]:
-    """Phase 5: the vocoder GAN train step at production width. Returns the
+def train_phase(seed: int, dev: torch.device, rng: np.random.Generator,
+                dense: DenseRecord) -> list[dict]:
+    """Phase 5: the vocoder GAN train step at production width (the default
+    run's dense conv1d calls and K3 launches into ``dense``). Returns the
     kernels line's entries of the training kernels."""
     hp = load_config(os.path.join(ROOT, "egs", "soak_r5", "vocoder.yaml"))
     shipped = hp["train_precision"]
@@ -1311,8 +1470,15 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_train_launches()
-    state_default = Trainer(task_default, hp_shipped, work_default).fit(default_batches())
+    with recording_convs() as seen:
+        state_default = Trainer(task_default, hp_shipped, work_default).fit(default_batches())
     torch.cuda.synchronize()
+    dense.add("vocoder", seen, n_default)
+    k3 = dense.launches["train"] = {k: train_launches()[k] for k in K3_NAMES}
+    k3_pred = k3_forward_pred(seen)
+    if k3["denseconv"] != k3_pred or not k3["denseconv_dx"] or not k3["denseconv_dw"]:
+        fail(f"train_precision {shipped}: K3 launches {k3} in {n_default} steps; predicted "
+             f"{k3_pred} forward launches (one a dense conv1d call it takes), dx and dw some")
     k2_bf16_launches, k2_default_tf32 = groupconv.launches_bf16, groupconv.launches
     dx_launches, dw_launches = groupconv.launches_bf16_dx, groupconv.launches_bf16_dw
     k1_default = logmel_gan.launches
@@ -1354,6 +1520,10 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
         task_default.train_step(state_default, batch)
         torch.cuda.synchronize()
     cudnn_grouped = cudnn_grouped_backward(prof_shapes)
+    dense_k3, dense_rest = dense_cudnn_left(prof_shapes)
+    if dense_k3:
+        fail(f"train_precision {shipped}: cuDNN served dense conv1d geometries K3 takes: "
+             f"{dense_k3}")
     if sum(e.count for e in bf16_evs) != k2_pred + dx_pred \
             or any(groups != 1 for _name, groups, _shapes in cudnn_grouped):
         fail(f"train_precision {shipped}: the profiled step ran groupconv_bf16_kernel "
@@ -1384,7 +1554,11 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> list[
           f"{sum(e.self_device_time_total for e in dw_evs) / 1e3:.3f} ms; in a second step "
           f"recording shapes, cuDNN kernels named grouped dgrad or wgrad {len(cudnn_grouped)}, "
           f"none for a grouped conv: "
-          f"{'; '.join(f'{k} x{n}' for k, n in grouped_by.items()) or 'none'}; largest: "
+          f"{'; '.join(f'{k} x{n}' for k, n in grouped_by.items()) or 'none'}; K3 launches "
+          f"per step {k3['denseconv'] / n_default:g} (predicted {k3_pred / n_default:g}), dx "
+          f"{k3['denseconv_dx'] / n_default:g}, dw {k3['denseconv_dw'] / n_default:g}; cuDNN "
+          f"kernels under a dense conv1d in the step recording shapes, none for a geometry K3 "
+          f"takes: {'; '.join(dense_rest) or 'none'}; largest: "
           + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                       for e in top_d)
           + "; step losses: " + ", ".join(f"{k} {v:.5g}" for k, v in records_d[-1].items()
@@ -1670,7 +1844,7 @@ def binarized_mels_check(hp, dev: torch.device, n_items: int, phase: str = "cona
     return err, notes
 
 
-def conan_train_phase(seed: int, dev: torch.device) -> int:
+def conan_train_phase(seed: int, dev: torch.device, dense: DenseRecord) -> int:
     """Phase 6: the Conan acoustic GAN at full width (egs/soak_r5/conan.yaml,
     train_precision highest) from a corpus the port binarizes (K1 on every
     utterance) and batches, through Trainer.fit for CONAN_STEPS steps; then
@@ -1791,11 +1965,32 @@ def conan_train_phase(seed: int, dev: torch.device) -> int:
           + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                       for e in top)
           + f"; step {CONAN_STEPS} losses: {losses}", flush=True)
-    rows = step_rows(ConanTask(dict(hp, train_precision=shipped)), state, batch,
-                     {"use_random_ref": True}, gen)
+    task_d = ConanTask(dict(hp, train_precision=shipped))
+    zero_train_launches()
+    with recording_convs() as seen:
+        rows = step_rows(task_d, state, batch, {"use_random_ref": True}, gen)
+    dense.add("conan", seen, RUNG_STEPS + 2)
+    k3 = dense.launches["conan_train"] = {k: train_launches()[k] for k in K3_NAMES}
+    k3_pred = k3_forward_pred(seen)
+    if k3["denseconv"] != k3_pred or not k3["denseconv_dx"] or not k3["denseconv_dw"]:
+        fail(f"conan_train {shipped}: K3 launches {k3} in {RUNG_STEPS + 2} steps; predicted "
+             f"{k3_pred} forward launches (one a dense conv1d call it takes), dx and dw some")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof_shapes:
+        task_d.train_step(state, batch, gen, use_random_ref=True)
+        torch.cuda.synchronize()
+    dense_k3, dense_rest = dense_cudnn_left(prof_shapes)
+    if dense_k3:
+        fail(f"conan_train {shipped}: cuDNN served dense conv1d geometries K3 takes: "
+             f"{dense_k3}")
     print(f"conan_train {shipped}: the last batch at the shipped rung (bf16 operands for every "
-          f"dot and conv) from the trained state, " + step_rows_text(
-              shipped, rows, float(np.median(last_phase))), flush=True)
+          f"dot and conv; the dense conv1d through K3, fp32 out) from the trained state, "
+          + step_rows_text(shipped, rows, float(np.median(last_phase)))
+          + f"; K3 launches a step {k3['denseconv'] / (RUNG_STEPS + 2):g} (predicted "
+          f"{k3_pred / (RUNG_STEPS + 2):g}), dx {k3['denseconv_dx'] / (RUNG_STEPS + 2):g}, dw "
+          f"{k3['denseconv_dw'] / (RUNG_STEPS + 2):g}; cuDNN kernels under a dense conv1d in a "
+          f"step recording shapes, none for a geometry K3 takes: "
+          f"{'; '.join(dense_rest) or 'none'}", flush=True)
     conan_step_check(hp, batch, dev, seed)
     return launches
 
@@ -2125,7 +2320,7 @@ def postnet_step_check(hp, batch: dict, seed: int) -> None:
           f"{limit:.3g}; {rungs}", flush=True)
 
 
-def postnet_train_phase(seed: int, dev: torch.device, smi: str) -> None:
+def postnet_train_phase(seed: int, dev: torch.device, smi: str, dense: DenseRecord) -> None:
     """Phase 8: the mel postnet as shipped (egs/soak_r5/postnet.yaml: a
     20x256 DiffNet, train_precision default) through the port's CLIs on
     conan_train's corpus and trained work dir (fs2_ckpt_dir): spec_stats,
@@ -2181,8 +2376,16 @@ def postnet_train_phase(seed: int, dev: torch.device, smi: str) -> None:
     batch = next(train_iter)
     train_iter.close()
     ckpt, _ = get_last_checkpoint(exp)
-    rows = step_rows(task, params_from_jax(ckpt["state"], dev), batch, {},
-                     torch.Generator(device=dev).manual_seed(seed))
+    zero_train_launches()
+    with recording_convs() as seen:
+        rows = step_rows(task, params_from_jax(ckpt["state"], dev), batch, {},
+                         torch.Generator(device=dev).manual_seed(seed))
+    dense.add("postnet", seen, RUNG_STEPS + 2)
+    k3 = dense.launches["postnet_train"] = {k: train_launches()[k] for k in K3_NAMES}
+    k3_pred = k3_forward_pred(seen)
+    if k3["denseconv"] != k3_pred or not k3["denseconv_dx"] or not k3["denseconv_dw"]:
+        fail(f"postnet_train: K3 launches {k3} in {RUNG_STEPS + 2} steps; predicted {k3_pred} "
+             f"forward launches (one a dense conv1d call it takes), dx and dw some")
     print(f"postnet_train: {smi}; egs/soak_r5/postnet.yaml as shipped (DiffNet "
           f"{hp['residual_layers']}x{hp['residual_channels']} over {hp['audio_num_mel_bins']} "
           f"mels, K_step {hp['K_step']}, train_precision {task.precision}) on conan_train's "
@@ -2193,8 +2396,179 @@ def postnet_train_phase(seed: int, dev: torch.device, smi: str) -> None:
           f"{train_s:.2f} s, resumed to {POST_RESUMED} in {resume_s:.2f} s, checkpoints left "
           f"{ckpts}; flow loss step 1 {tr[0]['flow']:.5g}, step {POST_RESUMED} "
           f"{tr[-1]['flow']:.5g}; step at B x T {tuple(batch['mels'].shape[:2])}: "
-          + step_rows_text(task.precision, rows), flush=True)
+          + step_rows_text(task.precision, rows)
+          + f"; K3 launches a step {k3['denseconv'] / (RUNG_STEPS + 2):g} (predicted "
+          f"{k3_pred / (RUNG_STEPS + 2):g}), dx {k3['denseconv_dx'] / (RUNG_STEPS + 2):g}, dw "
+          f"{k3['denseconv_dw'] / (RUNG_STEPS + 2):g}", flush=True)
     postnet_step_check(task.hp, batch, seed)
+
+
+def denseconv_row(g: tuple, calls: dict, gen: torch.Generator, dev: torch.device) -> dict:
+    """K3, its dx and its dw on geometry ``g`` (recording_convs'): seeded x,
+    w (fan-in uniform), bias and incoming gradient; each result against its
+    plain version run in float64 on the same operands (relative L2 within
+    DENSE_REL, max abs beside it) and beside the parent's route, cuDNN's
+    convs on bf16 tensors cast to fp32; the weight layouts against
+    kernel_weights / kernel_weights_dx bit for bit, the bare launches'
+    results against the wrapper's, dw twice the same bits; then the times:
+    the wrapper call (on the rounded operands), the kernel by the profiler
+    (kernel_device_ms), the kernel's C entry alone on laid-out weights and
+    encoded maps (bare), the plain versions (fp32), cuDNN's F.conv1d /
+    conv1d_input / conv1d_weight on bf16 tensors and in fp32 (TF32 off),
+    by CUDA events; and the bound. ``calls``: the geometry's calls a step
+    by task, printed."""
+    B, T, Ci, Co, K, _s, d, pl, pr = g
+    T_out = T + pl + pr - d * (K - 1)
+    x = torch.randn(B, T, Ci, generator=gen).to(dev)
+    w = ((torch.rand(Co, Ci, K, generator=gen) * 2 - 1) * (3 / (Ci * K)) ** 0.5).to(dev)
+    b = (0.1 * torch.randn(Co, generator=gen)).to(dev)
+    gy = torch.randn(B, T_out, Co, generator=gen).to(dev)
+    conv = dict(dilation=d, padding=(pl, pr))
+    name = f"denseconv B={B} T={T} {Ci}->{Co} k={K} d={d} pad=({pl},{pr})"
+    lib = native.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    row = {"geometry": list(g)}
+    with torch.no_grad():
+        xb, gyb = _bf16_operand(x, "x"), _bf16_operand(gy, "gy")
+        wrappers = {"fwd": lambda: denseconv.launch(xb, w, b, **conv),
+                    "dx": lambda: denseconv.input_grad(gyb, w, x.shape, **conv),
+                    "dw": lambda: denseconv.weight_grad(xb, gyb, w.shape, **conv)}
+        plains = {"fwd": lambda t=torch.float32: dense_conv1d_bf16_reference(
+                      x.to(t), w.to(t), b.to(t), **conv),
+                  "dx": lambda t=torch.float32: dense_conv1d_bf16_input_grad_reference(
+                      gy.to(t), w.to(t), x.shape, **conv),
+                  "dw": lambda t=torch.float32: dense_conv1d_bf16_weight_grad_reference(
+                      x.to(t), gy.to(t), w.shape, **conv)}
+        xp = F.pad(x.transpose(1, 2), (pl, pr)).contiguous()
+        gyt = gy.transpose(1, 2).contiguous()
+        libs = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            xd, gd, wd = xp.to(dtype), gyt.to(dtype), w.to(dtype)
+            libs[dtype] = {
+                "fwd": lambda xd=xd, wd=wd: F.conv1d(xd, wd, dilation=d),
+                "dx": lambda xd=xd, gd=gd, wd=wd: torch.nn.grad.conv1d_input(
+                    xd.shape, wd, gd, dilation=d),
+                "dw": lambda xd=xd, gd=gd: torch.nn.grad.conv1d_weight(xd, w.shape, gd,
+                                                                       dilation=d)}
+        parent = {"fwd": lambda: (libs[torch.bfloat16]["fwd"]().float() + b[:, None]
+                                  ).transpose(1, 2),
+                  "dx": lambda: libs[torch.bfloat16]["dx"]().float()[:, :, pl:pl + T
+                                                                      ].transpose(1, 2),
+                  "dw": lambda: libs[torch.bfloat16]["dw"]().float()}
+        got = {k: fn() for k, fn in wrappers.items()}
+        torch.cuda.synchronize()
+        if not torch.equal(got["dw"], wrappers["dw"]()):
+            fail(f"{name} dw: two calls on the same inputs differ")
+        for k in ("fwd", "dx", "dw"):
+            want = plains[k](torch.float64)
+            row[f"{k}_rel_l2"] = rel_l2(got[k].double(), want)
+            row[f"{k}_max_abs_err"] = float((got[k].double() - want).abs().max())
+            row[f"{k}_parent_rel_l2"] = rel_l2(parent[k]().double(), want)
+            if not row[f"{k}_rel_l2"] <= DENSE_REL:
+                fail(f"{name} {k}: relative L2 {row[f'{k}_rel_l2']:.3g} from the plain version "
+                     f"in float64 (limit {DENSE_REL})")
+        # the bare launches: weights laid out and maps encoded once
+        bare = {}
+        for k, (src, w_layout, N, C, T_in, pad, flip) in {
+                "fwd": (xb, kernel_weights(w), Co, Ci, T, pl, 0),
+                "dx": (gyb, kernel_weights_dx(w), Ci, Co, T_out, d * (K - 1) - pl, 1)}.items():
+            plan = dense_plan(C, N, K)
+            wq = torch.empty_like(w_layout)
+            maps = ctypes.create_string_buffer(256)
+            out = torch.full((B, T if flip else T_out, N), float("nan"), device=dev)
+            err = (lib.denseconv_weights(w.data_ptr(), wq.data_ptr(), N, C, K, flip, stream)
+                   or lib.denseconv_describe(src.data_ptr(), wq.data_ptr(), B, T_in, C, N, K,
+                                             plan.bn, ctypes.addressof(maps)))
+            if err or not torch.equal(wq, w_layout):
+                fail(f"{name} {k}: the weights' layout (cudaError {err}) differs from "
+                     f"kernel_weights{'_dx' if flip else ''}")
+            args = (ctypes.addressof(maps), None if flip else b.data_ptr(), out.data_ptr(), B,
+                    out.shape[1], C, N, K, d, pad, *plan.args, stream)
+            # the closure holds the maps' buffer and the weights' layout: args
+            # holds only their addresses
+            bare[k] = (lambda args=args, maps=maps, wq=wq: lib.denseconv_run(*args), out)
+        wplan = dense_wgrad_plan(B, T_out, Ci, Co, K, d, sm_count(dev.index or 0))
+        part = torch.empty(wplan.part_floats, device=dev)
+        dw_bare = torch.full((Co, Ci, K), float("nan"), device=dev)
+        dw_args = (xb.data_ptr(), gyb.data_ptr(), part.data_ptr(), dw_bare.data_ptr(), B, T, Ci,
+                   T_out, Co, K, d, pl, *wplan.args, stream)
+        bare["dw"] = (lambda: lib.denseconv_weight_grad(*dw_args), dw_bare)
+        for k, (fn, out) in bare.items():
+            if fn():
+                fail(f"{name} {k}: the C entry refused the plan")
+            torch.cuda.synchronize()
+            if not torch.equal(out, got[k]):
+                fail(f"{name} {k}: the bare launch's result differs from the wrapper's")
+            row[f"{k}_launch_ms"] = cuda_ms(fn, iters=DENSE_ITERS, warmup=1)
+            row[f"{k}_ms"] = cuda_ms(wrappers[k], iters=DENSE_ITERS, warmup=1)
+            row[f"{k}_plain_ms"] = cuda_ms(plains[k], iters=DENSE_ITERS, warmup=1)
+            row[f"{k}_library_ms"] = cuda_ms(libs[torch.bfloat16][k], iters=DENSE_ITERS,
+                                             warmup=1)
+            row[f"{k}_library_fp32_ms"] = cuda_ms(libs[torch.float32][k], iters=DENSE_ITERS,
+                                                  warmup=1)
+        for k, keys in (("fwd", ("denseconv_kernel",)), ("dx", ("denseconv_kernel",)),
+                        ("dw", ("denseconv_wgrad_kernel", "denseconv_wgrad_reduce_kernel"))):
+            row[f"{k}_kernel_device_ms"] = total(
+                kernel_device_ms(wrappers[k], key, iters=DENSE_ITERS) for key in keys)
+    row["bound_ms"], row["bound_by"] = denseconv_bound_ms(B, T, Ci, T_out, Co, K)
+    print(f"denseconv geometry: B={B} T={T} {Ci}->{Co} k={K} dilation {d} pad ({pl}, {pr}), "
+          f"calls a step {calls}: "
+          + "; ".join(
+              f"{k} vs plain (float64) rel L2 {row[k + '_rel_l2']:.3g} (max abs "
+              f"{row[k + '_max_abs_err']:.3g}; cuDNN bf16 cast to fp32 "
+              f"{row[k + '_parent_rel_l2']:.3g}), kernel {row[k + '_ms']:.4f} ms (device "
+              f"{ms_text(row[k + '_kernel_device_ms'])}, bare {row[k + '_launch_ms']:.4f} ms), "
+              f"plain {row[k + '_plain_ms']:.4f} ms, cuDNN bf16 {row[k + '_library_ms']:.4f} "
+              f"ms, fp32 {row[k + '_library_fp32_ms']:.4f} ms" for k in ("fwd", "dx", "dw"))
+          + f"; bound {row['bound_ms']:.4g} ms by {row['bound_by']}", flush=True)
+    return row
+
+
+DENSE_KEYS = [f"{k}_{key}" for k in ("fwd", "dx", "dw")
+              for key in ("ms", "kernel_device_ms", "launch_ms", "plain_ms", "library_ms",
+                          "library_fp32_ms")]
+
+
+def denseconv_phase(seed: int, dev: torch.device,
+                    dense: DenseRecord) -> tuple[list[dict], list[tuple]]:
+    """Phase 8b: K3, its dx and dw on every geometry the default steps of
+    the train, conan_train and postnet_train phases sent to K3
+    (``dense.geoms``), at the step's own B and T (denseconv_row); the
+    geometries they sent to rounded_dot are listed. Prints the sums per
+    task (one call a geometry, and weighted by the calls of a step).
+    Returns the rows and the geometries K3 took."""
+    gen = torch.Generator().manual_seed(seed + 18)
+    geoms = sorted(g for g in dense.geoms if k3_takes(g))
+    others = sorted(g for g in dense.geoms if not k3_takes(g))
+    t0 = time.perf_counter()
+    rows = [denseconv_row(g, dense.geoms[g], gen, dev) for g in geoms]
+    for task in sorted({t for g in geoms for t in dense.geoms[g]}):
+        mine = [(r, dense.geoms[g][task]) for r, g in zip(rows, geoms)
+                if task in dense.geoms[g]]
+        sums = {key: total(r[key] for r, _ in mine) for key in DENSE_KEYS + ["bound_ms"]}
+        per_step = {key: total(r[key] * n if r[key] is not None else None for r, n in mine)
+                    for key in ("fwd_ms", "fwd_library_ms", "dx_library_ms", "dw_library_ms")}
+        print(f"denseconv sums, {task}: {len(mine)} geometries "
+              f"({sum(n for _, n in mine)} forward calls a step), one call each: "
+              + "; ".join(f"{k} kernel {sums[k + '_ms']:.4f} ms (device "
+                          f"{ms_text(sums[k + '_kernel_device_ms'])}, bare "
+                          f"{sums[k + '_launch_ms']:.4f}), plain {sums[k + '_plain_ms']:.4f}, "
+                          f"cuDNN bf16 {sums[k + '_library_ms']:.4f}, fp32 "
+                          f"{sums[k + '_library_fp32_ms']:.4f}" for k in ("fwd", "dx", "dw"))
+              + f"; bound {sums['bound_ms']:.4g} ms a kernel; weighted by a step's calls: "
+              f"K3 forward {per_step['fwd_ms']:.4f} ms, cuDNN bf16 forward "
+              f"{per_step['fwd_library_ms']:.4f}, dx {per_step['dx_library_ms']:.4f}, dw "
+              f"{per_step['dw_library_ms']:.4f}", flush=True)
+    print(f"denseconv: {len(geoms)} geometries through K3 in {time.perf_counter() - t0:.1f} s, "
+          f"worst relative L2 from float64 fwd {max(r['fwd_rel_l2'] for r in rows):.3g}, dx "
+          f"{max(r['dx_rel_l2'] for r in rows):.3g}, dw {max(r['dw_rel_l2'] for r in rows):.3g} "
+          f"(limit {DENSE_REL}; the parent's cuDNN bf16 route "
+          f"{min(r[k + '_parent_rel_l2'] for r in rows for k in ('fwd', 'dx', 'dw')):.3g} to "
+          f"{max(r[k + '_parent_rel_l2'] for r in rows for k in ('fwd', 'dx', 'dw')):.3g}); "
+          f"through rounded_dot (fp32 on rounded operands: no K3 for one channel in or out): "
+          + "; ".join(f"B={g[0]} T={g[1]} {g[2]}->{g[3]} k={g[4]} ({dense.geoms[g]})"
+                      for g in others), flush=True)
+    return rows, geoms
 
 
 def scan_timings(eng, src: np.ndarray, ref: np.ndarray, bucket_lengths: bool) -> dict:
@@ -2470,7 +2844,8 @@ def run_vc_phase(eng, dirs, rng: np.random.Generator) -> int:
     return launches
 
 
-def vocoder_options_phase(seed: int, dev: torch.device, rng: np.random.Generator) -> dict:
+def vocoder_options_phase(seed: int, dev: torch.device, rng: np.random.Generator,
+                          dense: DenseRecord) -> dict:
     """The vocoder GAN with every option on at the shipped width and rung;
     then its B=2 step at "highest" against the CPU's, a non-causal step,
     and the "nn"/resblock-2 causal and NSF generators' apply. Returns this
@@ -2520,10 +2895,16 @@ def vocoder_options_phase(seed: int, dev: torch.device, rng: np.random.Generator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_train_launches()
-    state = Trainer(task, hp, work).fit(batches())
+    with recording_convs() as seen:
+        state = Trainer(task, hp, work).fit(batches())
     torch.cuda.synchronize()
     launches = train_launches()
     grad_launches = {k: launches.pop(k) for k in ("groupconv_bf16_dx", "groupconv_bf16_dw")}
+    k3 = dense.launches["vocoder_options"] = {k: launches.pop(k) for k in K3_NAMES}
+    if k3["denseconv"] != k3_forward_pred(seen) or not k3["denseconv_dx"] \
+            or not k3["denseconv_dw"]:
+        fail(f"vocoder_options: K3 launches {k3} over {OPT_MINI_STEPS} mini-steps; predicted "
+             f"{k3_forward_pred(seen)} forward launches, dx and dw some")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
     with open(os.path.join(work, "metrics.jsonl")) as f:
@@ -2592,7 +2973,10 @@ def vocoder_options_phase(seed: int, dev: torch.device, rng: np.random.Generator
           f"groupconv_bf16 {launches['groupconv_bf16'] / OPT_MINI_STEPS:g} (predicted "
           f"{k2_pred}), its dx {launches['groupconv_bf16_dx'] / OPT_MINI_STEPS:g} and dw "
           f"{launches['groupconv_bf16_dw'] / OPT_MINI_STEPS:g}, groupconv (3xTF32) "
-          f"{launches['groupconv']}; one profiled mini-step: wall "
+          f"{launches['groupconv']}, K3 {k3['denseconv'] / OPT_MINI_STEPS:g} (predicted "
+          f"{k3_forward_pred(seen) / OPT_MINI_STEPS:g}), its dx "
+          f"{k3['denseconv_dx'] / OPT_MINI_STEPS:g} and dw "
+          f"{k3['denseconv_dw'] / OPT_MINI_STEPS:g}; one profiled mini-step: wall "
           f"{wall_ms:.3f} ms, device kernels {device_ms:.3f} ms (busy "
           f"{100 * device_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernels; largest: "
           + "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
@@ -3027,9 +3411,11 @@ def highest_step_launches(hp) -> dict:
     """What one vocoder step at "highest" launches, by the code's structure:
     K1-GAN at the mel loss's resolutions on y and y_hat, K2 on the MSD's 15
     grouped layers on y_hat in the generator step and on y and y_hat in the
-    discriminator step; K2-bf16, its dx and dw none (the "default" rung's)."""
+    discriminator step; K2-bf16, its dx and dw, K3, its dx and dw none (the
+    "default" rung's)."""
     return {"logmel_gan": 2 * len(hp["mel_loss_param"]["fft_sizes"]), "groupconv": 3 * 15,
-            "groupconv_bf16": 0, "groupconv_bf16_dx": 0, "groupconv_bf16_dw": 0}
+            "groupconv_bf16": 0, "groupconv_bf16_dx": 0, "groupconv_bf16_dw": 0,
+            "denseconv": 0, "denseconv_dx": 0, "denseconv_dw": 0}
 
 
 def dist_rank_main(rank: int, out_dir: str, seed: int) -> None:
@@ -3586,6 +3972,44 @@ def leftovers_phase(seed: int, dev: torch.device, eng, src: np.ndarray,
     return launches
 
 
+def denseconv_entries(rows: list[dict], geoms: list[tuple], dense: DenseRecord) -> list[dict]:
+    """The kernels line's entries of K3, its dx and its dw: sums over the
+    denseconv phase's geometries (one call each), launches by path as each
+    default run counted them, and the Conan k=31 layer's row."""
+    k31 = next((r for r, g in zip(rows, geoms) if g[4] == 31), rows[0])
+    by = {b: sum(r["bound_ms"] for r in rows if r["bound_by"] == b)
+          for b in ("bytes", "operations")}
+    out = []
+    for k, name, source in (("fwd", "denseconv", "conan_tpu_torch/csrc/denseconv.cu"),
+                            ("dx", "denseconv_dx", "conan_tpu_torch/csrc/denseconv.cu"),
+                            ("dw", "denseconv_dw", "conan_tpu_torch/csrc/denseconv_bwd.cu")):
+        by_path = {path: counts[name] for path, counts in dense.launches.items()}
+        err = max(r[f"{k}_max_abs_err"] for r in rows)
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "conan_tpu/ops/conv.py:68",
+            "replaces_note": "no TPU kernel: the JAX package's dense conv and its VJP are "
+                             "XLA's lax.conv_general_dilated",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err, "max_abs_diff": err,
+            "rel_l2": max(r[f"{k}_rel_l2"] for r in rows),
+            "parent_rel_l2": [min(r[f"{k}_parent_rel_l2"] for r in rows),
+                              max(r[f"{k}_parent_rel_l2"] for r in rows)],
+            "ms": sum(r[f"{k}_ms"] for r in rows),
+            "kernel_device_ms": total(r[f"{k}_kernel_device_ms"] for r in rows),
+            "launch_ms": sum(r[f"{k}_launch_ms"] for r in rows),
+            "plain_ms": sum(r[f"{k}_plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": max(by, key=by.get),
+            "library_ms": sum(r[f"{k}_library_ms"] for r in rows),
+            "library_fp32_ms": sum(r[f"{k}_library_fp32_ms"] for r in rows),
+            "geometries": len(rows),
+            "k31_layer": {key: k31[f"{k}_{key}"] for key in
+                          ("ms", "kernel_device_ms", "launch_ms", "plain_ms", "library_ms",
+                           "library_fp32_ms", "rel_l2", "parent_rel_l2")}
+            | {"bound_ms": k31["bound_ms"], "geometry": k31["geometry"]}})
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3770,16 +4194,20 @@ def main() -> None:
         by_path.update(flow=flow_phase(args.seed, src, ref), run_vc=run_vc_phase(eng, dirs, rng),
                        torch_import=torch_import_phase(eng, dirs, src, ref, dev))
         # 5. train, 6. conan_train, 7. emformer_train, 8. postnet_train
-        train_kernels = train_phase(args.seed, dev, rng)
-        opt = vocoder_options_phase(args.seed, dev, rng)
+        dense = DenseRecord()
+        train_kernels = train_phase(args.seed, dev, rng, dense)
+        opt = vocoder_options_phase(args.seed, dev, rng, dense)
         for entry in train_kernels:
             entry["launches_by_path"] = {"train": entry["launches"],
                                          "vocoder_options": opt["launches"][entry["name"]]}
         train_kernels[0]["max_abs_err"] = train_kernels[0]["max_abs_diff"] = max(
             train_kernels[0]["max_abs_err"], opt["logmel_gan_err"])
-        by_path["conan_train"] = conan_train_phase(args.seed, dev)
+        by_path["conan_train"] = conan_train_phase(args.seed, dev, dense)
         by_path["emformer_train"] = emformer_train_phase(args.seed, dev, smi, dirs, src, ref)
-        postnet_train_phase(args.seed, dev, smi)
+        postnet_train_phase(args.seed, dev, smi, dense)
+        # 8b. denseconv
+        dense_rows, dense_geoms = denseconv_phase(args.seed, dev, dense)
+        train_kernels += denseconv_entries(dense_rows, dense_geoms, dense)
         # 9. infer
         by_path["infer"] = infer_phase(args.seed, dev, dirs,
                                        os.path.join(ROOT, "build", "chip_smoke_train"))
@@ -3794,6 +4222,8 @@ def main() -> None:
         for entry in train_kernels:
             entry["launches_by_path"].update(
                 dist_train=dist_launches[entry["name"]], nccl1=nccl_launches[entry["name"]])
+            if entry["name"] in K3_NAMES:     # K3's paths are all training runs
+                entry["launches"] = sum(entry["launches_by_path"].values())
 
     kernel = {"name": "logmel", "route": "cuda", "source": "conan_tpu_torch/csrc/logmel.cu",
               "replaces": "conan_tpu/ops/pallas_stft.py:52", "launches": launches,

@@ -6,7 +6,12 @@ layout, so checkpoints map one to one. Dense convs are plain ``F.conv1d``
 calls on a transposed view, as the JAX package leaves them to XLA; grouped
 convs (the MSD's) go through kernel K2 (``ops/groupconv.py``) on the card.
 Every conv reads the training rung at call time (``ops/precision.py``): under
-"default" it takes bf16-rounded operands and adds its bias in fp32.
+"default" it takes bf16-rounded operands and adds its bias in fp32. There a
+dense stride-1 ``conv1d`` whose shape ``dense_kernel_takes`` runs K3
+(``ops/denseconv.py``), and any other dense ``conv1d`` the fp32 conv of the
+rounded operands (``rounded_dot``): both return fp32, as JAX's DEFAULT does.
+``conv2d`` and ``conv_transpose1d`` still take ``bf16_dot``'s route, whose
+result cuDNN rounds to bf16 on the card.
 """
 
 from __future__ import annotations
@@ -16,17 +21,19 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from conan_tpu_torch.ops.denseconv import dense_kernel_takes, denseconv
 from conan_tpu_torch.ops.groupconv import groupconv
-from conan_tpu_torch.ops.precision import bf16_dot, bf16_dots
+from conan_tpu_torch.ops.precision import bf16_dot, bf16_dots, rounded_dot
 
 
 def _conv_at_rung(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
-                  bias_shape: tuple) -> torch.Tensor:
-    """``conv(x, w, b)`` (channels-first), or under the "default" rung the
-    conv of bf16-rounded operands with the bias added in fp32."""
+                  bias_shape: tuple, dot=bf16_dot) -> torch.Tensor:
+    """``conv(x, w, b)`` (channels-first), or under the "default" rung
+    ``dot(conv, x, w)`` (the conv of bf16-rounded operands) with the bias
+    added in fp32."""
     if not bf16_dots():
         return conv(x, w, b)
-    y = bf16_dot(conv, x, w)
+    y = dot(conv, x, w)
     return y if b is None else y + b.reshape(bias_shape)
 
 
@@ -47,11 +54,14 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
                                       "caller, dilates nothing")
         y = groupconv(x.contiguous(), w, stride=stride, padding=tuple(padding), groups=groups)
         return y if b is None else y + b
+    if bf16_dots() and stride == 1 and dense_kernel_takes(x.shape[-1], w.shape[0], w.shape[-1],
+                                                          dilation):
+        return denseconv(x, w, b, dilation=dilation, padding=tuple(padding))
     y = x.transpose(1, 2)
     if padding[0] or padding[1]:
         y = F.pad(y, tuple(padding))
     y = _conv_at_rung(functools.partial(F.conv1d, stride=stride, dilation=dilation), y, w, b,
-                      (-1, 1))
+                      (-1, 1), dot=rounded_dot)
     return y.transpose(1, 2)
 
 

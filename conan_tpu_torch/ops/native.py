@@ -1,8 +1,10 @@
 """Build and load the port's hand-written CUDA kernel library.
 
 The sources in ``csrc/`` (``logmel.cu``: K1, ``groupconv.cu``: K2, K2-bf16
-and its input gradient, ``groupconv_bwd.cu``: K2-bf16's weight gradient, and
-the headers ``common.cuh`` and ``k2bf16.cuh`` they share) are compiled for
+and its input gradient, ``groupconv_bwd.cu``: K2-bf16's weight gradient,
+``denseconv.cu``: K3 and its input gradient, ``denseconv_bwd.cu``: K3's
+weight gradient, and the headers ``common.cuh`` and ``k2bf16.cuh`` they
+share) are compiled for
 ``sm_90a``, one ``nvcc`` a source, all started together, then linked into a
 shared library with a plain C interface,
 ``build/conan_tpu_torch/libconan_kernels.so`` under the checkout root, which
@@ -29,7 +31,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = tuple(CSRC / name for name in ("logmel.cu", "groupconv.cu", "groupconv_bwd.cu"))
+SOURCES = tuple(CSRC / name for name in ("logmel.cu", "groupconv.cu", "groupconv_bwd.cu",
+                                         "denseconv.cu", "denseconv_bwd.cu"))
 HEADERS = (CSRC / "common.cuh", CSRC / "k2bf16.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "conan_tpu_torch"
 LIB_PATH = BUILD_DIR / "libconan_kernels.so"
@@ -134,9 +137,25 @@ def load() -> ctypes.CDLL:
     # K2-bf16 dw: x, gy, part, dw, geometry B, T, Ci, T_out, Co, groups, K,
     # stride, pad_l and the plan's (nwg, splits, stg_rows, tpw, nbt, n_tb), stream
     lib.groupconv_weight_grad_bf16.argtypes = [P, P, P, P, *[I] * 15, P]
+    # K3: x, w, wq (the weights' layout, written), bias or None, y, B, T, C,
+    # T_out, N, K, dilation, pad_l, flip, and the plan's (bn, nwg, stages),
+    # stream
+    lib.denseconv_forward.argtypes = [P, P, P, P, P, *[I] * 12, P]
+    # w, wq, N, C, K, flip, stream
+    lib.denseconv_weights.argtypes = [P, P, I, I, I, I, P]
+    # x, wq, B, T, C, N, K, bn, maps (256 bytes, written)
+    lib.denseconv_describe.argtypes = [P, P, I, I, I, I, I, I, P]
+    # maps, bias or None, y, B, T_out, C, N, K, dilation, pad_l, bn, nwg,
+    # stages, stream
+    lib.denseconv_run.argtypes = [P, P, P, *[I] * 10, P]
+    # K3 dw: x, gy, part, dw, B, T, C, T_out, N, K, dilation, pad_l and the
+    # plan's (tpw, nwg, stages, win_rows, splits), stream
+    lib.denseconv_weight_grad.argtypes = [P, P, P, P, *[I] * 13, P]
     for fn in (lib.groupconv_forward_bf16, lib.groupconv_bf16_weights,
                lib.groupconv_bf16_describe, lib.groupconv_bf16_conv,
                lib.groupconv_input_grad_bf16, lib.groupconv_bf16_dx_weights,
-               lib.groupconv_bf16_dx_conv, lib.groupconv_weight_grad_bf16):
+               lib.groupconv_bf16_dx_conv, lib.groupconv_weight_grad_bf16,
+               lib.denseconv_forward, lib.denseconv_weights, lib.denseconv_describe,
+               lib.denseconv_run, lib.denseconv_weight_grad):
         fn.restype = ctypes.c_int
     return lib

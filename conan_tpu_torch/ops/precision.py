@@ -21,7 +21,9 @@ scope around the whole run in the JAX package) through ``training_scope``:
            norms, softmax, losses, the VQ EMA, the master weights and AdamW
            state, the NaN guard) stays fp32 with TF32 off. The dot and conv
            call sites ask ``bf16_dots()`` at call time, as JAX's ops read
-           ``get_precision()``, and run through ``bf16_dot``. No autocast: it
+           ``get_precision()``: the dense and grouped conv1d run their own
+           kernels (``ops/denseconv.py``, ``ops/groupconv.py``) or
+           ``rounded_dot``, the others ``bf16_dot``. No autocast: it
            would hand bf16 activations on to the leaky ReLUs, residual adds
            and L1 losses, which JAX's DEFAULT keeps in fp32.
 """

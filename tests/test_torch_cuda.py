@@ -1142,3 +1142,137 @@ def test_bench_vocoder_on_card(tmp_path, capsys):
     assert lines[0].startswith("vocoder single-chunk (4 frames = 80 ms audio): p50 ")
     assert lines[1].startswith("incremental-consistency (4 vs 8 frame chunks)")
     assert lines[1].endswith("(OK)")
+
+
+# K3, the "default" rung's dense conv1d (ops/denseconv.py), with its dx and
+# dw: ops.conv.conv1d under training_scope("default") on the card against
+# the float64 conv of the bf16-rounded operands (the plain versions, the
+# values precision.rounded_dot gives), relative L2 per tensor within 1e-4
+# (chip_smoke.py's DENSE_REL: the same exact products summed in fp32 in
+# another order). The route before K3 (cuDNN's conv on bf16 tensors, its bf16
+# result cast to fp32) lands at 1.6e-3 to 6.6e-3 here: one bf16 rounding of
+# each result. (B, T, Ci, Co, K, dilation, pad_l, pad_r): Conan's k=31, a
+# ragged causal dilated one, an 80-channel input, T under one 64-row slot
+# with a dilation past T, a k=1 conv, the vocoder's 512 -> 2048 upsampler
+DENSE_CASES = [(2, 160, 256, 512, 31, 1, 15, 15), (3, 77, 24, 40, 3, 2, 4, 0),
+               (2, 300, 80, 160, 5, 1, 2, 2), (1, 13, 64, 64, 11, 5, 50, 0),
+               (5, 50, 512, 256, 1, 1, 0, 0), (2, 25, 512, 2048, 16, 1, 15, 0)]
+
+
+def _dense_operands(case, dev):
+    B, T, Ci, Co, K, d, pl, pr = case
+    rng = np.random.default_rng(sum(case))
+    x = rng.standard_normal((B, T, Ci))
+    w = (rng.random((Co, Ci, K)) * 2 - 1) * np.sqrt(3 / (Ci * K))
+    b = 0.1 * rng.standard_normal(Co)
+    gy = rng.standard_normal((B, T + pl + pr - d * (K - 1), Co))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (x, w, b, gy)]
+
+
+def _dense_want(x, w, b, gy, case):
+    """The plain versions in float64: value, dx, dw, db."""
+    from conan_tpu_torch.ops import denseconv as dc
+
+    _B, _T, _Ci, _Co, _K, d, pl, pr = case
+    conv = dict(dilation=d, padding=(pl, pr))
+    x, w, b, gy = (t.double() for t in (x, w, b, gy))
+    return (dc.dense_conv1d_bf16_reference(x, w, b, **conv),
+            dc.dense_conv1d_bf16_input_grad_reference(gy, w, x.shape, **conv),
+            dc.dense_conv1d_bf16_weight_grad_reference(x, gy, w.shape, **conv), gy.sum((0, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_dense_conv1d_at_default_returns_fp32_results(case):
+    """The repair K3 makes: under "default" the dense conv1d and its two
+    gradients are JAX's DEFAULT (fp32 results of bf16-rounded operands),
+    each launching K3 once."""
+    from chip_smoke import DENSE_REL, rel_l2
+    from conan_tpu_torch.ops import conv as conv_ops
+    from conan_tpu_torch.ops.denseconv import denseconv
+    from conan_tpu_torch.ops.precision import training_scope
+
+    dev = _card()
+    _B, _T, _Ci, _Co, _K, d, pl, pr = case
+    x, w, b, gy = _dense_operands(case, dev)
+    before = (denseconv.launches, denseconv.launches_dx, denseconv.launches_dw)
+    xx, ww, bb = (t.clone().requires_grad_(True) for t in (x, w, b))
+    with training_scope("default", dev):
+        y = conv_ops.conv1d(xx, ww, bb, dilation=d, padding=(pl, pr))
+        got = (y,) + torch.autograd.grad(y, (xx, ww, bb), gy)
+    torch.cuda.synchronize()
+    after = (denseconv.launches, denseconv.launches_dx, denseconv.launches_dw)
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1]
+    assert all(t.dtype == torch.float32 for t in got)
+    for name, a, want in zip(("y", "dx", "dw", "db"), got, _dense_want(x, w, b, gy, case)):
+        assert rel_l2(a.double(), want) <= DENSE_REL, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 400, 1, 128, 15, 1, 7, 7), (2, 60, 1024, 1, 3, 1, 1, 1),
+                                  (2, 300, 32, 1, 7, 1, 6, 0)])
+def test_dense_conv1d_at_default_without_k3_is_rounded_dot(case):
+    """A geometry K3 does not take (one channel in or out: the MSD's first
+    and last layers, the generator's conv_post) runs rounded_dot on the
+    card: fp32 cuDNN with TF32 off on the rounded operands, its result and
+    gradients within 1e-5 of float64 (cuDNN's bf16 conv, cast to fp32, sat
+    at ~1e-3), and launches no K3 kernel."""
+    from chip_smoke import rel_l2
+    from conan_tpu_torch.ops import conv as conv_ops
+    from conan_tpu_torch.ops.denseconv import denseconv, dense_kernel_takes
+    from conan_tpu_torch.ops.precision import training_scope
+
+    dev = _card()
+    _B, _T, Ci, Co, K, d, pl, pr = case
+    assert not dense_kernel_takes(Ci, Co, K, d)
+    x, w, b, gy = _dense_operands(case, dev)
+    before = (denseconv.launches, denseconv.launches_dx, denseconv.launches_dw)
+    xx, ww, bb = (t.clone().requires_grad_(True) for t in (x, w, b))
+    with training_scope("default", dev):
+        y = conv_ops.conv1d(xx, ww, bb, dilation=d, padding=(pl, pr))
+        got = (y,) + torch.autograd.grad(y, (xx, ww, bb), gy)
+    torch.cuda.synchronize()
+    assert (denseconv.launches, denseconv.launches_dx, denseconv.launches_dw) == before
+    for name, a, want in zip(("y", "dx", "dw", "db"), got, _dense_want(x, w, b, gy, case)):
+        assert rel_l2(a.double(), want) <= 1e-5, name
+
+
+@pytest.mark.cuda
+def test_denseconv_gradients_only_as_asked_and_dw_twice_the_same_bits():
+    """x's gradient alone launches K3 dx and no dw, w's alone dw and no dx;
+    K3 dw on the same inputs gives the same bits (its splits are added in a
+    fixed order, no atomics)."""
+    from conan_tpu_torch.ops.denseconv import DenseConvKernel, _bf16_operand
+    from conan_tpu_torch.ops.precision import training_scope
+
+    dev = _card()
+    case = (4, 700, 128, 256, 7, 3, 18, 0)
+    x, w, b, gy = _dense_operands(case, dev)
+    kernel = DenseConvKernel()
+    conv = dict(dilation=3, padding=(18, 0))
+    with training_scope("default", dev):
+        xx = x.clone().requires_grad_(True)
+        torch.autograd.grad(kernel(xx, w, b, **conv), xx, gy)
+        assert (kernel.launches, kernel.launches_dx, kernel.launches_dw) == (1, 1, 0)
+        ww = w.clone().requires_grad_(True)
+        torch.autograd.grad(kernel(x, ww, None, **conv), ww, gy)
+        assert (kernel.launches, kernel.launches_dx, kernel.launches_dw) == (2, 1, 1)
+    xb, gyb = _bf16_operand(x, "x"), _bf16_operand(gy, "gy")
+    first = kernel.weight_grad(xb, gyb, w.shape, **conv)
+    assert torch.equal(first, kernel.weight_grad(xb, gyb, w.shape, **conv))
+
+
+@pytest.mark.cuda
+def test_denseconv_launch_failure_raises(monkeypatch):
+    """No silent route: a plan the library was not built for makes the C
+    entry refuse the launch, and the wrapper raises (no cuDNN fallback)."""
+    from conan_tpu_torch.ops import denseconv as dc
+    from conan_tpu_torch.ops.precision import training_scope
+
+    dev = _card()
+    x, w, b, _gy = _dense_operands((2, 100, 64, 64, 3, 1, 1, 1), dev)
+    kernel = dc.DenseConvKernel()
+    monkeypatch.setattr(dc, "dense_plan", lambda C, N, K: dc.DensePlan(32, 2, 4, 0))
+    with training_scope("default", dev), pytest.raises(RuntimeError, match="launch failed"):
+        kernel(x, w, b, padding=(1, 1))
+    assert kernel.launches == 0

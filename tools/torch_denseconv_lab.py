@@ -1,0 +1,350 @@
+#!/usr/bin/env python3
+"""Measurements of the dense 1-D convolutions of the PyTorch port's training
+steps on one card, beside chip_smoke.py, which checks and times them as they
+ship.
+
+    python3 tools/torch_denseconv_lab.py step0 [--tasks conan,vocoder,postnet]
+    python3 tools/torch_denseconv_lab.py leaf [SEED]
+    python3 tools/torch_denseconv_lab.py k3 [--watchdog]
+    python3 tools/torch_denseconv_lab.py route PARENT_DIR
+
+step0  each training task's step at its chip_smoke.py shape (Conan and the
+       postnet B=24 x 1496 frames of synthesized features, the vocoder
+       B=18 x 8000 samples of synthesized wavs), random weights, at the
+       "default" and the "highest" rung: every dense conv1d call of the step
+       (groups 1), its geometry (B, T, Ci, Co, K, dilation, padding) and how
+       often the step makes it, recorded through the port's ops.conv.conv1d;
+       then one step under torch.profiler with shapes recorded, and for each
+       geometry the CUDA kernels launched under its aten::convolution
+       (forward) and aten::convolution_backward (dx and dw), with their
+       counts and device ms. One JSON line a task and rung, also written to
+       build/denseconv_lab/denseconv_step0.json.
+leaf   chip_smoke.py's vocoder_options check step (egs/hifigan_shuffle.yaml
+       with the conditional MPD and MSD, the spectrogram discriminator and
+       feature matching, "highest", B=2), on the batch the phase draws after
+       the train phase's (seed SEED, default 0): each gradient leaf of the
+       card's step against the CPU's float64 step, with cuDNN as shipped,
+       with cuDNN's deterministic algorithms, and with cuDNN off for conv2d
+       alone; then one card step under torch.profiler with shapes recorded:
+       the kernels under the ops that touch opt_d leaves 1 and 4 (the mel
+       upsampler's [80, 1, 640] weight, a matmul, and the first conditional
+       MPD layer's [32, 2, 5, 1] conv2d).
+k3     chip_smoke.py's denseconv_row on K3_GEOMETRIES: K3, its dx and its
+       dw against their plain versions in float64 beside the parent's
+       route (cuDNN's bf16 conv cast to fp32), their times beside cuDNN's
+       bf16 and fp32 convs; the library built as native.build does, the
+       ptxas report of csrc/denseconv*.cu printed (with --watchdog,
+       -DK2BF16_WATCHDOG: a pipeline that deadlocks traps instead of
+       hanging).
+route  the card tests' dense conv1d cases (tests/test_torch_cuda.py:
+       DENSE_CASES and the three rounded_dot ones) through ops.conv.conv1d
+       under training_scope("default"), once with the package of
+       PARENT_DIR (a `git archive` of an earlier commit) and once with
+       this tree's, each in its own process: the value and the dx, dw and
+       bias gradients against the float64 conv of the rounded operands
+       (relative L2), as the card tests hold them.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+from conan_tpu_torch.checkpoint import tree_leaves, tree_map  # noqa: E402
+from conan_tpu_torch.config import load_config  # noqa: E402
+from conan_tpu_torch.ops import native  # noqa: E402
+from conan_tpu_torch.train.tasks import ConanTask, VocoderTask  # noqa: E402
+
+OUT = os.path.join(cs.ROOT, "build", "denseconv_lab")
+
+
+def conan_batch(B: int, T: int, seed: int) -> dict:
+    """B synthesized rows of T frames at the r5 width (80 bins), the last
+    rows shorter, as chip_smoke.dist_conan_batch makes them."""
+    saved = cs.DIST_CONAN_B, cs.DIST_CONAN_T
+    cs.DIST_CONAN_B, cs.DIST_CONAN_T = B, T
+    try:
+        return cs.dist_conan_batch(seed)
+    finally:
+        cs.DIST_CONAN_B, cs.DIST_CONAN_T = saved
+
+
+def task_cases(dev: torch.device, tasks: list[str], seed: int):
+    """(name, make(rung) → task, state, batch, step kwargs) for each task."""
+    from conan_tpu_torch.models.conan.model import Conan, ConanConfig
+    from conan_tpu_torch.train.tasks import PostnetTask
+
+    if "conan" in tasks:
+        hp = cs.dist_conan_hp(seed)
+        task = ConanTask(dict(hp, train_precision="highest"))
+        state = task.init_state(torch.Generator().manual_seed(seed + 1))
+        batch = conan_batch(cs.CONAN_SPEAKERS * cs.CONAN_UTTS, cs.CONAN_FRAMES[1], seed)
+        new, _ = task.host_hook(state, 4, batch)     # the k-means bootstrap of the codebook
+        state = new if new is not None else state
+        state["step"] = torch.tensor(cs.CONAN_STEPS, dtype=torch.int32, device=dev)
+        yield ("conan", lambda rung: ConanTask(dict(hp, train_precision=rung)), state, batch,
+               {"use_random_ref": True})
+    if "vocoder" in tasks:
+        hp = load_config(os.path.join(cs.ROOT, "egs", "soak_r5", "vocoder.yaml"))
+        batch = cs.train_batch(hp, np.random.default_rng(seed), dev)
+        task = VocoderTask(dict(hp, train_precision="highest"))
+        yield ("vocoder", lambda rung: VocoderTask(dict(hp, train_precision=rung)),
+               task.init_state(torch.Generator().manual_seed(seed + 1)), batch, {})
+    if "postnet" in tasks:
+        hp = dict(load_config(os.path.join(cs.ROOT, "egs", "soak_r5", "postnet.yaml")),
+                  spec_min=[-8.0] * 80, spec_max=[1.0] * 80)
+        gen = torch.Generator().manual_seed(seed + 3)
+        conan = Conan(ConanConfig.from_hparams(hp))
+        frozen = tree_map(lambda t: t.numpy(), conan.init(gen))
+        vq = tree_map(lambda t: t.numpy(), conan.init_vq_state(gen))
+        vq["initialized"] = np.ones((), np.float32)
+        batch = conan_batch(cs.CONAN_SPEAKERS * cs.CONAN_UTTS, cs.CONAN_FRAMES[1], seed)
+        task = PostnetTask(dict(hp, train_precision="highest"), frozen, vq)
+        yield ("postnet", lambda rung: PostnetTask(dict(hp, train_precision=rung), frozen, vq),
+               task.init_state(torch.Generator().manual_seed(seed + 4)), batch, {})
+
+
+def step0(dev: torch.device, tasks: list[str], seed: int = 0) -> None:
+    rows = []
+    for name, make, state, batch, kw in task_cases(dev, tasks, seed):
+        for rung in ("default", "highest"):
+            task = make(rung)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            task.train_step(state, batch, gen, **kw)          # warm
+            torch.cuda.synchronize()
+            with cs.recording_convs() as seen:
+                task.train_step(state, batch, gen, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                task.train_step(state, batch, gen, **kw)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            kernels: dict = {}        # (op, x, w) → {kernel: [count, ms]}, any conf
+            for (op, x, w, _conf), ks in cs.conv_kernels(prof).items():
+                for name, (count, ms) in ks.items():
+                    row = kernels.setdefault((op, x, w), {}).setdefault(name[:140], [0, 0.0])
+                    row[0] += count
+                    row[1] += ms
+            geoms = []
+            total_ms = 0.0
+            for (B, T, Ci, Co, K, s, d, pl, pr), n in sorted(seen.items()):
+                x = (B, Ci, T + pl + pr)
+                w = (Co, Ci, K)
+                fwd = kernels.get(("aten::convolution", x, w), {})
+                bwd = kernels.get(("aten::convolution_backward", x, w), {})
+                ms = sum(v[1] for v in fwd.values()) + sum(v[1] for v in bwd.values())
+                total_ms += ms
+                geoms.append({"B": B, "T": T, "Ci": Ci, "Co": Co, "K": K, "stride": s,
+                              "dilation": d, "pad": [pl, pr], "calls": n,
+                              "fwd": fwd, "bwd": bwd, "device_ms": ms})
+            row = {"task": name, "rung": rung, "geometries": geoms,
+                   "dense_conv_device_ms": total_ms, "profiled_wall_s": wall}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            print(f"step0 {name} {rung}: {len(geoms)} dense conv1d geometries, "
+                  f"{sum(g['calls'] for g in geoms)} calls a step, their cuDNN kernels "
+                  f"{total_ms:.3f} device ms in the profiled step", flush=True)
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "denseconv_step0.json"), "w") as f:
+        json.dump(rows, f)
+
+
+def leaf(dev: torch.device, seed: int) -> None:
+    rng = np.random.default_rng(seed)
+    cs.train_batch(load_config(os.path.join(cs.ROOT, "egs", "soak_r5", "vocoder.yaml")), rng,
+                   dev)                       # the train phase's draw first
+    hp = load_config(os.path.join(cs.ROOT, "egs", "hifigan_shuffle.yaml"))
+    hp.update(use_cond_disc=True, use_spec_disc=True, use_fm_loss=True,
+              accumulate_grad_batches=1, train_precision="highest", seed=seed)
+    batch = cs.train_batch(hp, rng, dev)
+    small = {k: v[:cs.CHECK_B] for k, v in batch.items()}
+    task = VocoderTask(hp)
+    state0 = task.init_state(torch.Generator().manual_seed(seed + 2))
+    task_cpu = VocoderTask(hp, device="cpu")
+    with torch.backends.mkldnn.flags(enabled=False):
+        new_64, _ = task_cpu.train_step(
+            tree_map(lambda t: t.cpu().double() if t.is_floating_point() else t.cpu(), state0),
+            {k: v.cpu().double() for k, v in small.items()})
+        new_cpu, _ = task_cpu.train_step(tree_map(lambda t: t.cpu(), state0),
+                                         {k: v.cpu() for k, v in small.items()})
+    mu64 = tree_leaves(new_64["opt_d"]["mu"])
+
+    def errs(new):
+        return [cs.rel_l2(a.cpu(), b) for a, b in zip(tree_leaves(new["opt_d"]["mu"]), mu64)]
+
+    variants = {"cuDNN as shipped": contextlib.nullcontext,
+                "cuDNN deterministic": lambda: torch.backends.cudnn.flags(
+                    enabled=True, deterministic=True, benchmark=False, allow_tf32=False)}
+    out = {"cpu_fp32": errs(new_cpu)}
+    for label, ctx in variants.items():
+        with ctx():
+            new, _ = task.train_step(state0, small)
+        torch.cuda.synchronize()
+        out[label] = errs(new)
+    orig_conv2d = torch.nn.functional.conv2d
+
+    def conv2d_no_cudnn(*a, **k):
+        with torch.backends.cudnn.flags(enabled=False):
+            return orig_conv2d(*a, **k)
+
+    torch.nn.functional.conv2d = conv2d_no_cudnn
+    try:
+        new, _ = task.train_step(state0, small)
+        torch.cuda.synchronize()
+        out["conv2d without cuDNN"] = errs(new)
+    finally:
+        torch.nn.functional.conv2d = orig_conv2d
+    shapes = [tuple(t.shape) for t in mu64]
+    for label, e in out.items():
+        worst = sorted(range(len(e)), key=lambda i: -e[i])[:4]
+        print(f"leaf {label}: opt_d leaf 1 {shapes[1]} {e[1]:.3g}, leaf 4 {shapes[4]} "
+              f"{e[4]:.3g}; worst " + ", ".join(f"leaf {i} {shapes[i]} {e[i]:.3g}"
+                                                for i in worst), flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        task.train_step(state0, small)
+        torch.cuda.synchronize()
+    found = collections.defaultdict(collections.Counter)
+    for evt in prof.events():
+        for k in evt.kernels:
+            op = evt
+            while op is not None and not op.name.startswith(("aten::convolution", "aten::mm",
+                                                             "aten::matmul", "aten::bmm",
+                                                             "aten::addmm")):
+                op = op.cpu_parent
+            if op is None:
+                continue
+            shapes_op = [tuple(s) for s in op.input_shapes[:3]]
+            if any(640 in s or s == (32, 2, 5, 1) or (len(s) == 4 and s[1] == 2)
+                   or (len(s) == 3 and s[-1] == 80) for s in shapes_op):
+                found[f"{op.name} {shapes_op}"][k.name[:140]] += 1
+    for key, ks in found.items():
+        print(f"leaf trace: {key}: " + "; ".join(f"{n} x{c}" for n, c in ks.items()), flush=True)
+    os.makedirs(OUT, exist_ok=True)
+    with open(os.path.join(OUT, "denseconv_leaf.json"), "w") as f:
+        json.dump({"errs": out, "shapes": shapes,
+                   "trace": {k: dict(v) for k, v in found.items()}}, f)
+
+
+# (B, T, Ci, Co, K, stride, dilation, pad_l, pad_r): Conan's k=31 and k=5
+# convs, its 512 -> 256 k=1, an 80-channel input, the postnet's dilated k=2,
+# the vocoder's 32-channel resblock and its 512 -> 2048 upsampler, the MSD's
+# 1024 -> 1024, and a ragged small case
+K3_GEOMETRIES = [(24, 1496, 256, 512, 31, 1, 1, 15, 15), (24, 1496, 256, 512, 5, 1, 1, 4, 0),
+                 (24, 1496, 512, 256, 1, 1, 1, 0, 0), (24, 374, 80, 160, 5, 1, 1, 2, 2),
+                 (24, 1496, 256, 512, 2, 1, 8, 8, 0), (18, 8000, 32, 32, 11, 1, 5, 50, 0),
+                 (18, 25, 512, 2048, 16, 1, 1, 15, 0), (18, 125, 1024, 1024, 5, 1, 1, 2, 2),
+                 (3, 77, 24, 40, 3, 1, 2, 3, 1)]
+
+
+def k3(dev: torch.device, watchdog: bool) -> None:
+    if watchdog:
+        native.NVCC_FLAGS.append("-DK2BF16_WATCHDOG")
+        native.COMPILE_FLAGS.append("-DK2BF16_WATCHDOG")
+    log = native.build(force=True)
+    native.load()
+    for line in log.splitlines():
+        if "denseconv" in line or "spill" in line or "C75" in line:
+            print("ptxas:", line.strip()[:200], flush=True)
+    gen = torch.Generator().manual_seed(0)
+    for g in K3_GEOMETRIES:
+        cs.denseconv_row(g, {}, gen, dev)
+
+
+# run in a child process whose first sys.path entry is the tree to test
+ROUTE_CODE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import torch.nn.functional as F
+from conan_tpu_torch.ops import conv as conv_ops
+from conan_tpu_torch.ops.precision import training_scope
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+rnd = lambda t: t.to(torch.bfloat16).double()
+rel = lambda a, b: float((a.detach().double() - b).norm() / b.norm())
+out = []
+for case in json.loads(sys.argv[2]):
+    B, T, Ci, Co, K, d, pl, pr = case
+    rng = np.random.default_rng(sum(case))
+    x = rng.standard_normal((B, T, Ci))
+    w = (rng.random((Co, Ci, K)) * 2 - 1) * np.sqrt(3 / (Ci * K))
+    b = 0.1 * rng.standard_normal(Co)
+    gy = rng.standard_normal((B, T + pl + pr - d * (K - 1), Co))
+    x, w, b, gy = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (x, w, b, gy))
+    xx, ww, bb = (t.clone().requires_grad_(True) for t in (x, w, b))
+    with training_scope("default", dev):
+        y = conv_ops.conv1d(xx, ww, bb, dilation=d, padding=(pl, pr))
+        dx, dw, db = torch.autograd.grad(y, (xx, ww, bb), gy)
+    xp = F.pad(rnd(x).transpose(1, 2), (pl, pr))
+    g = rnd(gy).transpose(1, 2)
+    want = (F.conv1d(xp, rnd(w), dilation=d).transpose(1, 2) + b.double(),
+            torch.nn.grad.conv1d_input(xp.shape, rnd(w), g, dilation=d)[:, :, pl:pl + T]
+            .transpose(1, 2),
+            torch.nn.grad.conv1d_weight(xp, w.shape, g, dilation=d), gy.double().sum((0, 1)))
+    out.append([case, [rel(a, c) for a, c in zip((y, dx, dw, db), want)]])
+print(json.dumps(out))
+"""
+
+
+def route(parent: str) -> None:
+    import importlib.util
+    import subprocess
+
+    # by path: the card machine's site-packages may hold another `tests`
+    spec = importlib.util.spec_from_file_location(
+        "card_tests", os.path.join(cs.ROOT, "tests", "test_torch_cuda.py"))
+    card_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(card_tests)
+    cases = card_tests.DENSE_CASES + [(2, 400, 1, 128, 15, 1, 7, 7), (2, 60, 1024, 1, 3, 1, 1, 1),
+                           (2, 300, 32, 1, 7, 1, 6, 0)]
+    for label, root in (("parent", os.path.abspath(parent)), ("change", cs.ROOT)):
+        res = subprocess.run([sys.executable, "-c", ROUTE_CODE, root, json.dumps(cases)],
+                             capture_output=True, text=True, check=True)
+        for case, errs in json.loads(res.stdout.strip().splitlines()[-1]):
+            print(f"route {label} {case}: relative L2 from float64 y {errs[0]:.3g}, dx "
+                  f"{errs[1]:.3g}, dw {errs[2]:.3g}, db {errs[3]:.3g}", flush=True)
+
+
+def main() -> None:
+    if len(sys.argv) < 2 or sys.argv[1] not in ("step0", "leaf", "k3", "route"):
+        raise SystemExit(__doc__)
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_denseconv_lab: needs a CUDA card")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(cs.subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                             "--format=csv,noheader"], capture_output=True,
+                            text=True).stdout.strip(), flush=True)
+    if sys.argv[1] == "k3":
+        k3(dev, "--watchdog" in sys.argv)
+        return
+    if sys.argv[1] == "route":
+        route(sys.argv[2])
+        return
+    native.build()
+    if sys.argv[1] == "step0":
+        tasks = ["conan", "vocoder", "postnet"]
+        if "--tasks" in sys.argv:
+            tasks = sys.argv[sys.argv.index("--tasks") + 1].split(",")
+        step0(dev, tasks)
+    else:
+        leaf(dev, int(sys.argv[2]) if len(sys.argv) > 2 else 0)
+
+
+if __name__ == "__main__":
+    main()
