@@ -191,6 +191,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import functools
 import datetime
 import hashlib
 import json
@@ -209,6 +210,7 @@ import torch.distributed as tdist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, schedule
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from conan_tpu_torch.audio.mel import MelConfig
 from conan_tpu_torch.checkpoint import (load_ckpt_state, params_from_jax, save_checkpoint,
@@ -224,7 +226,7 @@ from conan_tpu_torch.models.vocoder.discriminators import DiscriminatorS
 from conan_tpu_torch.models.vocoder.hifigan import HifiGanConfig, HifiGanGenerator
 from conan_tpu_torch.nn.inits import fan_in_redraw
 from conan_tpu_torch.ops import conv as conv_ops
-from conan_tpu_torch.ops import native
+from conan_tpu_torch.ops import native, precision
 from conan_tpu_torch.ops.denseconv import (_bf16_operand, dense_conv1d_bf16_input_grad_reference,
                                            dense_conv1d_bf16_reference,
                                            dense_conv1d_bf16_weight_grad_reference,
@@ -358,6 +360,26 @@ BF16_KERNEL_GRAD_REL = 1e-4
 # DENSE_ITERS calls a timing (after one warm call) and a profiler window.
 DENSE_REL = 1e-4
 DENSE_ITERS = 5
+# The default_rung phase: the rest of the rung's routes (conv2d and
+# conv_transpose1d, K3 over their folds or rounded_dot; the dots' fp32-output
+# cuBLAS product) held to float64 on the rounded operands, relative L2 per
+# tensor: DENSE_REL where the fold runs K3; off K3 ``route_limit`` of the
+# sum's length n, ROUTE_REL or, where larger, ROUTE_SUM_HEADROOM times
+# sqrt(n)·2^-24, the size of an fp32 sum's rounding over n terms (cuBLAS's
+# weight gradient of Conan's FFN, 35,904 rows a sum, lands at 1.0e-5 of
+# float64: 0.89 sqrt(n)·2^-24). The parent's route, the op on bf16 tensors
+# cast to fp32, lands at 7e-4 to 2.4e-3. The MPD's periods; Conan's mel
+# discriminator batch.
+ROUTE_REL = 1e-5
+ROUTE_SUM_HEADROOM = 2.0
+MPD_PERIODS = (2, 3, 5, 7, 11)
+CONAN_WINDOW_B = 24
+
+
+def route_limit(terms: int) -> float:
+    """The relative L2 a route off K3 is held to for a sum of ``terms``
+    products (ROUTE_REL, ROUTE_SUM_HEADROOM)."""
+    return max(ROUTE_REL, ROUTE_SUM_HEADROOM * math.sqrt(terms) * 2.0 ** -24)
 # The shipped training rung ("default": bf16 operands) and TF32 ("high")
 # rows of each training phase: RUNG_STEPS steps on the phase's own batch
 # after one warm step. Each phase's small-width check also runs its step at
@@ -371,6 +393,9 @@ DENSE_ITERS = 5
 # exact DEFAULT arithmetic on the CPU (bf16-rounded operands, fp32 sums)
 # already moves its gradient tree by 0.34 where fp32 moves it by 2.3e-5.
 RUNG_STEPS = 3
+# step_rows' steps: one warm, RUNG_STEPS timed, one profiled, one under
+# bf16_output_ops
+STEP_ROWS_STEPS = RUNG_STEPS + 3
 RUNG_BOUND = {
     "vocoder": {"default": {"loss": 0.03, "tree": 0.7}, "high": {"loss": 1e-4, "tree": 0.05}},
     "conan": {"default": {"loss": 0.05, "tree": 0.06}, "high": {"loss": 6e-4, "tree": 0.01}},
@@ -459,42 +484,148 @@ K3_NAMES = ("denseconv", "denseconv_dx", "denseconv_dw")
 
 @dataclasses.dataclass
 class DenseRecord:
-    """What the "default" runs record for the denseconv phase and the
-    kernels line: ``geoms`` geometry (B, T, Ci, Co, K, stride, dilation,
-    pad_l, pad_r) → {task: dense conv1d calls a step}, ``launches`` path →
-    K3's launches there ({name: count})."""
+    """What the "default" runs record for the denseconv and default_rung
+    phases and the kernels line: ``geoms`` geometry (B, T, Ci, Co, K,
+    stride, dilation, pad_l, pad_r) → {task: dense conv1d calls a step},
+    ``launches`` path → K3's launches there ({name: count}) over
+    ``steps[path]`` steps, ``predicted[path]`` the forward launches its
+    recorded conv1d calls predict, ``dots`` (einsum spec or "matmul", a's
+    shape, b's shape) → {task: dot calls a step}."""
     geoms: dict = dataclasses.field(default_factory=dict)
     launches: dict = dataclasses.field(default_factory=dict)
+    dots: dict = dataclasses.field(default_factory=dict)
+    steps: dict = dataclasses.field(default_factory=dict)
+    predicted: dict = dataclasses.field(default_factory=dict)
 
     def add(self, task: str, seen, steps: int) -> None:
         """The calls ``recording_convs`` counted over ``steps`` steps."""
         for g, n in seen.items():
             self.geoms.setdefault(g, {})[task] = n // steps
 
+    def add_dots(self, task: str, seen, steps: int) -> None:
+        """The calls ``recording_dots`` counted over ``steps`` steps."""
+        for g, n in seen.items():
+            self.dots.setdefault(g, {})[task] = n // steps
+
 
 @contextlib.contextmanager
 def recording_convs():
-    """Counts every dense conv1d call through the port's ops.conv.conv1d
-    (the modules that imported it by name too) inside the block by geometry
-    (B, T, Ci, Co, K, stride, dilation, pad_l, pad_r), into the yielded
-    Counter; grouped calls are not counted."""
+    """Counts every dense conv1d call through the port's ops.conv.conv1d,
+    and under "default" the conv1d each ops.conv.conv2d and
+    conv_transpose1d call folds onto (Conv2dFold, ConvTranspose1dFold),
+    inside the block by geometry (B, T, Ci, Co, K, stride, dilation, pad_l,
+    pad_r), into the yielded Counter (the modules that imported them by
+    name too); grouped calls are not counted."""
     seen = collections.Counter()
-    orig = conv_ops.conv1d
+    orig = {"conv1d": conv_ops.conv1d, "conv2d": conv_ops.conv2d,
+            "conv_transpose1d": conv_ops.conv_transpose1d}
 
-    def rec(x, w, b=None, *, stride=1, dilation=1, padding=(0, 0), groups=1):
+    def rec1d(x, w, b=None, *, stride=1, dilation=1, padding=(0, 0), groups=1):
         if groups == 1:
             seen[(*x.shape, w.shape[0], w.shape[2], stride, dilation, *padding)] += 1
-        return orig(x, w, b, stride=stride, dilation=dilation, padding=padding, groups=groups)
+        return orig["conv1d"](x, w, b, stride=stride, dilation=dilation, padding=padding,
+                              groups=groups)
 
-    patched = [m for name, m in sys.modules.items()
-               if name.startswith("conan_tpu_torch") and getattr(m, "conv1d", None) is orig]
-    for m in patched:
-        m.conv1d = rec
+    def rec2d(x, w, b=None, *, stride=1, padding=0):
+        if precision.bf16_dots():
+            f = conv_ops.conv2d_fold(tuple(x.shape), tuple(w.shape), conv_ops._pair(stride),
+                                     conv_ops._pair(padding))
+            ci, co, k, d = f.geometry
+            seen[(f.B, f.U * f.Wo, ci, co, k, 1, d, 0, 0)] += 1
+        return orig["conv2d"](x, w, b, stride=stride, padding=padding)
+
+    def rec_t(x, w, b=None, *, stride, padding=0, output_padding=0):
+        if precision.bf16_dots():
+            f = conv_ops.conv_transpose1d_fold(tuple(x.shape), tuple(w.shape), stride, padding,
+                                               output_padding)
+            ci, co, k, d = f.geometry
+            seen[(f.B, f.T, ci, co, k, 1, d, *f.padding)] += 1
+        return orig["conv_transpose1d"](x, w, b, stride=stride, padding=padding,
+                                        output_padding=output_padding)
+
+    rec = {"conv1d": rec1d, "conv2d": rec2d, "conv_transpose1d": rec_t}
+    patched = [(m, name) for mod_name, m in sys.modules.items()
+               if mod_name.startswith("conan_tpu_torch") for name in orig
+               if getattr(m, name, None) is orig[name]]
+    for m, name in patched:
+        setattr(m, name, rec[name])
     try:
         yield seen
     finally:
-        for m in patched:
-            m.conv1d = orig
+        for m, name in patched:
+            setattr(m, name, orig[name])
+
+
+class _Bf16Outputs(TorchDispatchMode):
+    """Counts every product or conv aten op (``PRODUCT_OP``) whose output is
+    a bf16 tensor."""
+
+    def __init__(self, seen):
+        super().__init__()
+        self.seen = seen
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if PRODUCT_OP.search(func._schema.name.split("::")[-1]) and any(
+                isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
+                for t in (out if isinstance(out, (tuple, list)) else (out,))):
+            self.seen[str(func)] += 1
+        return out
+
+
+# the aten ops that multiply (mm, bmm, addmm, matmul, linear, einsum, dot,
+# mv, every convolution and its backward), by their base name
+PRODUCT_OP = re.compile(r"mm|mv|dot|conv|linear|einsum|matmul")
+# a cuBLAS / cuDNN kernel whose name shows bf16 operands and a bf16 output
+# (``..._bf16bf16_bf16f32_f32_...``: operands, output and compute types)
+BF16_OUTPUT_KERNEL = re.compile(r"bf16bf16_bf16")
+
+
+@contextlib.contextmanager
+def bf16_output_ops():
+    """Counts, into the yielded Counter, the product and conv aten ops run
+    inside the block (their backward too) that return a bf16 tensor: a dot
+    or conv whose result is rounded to bf16 shows here by name. The
+    "default" rung must leave it empty."""
+    seen = collections.Counter()
+    with _Bf16Outputs(seen):
+        yield seen
+
+
+def bf16_output_kernels(kernels) -> list[str]:
+    """The names among profiled CUDA kernels (key_averages entries) that show
+    a bf16 output (``BF16_OUTPUT_KERNEL``), with their counts."""
+    return [f"{e.key[:90]} x{e.count}" for e in kernels if BF16_OUTPUT_KERNEL.search(e.key)]
+
+
+@contextlib.contextmanager
+def recording_dots():
+    """Counts every ``dot_at_rung`` and ``einsum_at_rung`` call of the port's
+    modules (those that imported them by name; not the card route's own
+    inner calls) inside the block by (einsum spec or "matmul", a's shape,
+    b's shape), into the yielded Counter."""
+    seen = collections.Counter()
+    dot, einsum = precision.dot_at_rung, precision.einsum_at_rung
+
+    def rec_dot(a, b):
+        seen[("matmul", tuple(a.shape), tuple(b.shape))] += 1
+        return dot(a, b)
+
+    def rec_einsum(spec, a, b):
+        seen[(spec, tuple(a.shape), tuple(b.shape))] += 1
+        return einsum(spec, a, b)
+
+    patched = [(m, name, orig) for mod_name, m in sys.modules.items()
+               if mod_name.startswith("conan_tpu_torch") and m is not precision
+               for name, orig in (("dot_at_rung", dot), ("einsum_at_rung", einsum))
+               if getattr(m, name, None) is orig]
+    for m, name, _ in patched:
+        setattr(m, name, rec_dot if name == "dot_at_rung" else rec_einsum)
+    try:
+        yield seen
+    finally:
+        for m, name, orig in patched:
+            setattr(m, name, orig)
 
 
 def k3_takes(g: tuple) -> bool:
@@ -1052,8 +1183,10 @@ def cudnn_grouped_backward(prof) -> list[tuple]:
 def step_rows(task, state, batch, step_kw: dict, gen=None) -> dict:
     """RUNG_STEPS steps of ``task`` on ``batch`` from ``state`` after one
     warm step: ms per step by CUDA events and the peak memory; then one step
-    under torch.profiler: wall and device ms, kernels, the largest; the last
-    step's losses."""
+    under torch.profiler: wall and device ms, kernels, the largest, those
+    named with a bf16 output; one more under bf16_output_ops (a "default"
+    step fails on any product with a bf16 result); the last timed step's
+    losses."""
     state, _ = task.train_step(state, batch, gen, **step_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1074,7 +1207,14 @@ def step_rows(task, state, batch, step_kw: dict, gen=None) -> dict:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
     if float(metrics["skipped"]) or not all(np.isfinite(float(v)) for v in metrics.values()):
         fail(f"{task.precision} steps: skipped or non-finite metrics {metrics}")
+    with bf16_output_ops() as bf16_ops:
+        task.train_step(state, batch, gen, **step_kw)
+        torch.cuda.synchronize()
+    if task.precision == "default" and bf16_ops:
+        fail(f"default steps: products with a bf16 result: {dict(bf16_ops)}")
     return {"ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])], "peak_gb": peak_gb,
+            "bf16_out": f"{sum(bf16_ops.values())} aten products; kernels: "
+                        f"{'; '.join(bf16_output_kernels(kernels)) or 'none'}",
             "wall_ms": wall_ms, "device_ms": device_ms,
             "kernels": sum(e.count for e in kernels),
             "largest": "; ".join(f"{e.key[:50]} x{e.count} "
@@ -1090,7 +1230,8 @@ def step_rows_text(rung: str, r: dict, beside: float | None = None) -> str:
             + f"; peak memory {r['peak_gb']:.3f} GB; one profiled step: wall "
             f"{r['wall_ms']:.3f} ms, device kernels {r['device_ms']:.3f} ms (busy "
             f"{100 * r['device_ms'] / r['wall_ms']:.1f}%), {r['kernels']} kernels; largest: "
-            f"{r['largest']}; losses: {r['losses']}")
+            f"{r['largest']}; with a bf16 result (one more step, under bf16_output_ops; the "
+            f"profiled step's kernel names): {r['bf16_out']}; losses: {r['losses']}")
 
 
 def rung_check(kind: str, make_task, state0: dict, batch: dict, m_64: dict, leaves_64: list,
@@ -1470,12 +1611,14 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_train_launches()
-    with recording_convs() as seen:
+    with recording_convs() as seen, recording_dots() as dots:
         state_default = Trainer(task_default, hp_shipped, work_default).fit(default_batches())
     torch.cuda.synchronize()
     dense.add("vocoder", seen, n_default)
+    dense.add_dots("vocoder", dots, n_default)
+    dense.steps["train"] = n_default
     k3 = dense.launches["train"] = {k: train_launches()[k] for k in K3_NAMES}
-    k3_pred = k3_forward_pred(seen)
+    k3_pred = dense.predicted["train"] = k3_forward_pred(seen)
     if k3["denseconv"] != k3_pred or not k3["denseconv_dx"] or not k3["denseconv_dw"]:
         fail(f"train_precision {shipped}: K3 launches {k3} in {n_default} steps; predicted "
              f"{k3_pred} forward launches (one a dense conv1d call it takes), dx and dw some")
@@ -1524,6 +1667,12 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator,
     if dense_k3:
         fail(f"train_precision {shipped}: cuDNN served dense conv1d geometries K3 takes: "
              f"{dense_k3}")
+    with bf16_output_ops() as bf16_ops:
+        task_default.train_step(state_default, batch)
+        torch.cuda.synchronize()
+    bf16_kernels = bf16_output_kernels(kernels_d)
+    if bf16_ops:
+        fail(f"train_precision {shipped}: products with a bf16 result: {dict(bf16_ops)}")
     if sum(e.count for e in bf16_evs) != k2_pred + dx_pred \
             or any(groups != 1 for _name, groups, _shapes in cudnn_grouped):
         fail(f"train_precision {shipped}: the profiled step ran groupconv_bf16_kernel "
@@ -1537,8 +1686,9 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator,
         grouped_by[key] = grouped_by.get(key, 0) + 1
     top_d = sorted(kernels_d, key=lambda e: -e.self_device_time_total)[:6]
     print(f"train {shipped}: the same batch through Trainer.fit at the shipped "
-          f"train_precision {shipped!r} (bf16 operands for every dot and conv, K2-bf16 on the "
-          f"MSD), {n_default} steps: ms per step {[round(x, 3) for x in default_ms]}, median "
+          f"train_precision {shipped!r} (bf16 operands and fp32 results for every dot and "
+          f"conv, K2-bf16 on the MSD), {n_default} steps: ms per step "
+          f"{[round(x, 3) for x in default_ms]}, median "
           f"after 1 warmup step {np.median(default_ms[1:]):.3f} (highest's "
           f"{np.median(step_ms[1:]):.3f}); peak memory {default_peak_gb:.3f} GB; launches per "
           f"step groupconv_bf16 {k2_bf16_launches / n_default:g}, its dx "
@@ -1558,7 +1708,9 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator,
           f"per step {k3['denseconv'] / n_default:g} (predicted {k3_pred / n_default:g}), dx "
           f"{k3['denseconv_dx'] / n_default:g}, dw {k3['denseconv_dw'] / n_default:g}; cuDNN "
           f"kernels under a dense conv1d in the step recording shapes, none for a geometry K3 "
-          f"takes: {'; '.join(dense_rest) or 'none'}; largest: "
+          f"takes: {'; '.join(dense_rest) or 'none'}; products with a bf16 result in one more "
+          f"step (bf16_output_ops) {sum(bf16_ops.values())}, kernels named with a bf16 output in "
+          f"the profiled step: {'; '.join(bf16_kernels) or 'none'}; largest: "
           + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
                       for e in top_d)
           + "; step losses: " + ", ".join(f"{k} {v:.5g}" for k, v in records_d[-1].items()
@@ -1967,13 +2119,15 @@ def conan_train_phase(seed: int, dev: torch.device, dense: DenseRecord) -> int:
           + f"; step {CONAN_STEPS} losses: {losses}", flush=True)
     task_d = ConanTask(dict(hp, train_precision=shipped))
     zero_train_launches()
-    with recording_convs() as seen:
+    with recording_convs() as seen, recording_dots() as dots:
         rows = step_rows(task_d, state, batch, {"use_random_ref": True}, gen)
-    dense.add("conan", seen, RUNG_STEPS + 2)
+    dense.add("conan", seen, STEP_ROWS_STEPS)
+    dense.add_dots("conan", dots, STEP_ROWS_STEPS)
+    dense.steps["conan_train"] = STEP_ROWS_STEPS
     k3 = dense.launches["conan_train"] = {k: train_launches()[k] for k in K3_NAMES}
-    k3_pred = k3_forward_pred(seen)
+    k3_pred = dense.predicted["conan_train"] = k3_forward_pred(seen)
     if k3["denseconv"] != k3_pred or not k3["denseconv_dx"] or not k3["denseconv_dw"]:
-        fail(f"conan_train {shipped}: K3 launches {k3} in {RUNG_STEPS + 2} steps; predicted "
+        fail(f"conan_train {shipped}: K3 launches {k3} in {STEP_ROWS_STEPS} steps; predicted "
              f"{k3_pred} forward launches (one a dense conv1d call it takes), dx and dw some")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof_shapes:
@@ -1986,9 +2140,9 @@ def conan_train_phase(seed: int, dev: torch.device, dense: DenseRecord) -> int:
     print(f"conan_train {shipped}: the last batch at the shipped rung (bf16 operands for every "
           f"dot and conv; the dense conv1d through K3, fp32 out) from the trained state, "
           + step_rows_text(shipped, rows, float(np.median(last_phase)))
-          + f"; K3 launches a step {k3['denseconv'] / (RUNG_STEPS + 2):g} (predicted "
-          f"{k3_pred / (RUNG_STEPS + 2):g}), dx {k3['denseconv_dx'] / (RUNG_STEPS + 2):g}, dw "
-          f"{k3['denseconv_dw'] / (RUNG_STEPS + 2):g}; cuDNN kernels under a dense conv1d in a "
+          + f"; K3 launches a step {k3['denseconv'] / (STEP_ROWS_STEPS):g} (predicted "
+          f"{k3_pred / (STEP_ROWS_STEPS):g}), dx {k3['denseconv_dx'] / (STEP_ROWS_STEPS):g}, dw "
+          f"{k3['denseconv_dw'] / (STEP_ROWS_STEPS):g}; cuDNN kernels under a dense conv1d in a "
           f"step recording shapes, none for a geometry K3 takes: "
           f"{'; '.join(dense_rest) or 'none'}", flush=True)
     conan_step_check(hp, batch, dev, seed)
@@ -2090,7 +2244,7 @@ def emformer_step_times(task, state: dict, batch: dict, n_warm: int, n_timed: in
 
 
 def emformer_train_phase(seed: int, dev: torch.device, smi: str, dirs, src: np.ndarray,
-                         ref: np.ndarray) -> int:
+                         ref: np.ndarray, dense: DenseRecord) -> int:
     """Phase 7: the Emformer distillation through the port's CLIs at full
     width (egs/soak_r5/emformer.yaml, train_precision highest): the binarize
     CLI (K1 once an utterance), the training CLI with validation, periodic
@@ -2253,7 +2407,10 @@ def emformer_train_phase(seed: int, dev: torch.device, smi: str, dirs, src: np.n
           + f"; longest rung B x T {B} x {T} (n_q = n_k = {n_k}, mask {n_k * n_k * 4 / 1e6:.1f} "
           f"MB built in {mask_ms:.3f} ms): step ms {[round(x, 3) for x in long_ms]}, median "
           f"{np.median(long_ms):.3f}, peak memory {long_peak_gb:.3f} GB", flush=True)
-    rows = step_rows(build_task(dict(hp, train_precision=shipped))[0], state, packed[0], {}, gen)
+    with recording_dots() as dots:
+        rows = step_rows(build_task(dict(hp, train_precision=shipped))[0], state, packed[0], {},
+                         gen)
+    dense.add_dots("emformer", dots, STEP_ROWS_STEPS)
     print(f"emformer_train {shipped}: B x T_in {B_p} x {T_p} at the shipped rung from the "
           f"trained state, " + step_rows_text(shipped, rows, float(np.median(step_ms))),
           flush=True)
@@ -2377,14 +2534,16 @@ def postnet_train_phase(seed: int, dev: torch.device, smi: str, dense: DenseReco
     train_iter.close()
     ckpt, _ = get_last_checkpoint(exp)
     zero_train_launches()
-    with recording_convs() as seen:
+    with recording_convs() as seen, recording_dots() as dots:
         rows = step_rows(task, params_from_jax(ckpt["state"], dev), batch, {},
                          torch.Generator(device=dev).manual_seed(seed))
-    dense.add("postnet", seen, RUNG_STEPS + 2)
+    dense.add("postnet", seen, STEP_ROWS_STEPS)
+    dense.add_dots("postnet", dots, STEP_ROWS_STEPS)
+    dense.steps["postnet_train"] = STEP_ROWS_STEPS
     k3 = dense.launches["postnet_train"] = {k: train_launches()[k] for k in K3_NAMES}
-    k3_pred = k3_forward_pred(seen)
+    k3_pred = dense.predicted["postnet_train"] = k3_forward_pred(seen)
     if k3["denseconv"] != k3_pred or not k3["denseconv_dx"] or not k3["denseconv_dw"]:
-        fail(f"postnet_train: K3 launches {k3} in {RUNG_STEPS + 2} steps; predicted {k3_pred} "
+        fail(f"postnet_train: K3 launches {k3} in {STEP_ROWS_STEPS} steps; predicted {k3_pred} "
              f"forward launches (one a dense conv1d call it takes), dx and dw some")
     print(f"postnet_train: {smi}; egs/soak_r5/postnet.yaml as shipped (DiffNet "
           f"{hp['residual_layers']}x{hp['residual_channels']} over {hp['audio_num_mel_bins']} "
@@ -2397,9 +2556,9 @@ def postnet_train_phase(seed: int, dev: torch.device, smi: str, dense: DenseReco
           f"{ckpts}; flow loss step 1 {tr[0]['flow']:.5g}, step {POST_RESUMED} "
           f"{tr[-1]['flow']:.5g}; step at B x T {tuple(batch['mels'].shape[:2])}: "
           + step_rows_text(task.precision, rows)
-          + f"; K3 launches a step {k3['denseconv'] / (RUNG_STEPS + 2):g} (predicted "
-          f"{k3_pred / (RUNG_STEPS + 2):g}), dx {k3['denseconv_dx'] / (RUNG_STEPS + 2):g}, dw "
-          f"{k3['denseconv_dw'] / (RUNG_STEPS + 2):g}", flush=True)
+          + f"; K3 launches a step {k3['denseconv'] / (STEP_ROWS_STEPS):g} (predicted "
+          f"{k3_pred / (STEP_ROWS_STEPS):g}), dx {k3['denseconv_dx'] / (STEP_ROWS_STEPS):g}, dw "
+          f"{k3['denseconv_dw'] / (STEP_ROWS_STEPS):g}", flush=True)
     postnet_step_check(task.hp, batch, seed)
 
 
@@ -2569,6 +2728,289 @@ def denseconv_phase(seed: int, dev: torch.device,
           + "; ".join(f"B={g[0]} T={g[1]} {g[2]}->{g[3]} k={g[4]} ({dense.geoms[g]})"
                       for g in others), flush=True)
     return rows, geoms
+
+
+def product_operands(spec: str, a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """The operands of the one product the card's route multiplies for
+    ``spec`` (an einsum_at_rung spec, or "matmul" for dot_at_rung): the
+    einsum's permuted copies, a 3-D a against a 2-D b flattened."""
+    if spec != "matmul":
+        a, b, _ = precision._bmm_operands(spec, a, b)
+    return (a.reshape(-1, a.shape[-1]), b) if b.dim() == 2 and a.dim() != 2 else (a, b)
+
+
+def device_ms_of(fn, iters: int = DENSE_ITERS) -> tuple[float | None, float | None]:
+    """(device ms, kernels) a call of ``fn``: every kernel the call runs, by
+    torch.profiler over windows of ``iters`` calls after a warm one, from
+    the first two windows that record the same nonzero count of kernels
+    (their mean), at most KERNEL_DEVICE_WINDOWS windows: the profiler drops
+    launches now and then, whole windows too. (None, None) where no two
+    agree."""
+    fn()
+    torch.cuda.synchronize()
+    seen = {}
+    for _ in range(KERNEL_DEVICE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        n = sum(e.count for e in evs)
+        ms = sum(e.self_device_time_total for e in evs) / 1e3 / iters
+        if n and n in seen:
+            return (ms + seen[n]) / 2, n / iters
+        seen[n] = ms
+    return None, None
+
+
+def rung_row(family: str, name: str, route_fn, plain_fn, add_bias, ops: list, terms: dict,
+             bare, dev: torch.device) -> dict:
+    """One geometry of a family the "default" rung folds or multiplies:
+    ``route_fn(*ops)`` under the rung (the port's route) with its gradients
+    for a seeded incoming gradient, against the float64 ``plain_fn`` (the
+    library op, no bias) on the rounded operands (``add_bias`` adds the
+    third operand, the bias, whose gradient takes the unrounded incoming
+    one) and beside the parent's route, ``plain_fn`` on bf16 tensors cast to
+    fp32; relative L2 per tensor within DENSE_REL on K3, else within
+    ``route_limit`` of the length of its sums (``terms``: y, dx, dw, db →
+    products a sum). Times, forward and backward a call: the route (CUDA events),
+    its kernels by the profiler (device), ``bare`` (K3's or cuBLAS's calls
+    on operands already folded and rounded), ``plain_fn`` on bf16 tensors
+    and in fp32 (TF32 off)."""
+    gen = torch.Generator(device=dev).manual_seed(len(name) + sum(map(ord, name)))
+    leaves = [t.clone().requires_grad_(True) for t in ops]
+    before = denseconv.launches
+    with training_scope("default", dev):
+        y = route_fn(*leaves)
+    k3 = denseconv.launches > before
+    gy = torch.randn(y.shape, generator=gen, device=dev)
+    got = [y.detach(), *torch.autograd.grad(y, leaves, gy)]
+    r64 = [(t.to(torch.bfloat16) if i < 2 else t).double().requires_grad_(True)
+           for i, t in enumerate(ops)]
+    y64 = plain_fn(*r64[:2])
+    y64b = add_bias(y64, r64[2]) if len(ops) > 2 else y64
+    want = [y64b.detach(), *torch.autograd.grad(y64, r64[:2], gy.to(torch.bfloat16).double(),
+                                                retain_graph=len(ops) > 2)]
+    if len(ops) > 2:
+        want.append(torch.autograd.grad(y64b, r64[2], gy.double())[0])
+    pl = [t.clone().requires_grad_(True) for t in ops]
+    yp = plain_fn(*(t.to(torch.bfloat16) for t in pl[:2])).float()
+    yp = add_bias(yp, pl[2]) if len(ops) > 2 else yp
+    parent = [yp.detach(), *torch.autograd.grad(yp, pl, gy)]
+    row = {"family": family, "name": name, "route": "K3" if k3 else (
+        "rounded_dot" if family != "gemm" else "cuBLAS fp32 out")}
+    for key, a, w_, p_ in zip(("y", "dx", "dw", "db"), got, want, parent):
+        if a.dtype != torch.float32 or a.shape != w_.shape:
+            fail(f"default_rung {name} {key}: {a.dtype} {tuple(a.shape)} against "
+                 f"{tuple(w_.shape)}")
+        row[f"{key}_rel_l2"] = rel_l2(a.double(), w_)
+        row[f"{key}_parent_rel_l2"] = rel_l2(p_.double(), w_)
+        row[f"{key}_limit"] = DENSE_REL if k3 else route_limit(terms[key])
+        if not row[f"{key}_rel_l2"] <= row[f"{key}_limit"]:
+            fail(f"default_rung {name} {key}: relative L2 {row[f'{key}_rel_l2']:.3g} from "
+                 f"float64 (limit {row[f'{key}_limit']:.3g}, route {row['route']}, "
+                 f"{terms[key]} products a sum)")
+
+    def route_call():
+        with training_scope("default", dev):
+            out = route_fn(*leaves)
+        torch.autograd.grad(out, leaves, gy)
+
+    def library_call(dtype):
+        lib = [t.to(dtype).requires_grad_(True) for t in ops[:2]]
+        g = gy.to(dtype)
+        return lambda: torch.autograd.grad(plain_fn(*lib), lib, g)
+
+    row["ms"] = cuda_ms(route_call, iters=DENSE_ITERS, warmup=1)
+    row["device_ms"], row["kernels"] = device_ms_of(route_call)
+    row["bare_ms"] = cuda_ms(bare, iters=DENSE_ITERS, warmup=1) if k3 or family == "gemm" \
+        else None
+    row["library_ms"] = cuda_ms(library_call(torch.bfloat16), iters=DENSE_ITERS, warmup=1)
+    row["library_fp32_ms"] = cuda_ms(library_call(torch.float32), iters=DENSE_ITERS, warmup=1)
+    print(f"default_rung geometry: {family} {name}: route {row['route']}, relative L2 from "
+          f"float64 (limit; parent) "
+          + ", ".join(f"{k} {row[f'{k}_rel_l2']:.3g} ({row[f'{k}_limit']:.3g}; "
+                      f"{row[f'{k}_parent_rel_l2']:.3g})"
+                      for k in ("y", "dx", "dw", "db") if f"{k}_rel_l2" in row)
+          + f"; fwd+bwd ms: route {row['ms']:.4f} (device {ms_text(row['device_ms'])}, "
+          f"{row['kernels'] or '?'} kernels; bare {ms_text(row['bare_ms'])}), library bf16 "
+          f"{row['library_ms']:.4f}, fp32 {row['library_fp32_ms']:.4f}", flush=True)
+    return row
+
+
+def conv2d_row(family: str, shape: tuple, co: int, k: tuple, stride: tuple, pad: tuple,
+               gen: torch.Generator, dev: torch.device) -> dict:
+    """rung_row of ops.conv.conv2d on x of ``shape`` [B, C, H, W] (seeded),
+    fan-in uniform weights [co, C, *k] and a bias; bare: K3's three calls on
+    the fold's operands."""
+    B, C, H, W = shape
+    x = torch.randn(shape, generator=gen).to(dev)
+    w = ((torch.rand(co, C, *k, generator=gen) * 2 - 1) * (3 / (C * k[0] * k[1])) ** 0.5
+         ).to(dev)
+    b = (0.1 * torch.randn(co, generator=gen)).to(dev)
+    f = conv_ops.conv2d_fold(tuple(x.shape), tuple(w.shape), stride, pad)
+    x1, w1, conv, Ho, Wo = f.x(x), f.w(w), dict(dilation=f.Wo, padding=(0, 0)), f.Ho, f.Wo
+    xb = _bf16_operand(x1.contiguous(), "x")
+    gb = _bf16_operand(torch.randn(B, Ho * Wo, co, generator=gen).to(dev), "gy")
+
+    def bare():
+        denseconv.launch(xb, w1, b, **conv)
+        denseconv.input_grad(gb, w1, x1.shape, **conv)
+        denseconv.weight_grad(xb, gb, w1.shape, **conv)
+
+    name = (f"B={B} {C}->{co} {H}x{W} k={k} s={stride} pad={pad} (fold: {x1.shape[2]}->{co} "
+            f"T={x1.shape[1]} k={w1.shape[2]} d={conv['dilation']})")
+    rows = B * Ho * Wo
+    return rung_row(family, name,
+                    lambda xx, ww, bb: conv_ops.conv2d(xx, ww, bb, stride=stride, padding=pad),
+                    lambda xx, ww: F.conv2d(xx, ww, stride=stride, padding=pad),
+                    lambda y, bb: y + bb[:, None, None], [x, w, b],
+                    dict(y=w1.shape[1] * w1.shape[2], dx=co * w1.shape[2], dw=rows, db=rows),
+                    bare, dev)
+
+
+def transposed_row(B: int, T: int, ci: int, co: int, K: int, u: int, pad: int,
+                   gen: torch.Generator, dev: torch.device) -> dict:
+    """rung_row of ops.conv.conv_transpose1d (x [B, T, ci], w [ci, co, K])."""
+    x = torch.randn(B, T, ci, generator=gen).to(dev)
+    w = ((torch.rand(ci, co, K, generator=gen) * 2 - 1) * (3 / (ci * K)) ** 0.5).to(dev)
+    b = (0.1 * torch.randn(co, generator=gen)).to(dev)
+    f = conv_ops.conv_transpose1d_fold((B, T, ci), (ci, co, K), u, pad, 0)
+    w1, conv, L, rows = f.w(w), dict(padding=f.padding), f.L, f.rows
+    xb = _bf16_operand(x, "x")
+    gb = _bf16_operand(torch.randn(B, T + conv["padding"][1], co * u, generator=gen).to(dev),
+                       "gy")
+    b1 = b.repeat_interleave(u)
+
+    def bare():
+        denseconv.launch(xb, w1, b1, dilation=1, **conv)
+        denseconv.input_grad(gb, w1, x.shape, dilation=1, **conv)
+        denseconv.weight_grad(xb, gb, w1.shape, dilation=1, **conv)
+
+    def plain(xx, ww):
+        return F.conv_transpose1d(xx.transpose(1, 2), ww, stride=u, padding=pad).transpose(1, 2)
+
+    return rung_row("transposed", f"B={B} T={T} {ci}->{co} k={K} u={u} pad={pad} (fold: "
+                    f"{ci}->{co * u} k={w1.shape[2]})",
+                    lambda xx, ww, bb: conv_ops.conv_transpose1d(xx, ww, bb, stride=u,
+                                                                 padding=pad),
+                    plain, lambda y, bb: y + bb, [x, w, b],
+                    dict(y=ci * w1.shape[2], dx=co * u * w1.shape[2], dw=B * rows, db=B * L),
+                    bare, dev)
+
+
+def gemm_row(spec: str, a_shape: tuple, b_shape: tuple, calls: dict, gen: torch.Generator,
+             dev: torch.device) -> dict:
+    """rung_row of a dot the "default" steps recorded (recording_dots):
+    dot_at_rung or einsum_at_rung; bare: cuBLAS's three fp32-output
+    products on the product's rounded operands."""
+    a = torch.randn(a_shape, generator=gen).to(dev)
+    b = (torch.randn(b_shape, generator=gen) / a_shape[-1] ** 0.5
+         ).to(dev)
+    pa, pb = product_operands(spec, a, b)
+    ab, bb = pa.to(torch.bfloat16), pb.to(torch.bfloat16)
+    with torch.no_grad():
+        gb = precision._product(ab, bb).to(torch.bfloat16)
+
+    def bare():
+        precision._product(ab, bb)
+        precision._product(gb, bb.transpose(-1, -2))
+        precision._product(ab.transpose(-1, -2), gb)
+
+    if spec == "matmul":
+        route, plain = precision.dot_at_rung, torch.matmul
+    else:
+        route = functools.partial(precision.einsum_at_rung, spec)
+        plain = functools.partial(torch.einsum, spec)
+    return rung_row("gemm", f"{spec} {a_shape} x {b_shape} (product {tuple(pa.shape)} x "
+                    f"{tuple(pb.shape)}; calls a step {calls})", route, plain, None, [a, b],
+                    dict(y=pa.shape[-1], dx=pb.shape[-1], dw=pa.shape[-2]), bare, dev)
+
+
+def mpd_geometries(B: int, T: int, c0: int) -> list[tuple]:
+    """The period discriminators' conv2d calls on B wavs of T samples with c0
+    input channels: (period, layer, [B, C, H, p], Co, k, stride, pad)."""
+    out = []
+    for p in MPD_PERIODS:
+        H = -(-T // p)
+        for i, (ci, co, k, s, pad) in enumerate([(c0, 32, 5, 3, 2), (32, 128, 5, 3, 2),
+                                                  (128, 512, 5, 3, 2), (512, 1024, 5, 3, 2),
+                                                  (1024, 1024, 5, 1, 2), (1024, 1, 3, 1, 1)]):
+            out.append((p, i, (B, ci, H, p), co, (k, 1), (s, 1), (pad, 0)))
+            H = (H + 2 * pad - k) // s + 1
+    return out
+
+
+def window_geometries(B: int, windows: tuple, hidden: int = 128) -> list[tuple]:
+    """The window discriminators' three 3x3 stride-2 conv2d calls a window of
+    80 mel bins: ([B, C, H, W], Co)."""
+    out = []
+    for t in windows:
+        H, W, C = t, 80, 1
+        for _ in range(3):
+            out.append(((B, C, H, W), hidden))
+            H, W, C = (H + 1) // 2, (W + 1) // 2, hidden
+    return out
+
+
+def default_rung_phase(seed: int, dev: torch.device, dense: DenseRecord) -> list[dict]:
+    """Phase 8c: every family the "default" rung folds or multiplies, at the
+    production geometries (rung_row each): the MPD's 30 conv2d calls at B=18
+    x 8000 samples, the conditional MPD's first layer (two channels in), the
+    window discriminators at Conan's B=24 (32/64/128 frames) and the
+    vocoder's B=18 (8/16/32), the non-causal generator's four transposed
+    convs at B=18, and every distinct dot shape the four "default" steps
+    recorded (``dense.dots``); then K3's forward launches a step by path
+    beside the count the recorded conv1d calls predict. Returns the rows."""
+    gen = torch.Generator().manual_seed(seed + 19)
+    t0 = time.perf_counter()
+    rows = []
+    for p, i, shape, co, k, s, pad in mpd_geometries(TRAIN_B, 8000, 1):
+        rows.append(conv2d_row("mpd", shape, co, k, s, pad, gen, dev))
+    for p, i, shape, co, k, s, pad in mpd_geometries(TRAIN_B, 8000, 2):
+        if i == 0:
+            rows.append(conv2d_row("cond_mpd", shape, co, k, s, pad, gen, dev))
+    for family, B, windows in (("window_conan", CONAN_WINDOW_B, (32, 64, 128)),
+                               ("window_vocoder", TRAIN_B, (8, 16, 32))):
+        for shape, co in window_geometries(B, windows):
+            rows.append(conv2d_row(family, shape, co, (3, 3), (2, 2), (1, 1), gen, dev))
+    T, ci = 8000 // 320, 512
+    for u, K in zip((8, 5, 4, 2), NONCAUSAL_KERNELS):
+        rows.append(transposed_row(TRAIN_B, T, ci, ci // 2, K, u, (K - u) // 2, gen, dev))
+        T, ci = T * u, ci // 2
+    for (spec, a_shape, b_shape), calls in sorted(dense.dots.items(), key=str):
+        rows.append(gemm_row(spec, a_shape, b_shape, calls, gen, dev))
+    for family in dict.fromkeys(r["family"] for r in rows):
+        mine = [r for r in rows if r["family"] == family]
+        keys = [k for k in ("y", "dx", "dw", "db") if f"{k}_rel_l2" in mine[0]]
+        print(f"default_rung sums, {family}: {len(mine)} geometries (routes "
+              f"{dict(collections.Counter(r['route'] for r in mine))}), worst relative L2 from "
+              f"float64 " + ", ".join(f"{k} {max(r[f'{k}_rel_l2'] for r in mine):.3g}"
+                                      for k in keys)
+              + ", at most " + ", ".join(
+                  f"{k} {max(r[f'{k}_rel_l2'] / r[f'{k}_limit'] for r in mine):.3g}"
+                  for k in keys) + " of its limit"
+              + " (the parent's route " + ", ".join(
+                  f"{k} {min(r[f'{k}_parent_rel_l2'] for r in mine):.3g}-"
+                  f"{max(r[f'{k}_parent_rel_l2'] for r in mine):.3g}" for k in keys)
+              + f"); fwd+bwd ms, one call each: route {sum(r['ms'] for r in mine):.4f} (device "
+              f"{ms_text(total(r['device_ms'] for r in mine))}, bare "
+              f"{ms_text(total(r['bare_ms'] for r in mine if r['bare_ms'] is not None))}), "
+              f"library bf16 {sum(r['library_ms'] for r in mine):.4f}, fp32 "
+              f"{sum(r['library_fp32_ms'] for r in mine):.4f}", flush=True)
+    per_step = []
+    for path, counts in dense.launches.items():
+        n = dense.steps[path]
+        per_step.append(f"{path} {counts['denseconv'] / n:g} (predicted "
+                        f"{dense.predicted[path] / n:g}), dx {counts['denseconv_dx'] / n:g}, dw "
+                        f"{counts['denseconv_dw'] / n:g}")
+    print(f"default_rung: {len(rows)} geometries in {time.perf_counter() - t0:.1f} s, every "
+          f"value and gradient within its limit of float64 (K3 DENSE_REL {DENSE_REL}, else "
+          f"route_limit: ROUTE_REL {ROUTE_REL} or {ROUTE_SUM_HEADROOM:g} sqrt(n) 2^-24); K3 "
+          f"forward launches a "
+          f"step: {'; '.join(per_step)}",
+          flush=True)
+    return rows
 
 
 def scan_timings(eng, src: np.ndarray, ref: np.ndarray, bucket_lengths: bool) -> dict:
@@ -2901,6 +3343,8 @@ def vocoder_options_phase(seed: int, dev: torch.device, rng: np.random.Generator
     launches = train_launches()
     grad_launches = {k: launches.pop(k) for k in ("groupconv_bf16_dx", "groupconv_bf16_dw")}
     k3 = dense.launches["vocoder_options"] = {k: launches.pop(k) for k in K3_NAMES}
+    dense.steps["vocoder_options"] = OPT_MINI_STEPS
+    dense.predicted["vocoder_options"] = k3_forward_pred(seen)
     if k3["denseconv"] != k3_forward_pred(seen) or not k3["denseconv_dx"] \
             or not k3["denseconv_dw"]:
         fail(f"vocoder_options: K3 launches {k3} over {OPT_MINI_STEPS} mini-steps; predicted "
@@ -4010,6 +4454,50 @@ def denseconv_entries(rows: list[dict], geoms: list[tuple], dense: DenseRecord) 
     return out
 
 
+def kernel_ranking(train_kernels: list[dict], rows: list[dict], geoms: list[tuple],
+                   dense: DenseRecord) -> list[tuple]:
+    """Every hand-written kernel of the training steps ranked by its launches
+    in one "default" step of a task times its device ms above its bound a
+    launch: K1-GAN (vocoder), K2-bf16 and its dx and dw (vocoder; 15
+    geometries, the per-launch mean), K3 and its dx and dw by task (the mean
+    over that task's geometries weighted by their calls a step; the bare
+    launch where the profiler missed the kernel). K2 (3xTF32) and the
+    serving K1 launch nothing in a "default" step. Returns (ms a step,
+    kernel, task, launches a step, device ms, bound ms), largest first."""
+    out = []
+    by_name = {e["name"]: e for e in train_kernels}
+    n_voc = dense.steps["train"]
+    for name, per_step, n in (("logmel_gan", by_name["logmel_gan"]["launches"] / TRAIN_STEPS, 3),
+                              ("groupconv_bf16", by_name["groupconv_bf16"]["launches"] / n_voc,
+                               15),
+                              ("groupconv_bf16_dx",
+                               by_name["groupconv_bf16_dx"]["launches"] / n_voc, 15),
+                              ("groupconv_bf16_dw",
+                               by_name["groupconv_bf16_dw"]["launches"] / n_voc, 15)):
+        dev_ms = by_name[name]["kernel_device_ms"]
+        if dev_ms is None:
+            dev_ms = by_name[name].get("launch_ms", by_name[name]["ms"])
+        dev_ms, bound = dev_ms / n, by_name[name]["bound_ms"] / n
+        out.append((per_step * (dev_ms - bound), name, "vocoder", per_step, dev_ms, bound))
+    for path, task in (("train", "vocoder"), ("conan_train", "conan"),
+                       ("postnet_train", "postnet")):
+        mine = [(r, dense.geoms[g][task]) for r, g in zip(rows, geoms) if task in dense.geoms[g]]
+        calls = sum(n for _, n in mine)
+        for k, name in (("fwd", "denseconv"), ("dx", "denseconv_dx"), ("dw", "denseconv_dw")):
+            def dev_of(r):
+                d = r[f"{k}_kernel_device_ms"]
+                return r[f"{k}_launch_ms"] if d is None else d
+            dev_ms = sum(n * dev_of(r) for r, n in mine) / calls
+            bound = sum(n * r["bound_ms"] for r, n in mine) / calls
+            per_step = dense.launches[path][name] / dense.steps[path]
+            out.append((per_step * (dev_ms - bound), name, task, per_step, dev_ms, bound))
+    out.sort(key=lambda t: -t[0])
+    print("kernel ranking by launches in one default step x (device - bound) ms a launch: "
+          + "; ".join(f"{i + 1}. {name} ({task}) {n:g} x ({d:.4f} - {b:.4f}) = {ms:.3f} ms"
+                      for i, (ms, name, task, n, d, b) in enumerate(out)), flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4203,11 +4691,15 @@ def main() -> None:
         train_kernels[0]["max_abs_err"] = train_kernels[0]["max_abs_diff"] = max(
             train_kernels[0]["max_abs_err"], opt["logmel_gan_err"])
         by_path["conan_train"] = conan_train_phase(args.seed, dev, dense)
-        by_path["emformer_train"] = emformer_train_phase(args.seed, dev, smi, dirs, src, ref)
+        by_path["emformer_train"] = emformer_train_phase(args.seed, dev, smi, dirs, src, ref,
+                                                          dense)
         postnet_train_phase(args.seed, dev, smi, dense)
         # 8b. denseconv
         dense_rows, dense_geoms = denseconv_phase(args.seed, dev, dense)
         train_kernels += denseconv_entries(dense_rows, dense_geoms, dense)
+        # 8c. default_rung
+        default_rung_phase(args.seed, dev, dense)
+        kernel_ranking(train_kernels, dense_rows, dense_geoms, dense)
         # 9. infer
         by_path["infer"] = infer_phase(args.seed, dev, dirs,
                                        os.path.join(ROOT, "build", "chip_smoke_train"))

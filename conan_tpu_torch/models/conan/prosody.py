@@ -22,7 +22,6 @@ means over the global batch.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -32,7 +31,7 @@ from conan_tpu_torch.nn.blocks import (ConvBlocks, MultiheadAttention, WaveNet, 
                                        init_layer_norm, init_linear, layer_norm, linear)
 from conan_tpu_torch.nn import inits
 from conan_tpu_torch.nn.module import Params
-from conan_tpu_torch.ops.precision import dot_at_rung
+from conan_tpu_torch.ops.precision import dot_at_rung, einsum_at_rung
 from conan_tpu_torch.parallel import dist
 
 
@@ -59,7 +58,7 @@ class VQEmbeddingEMA:
         emb = state["embedding"]
         d = (torch.sum(emb ** 2, 1)[None, None, :]
              + torch.sum(x ** 2, -1, keepdim=True)
-             - 2.0 * dot_at_rung(functools.partial(torch.einsum, "btd,nd->btn"), x, emb))
+             - 2.0 * einsum_at_rung("btd,nd->btn", x, emb))
         idx = torch.argmin(d, dim=-1)
         return F.embedding(idx, emb), idx
 
@@ -96,7 +95,7 @@ class VQEmbeddingEMA:
         q, idx = self.encode(state, x)
         onehot = F.one_hot(idx.reshape(-1), cfg.n_embeddings).to(x.dtype)   # [BT, M]
         counts = dist.global_count(onehot.sum(0))
-        dw = dist.global_count(onehot.T @ x.detach().reshape(-1, x.shape[-1]))
+        dw = dist.global_count(dot_at_rung(onehot.T, x.detach().reshape(-1, x.shape[-1])))
         ema_count = decay * state["ema_count"] + (1 - decay) * counts
         n = ema_count.sum()
         ema_count = (ema_count + eps) / (n + cfg.n_embeddings * eps) * n
@@ -203,8 +202,7 @@ class ProsodyAligner:
         Tk = prosody.shape[1]
         forced_attn = self._forcing_attn(Tq, Tk, src)[None].expand(B, Tq, Tk)
         forcing = (torch.as_tensor(forcing, device=src.device), forced_attn,
-                   dot_at_rung(functools.partial(torch.einsum, "bqk,bkh->bqh"), forced_attn,
-                               prosody))
+                   einsum_at_rung("bqk,bkh->bqh", forced_attn, prosody))
         out, attn_list = self._layers(params, src, prosody, pros_key_padding_mask, forcing,
                                       generator)
         s_len = torch.sum(1.0 - src_key_padding_mask.to(src.dtype), -1)

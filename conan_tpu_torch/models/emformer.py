@@ -31,7 +31,7 @@ import torch
 from conan_tpu_torch.nn import inits
 from conan_tpu_torch.nn.blocks import init_layer_norm, layer_norm, linear
 from conan_tpu_torch.nn.module import Params, State
-from conan_tpu_torch.ops.precision import dot_at_rung
+from conan_tpu_torch.ops.precision import einsum_at_rung
 
 NEG_INF = -1e8
 
@@ -118,11 +118,9 @@ class Emformer:
         """q [B,Tq,D], k/v [B,Tk,D], bias additive, broadcastable to
         [B,H,Tq,Tk] → Wout(softmax(q kᵀ/√Dh + bias) v)."""
         B, Tq, D = q.shape
-        logits = dot_at_rung(functools.partial(torch.einsum, "bqhd,bkhd->bhqk"),
-                             self._heads(q), self._heads(k))
+        logits = einsum_at_rung("bqhd,bkhd->bhqk", self._heads(q), self._heads(k))
         probs = torch.softmax(logits * (self.cfg.head_dim ** -0.5) + bias, dim=-1)
-        o = dot_at_rung(functools.partial(torch.einsum, "bhqk,bkhd->bqhd"), probs,
-                        self._heads(v)).reshape(B, Tq, D)
+        o = einsum_at_rung("bhqk,bkhd->bqhd", probs, self._heads(v)).reshape(B, Tq, D)
         return linear(o, p["out"])
 
     def _ffn_out(self, p: Params, att: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -67,7 +67,7 @@ def _cond_net_apply(p: Params, mel: torch.Tensor, t: int) -> torch.Tensor:
     """mel [B, T, 80] → [B, T·t, 1]: y[n] = mel[q]·W[r] + mel[q-1]·W[t+r] + b
     with q·t + r = n + t//2, r in [0, t)."""
     B, T, _ = mel.shape
-    ab = dot_at_rung(torch.matmul, mel, p["w"][:, 0, :])          # [B, T, 2t]
+    ab = dot_at_rung(mel, p["w"][:, 0, :])          # [B, T, 2t]
     y = F.pad(ab[..., :t], (0, 0, 0, 1)) + F.pad(ab[..., t:], (0, 0, 1, 0))
     y = y.reshape(B, (T + 1) * t)[:, t // 2:t // 2 + T * t]
     return y[..., None] + p["b"]

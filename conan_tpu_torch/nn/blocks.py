@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from conan_tpu_torch.nn import inits
 from conan_tpu_torch.nn.module import Params, Stream
 from conan_tpu_torch.ops.conv import causal_conv1d_state, conv1d, weight_norm_weight
-from conan_tpu_torch.ops.precision import bf16_dot, bf16_dots, dot_at_rung
+from conan_tpu_torch.ops.precision import bf16_dots, dot_at_rung, einsum_at_rung
 from conan_tpu_torch.parallel import dist
 
 
@@ -44,11 +44,12 @@ def init_layer_norm(dim: int) -> Params:
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """``F.linear`` at the training rung: under "default" bf16-rounded
-    operands and the bias added in fp32 (``ops/precision.py``)."""
+    """``F.linear`` at the training rung: under "default" ``x @ wᵀ``
+    through ``dot_at_rung`` (bf16-rounded operands, an fp32 result) and the
+    bias added in fp32 (``ops/precision.py``)."""
     if not bf16_dots():
         return F.linear(x, w, b)
-    y = bf16_dot(F.linear, x, w)
+    y = dot_at_rung(x, w.t())
     return y if b is None else y + b
 
 
@@ -341,11 +342,10 @@ class MultiheadAttention:
         qh = dense(q, W[:D], b[:D]).reshape(B, Tq, H, Dh)
         kh = dense(k, W[D:2 * D], b[D:2 * D]).reshape(B, Tk, H, Dh)
         vh = dense(v, W[2 * D:], b[2 * D:]).reshape(B, Tk, H, Dh)
-        logits = dot_at_rung(functools.partial(torch.einsum, "bqhd,bkhd->bhqk"), qh, kh) * (
-            Dh ** -0.5)
+        logits = einsum_at_rung("bqhd,bkhd->bhqk", qh, kh) * (Dh ** -0.5)
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
         probs = dropout(torch.softmax(logits, dim=-1), self.P, generator)
-        o = linear(dot_at_rung(functools.partial(torch.einsum, "bhqk,bkhd->bqhd"), probs, vh
-                               ).reshape(B, Tq, D), params["out"])
+        o = linear(einsum_at_rung("bhqk,bkhd->bqhd", probs, vh).reshape(B, Tq, D),
+                   params["out"])
         return (o, probs.mean(dim=1)) if need_weights else o

@@ -3,7 +3,8 @@ its input and weight gradients, and their plain versions.
 
 ``denseconv`` is what ``ops.conv.conv1d`` runs under ``training_scope(
 "default")`` for a dense (groups 1) stride-1 conv whose shape
-``dense_kernel_takes``: JAX's DEFAULT, bf16-rounded operands, exact
+``dense_kernel_takes`` (and ``conv2d`` / ``conv_transpose1d`` over their
+folds onto such a conv): JAX's DEFAULT, bf16-rounded operands, exact
 products summed in fp32, an fp32 result, for the forward and both
 gradients. The JAX package leaves the conv to XLA
 (``conan_tpu/ops/conv.py:68-76``); on the card cuDNN only returns a bf16
@@ -322,32 +323,45 @@ class DenseConvKernel:
         return dw
 
     def __call__(self, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
-                 dilation: int = 1, padding: tuple[int, int] = (0, 0)) -> torch.Tensor:
-        """x [B, T, Ci], w [Co, Ci, K], b [Co] or None → [B, T_out, Co]."""
-        return _DenseConvFunction.apply(x, w, b, dilation, tuple(padding), self)
+                 dilation: int = 1, padding: tuple[int, int] = (0, 0),
+                 fold=None) -> torch.Tensor:
+        """x [B, T, Ci], w [Co, Ci, K], b [Co] or None → [B, T_out, Co]; or
+        with ``fold`` (``ops.conv``'s folds) K3 over ``fold.x(x)`` and
+        ``fold.w(w)``, its result ``fold.y`` of the rows: the fold and its
+        adjoints run inside the one autograd Function."""
+        return _DenseConvFunction.apply(x, w, b, dilation, tuple(padding), self, fold)
 
 
 class _DenseConvFunction(torch.autograd.Function):
     """K3 on a CUDA tensor, the plain version on a CPU one; the backward
     computes only the gradients asked for: K3 dx and K3 dw (or their plain
-    versions), the bias's the fp32 sum of the incoming gradient."""
+    versions), the bias's the fp32 sum of the incoming gradient. A fold
+    rearranges the operands before, the result after, and the gradients
+    back by its adjoints (``fold.gy``, ``fold.dx``, ``fold.dw``)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, dilation, padding, kernel):
+    def forward(ctx, x, w, b, dilation, padding, kernel, fold):
         ctx.conv = dict(dilation=dilation, padding=padding)
-        ctx.kernel = kernel
+        ctx.kernel, ctx.fold = kernel, fold
+        if fold is not None:
+            x, w = fold.x(x), fold.w(w)
         ctx.x_shape = tuple(x.shape)
         if x.device.type == "cpu":
             ctx.save_for_backward(x, w)
-            return dense_conv1d_bf16_reference(x, w, b, **ctx.conv)
-        xb = _bf16_operand(x, "x")
-        ctx.save_for_backward(xb if w.requires_grad else None, w)
-        return kernel.launch(xb, w, b, **ctx.conv)
+            y = dense_conv1d_bf16_reference(x, w, b, **ctx.conv)
+        else:
+            xb = _bf16_operand(x, "x")
+            ctx.save_for_backward(xb if ctx.needs_input_grad[1] else None, w)
+            y = kernel.launch(xb, w, b, **ctx.conv)
+        return y if fold is None else fold.y(y)
 
     @staticmethod
     def backward(ctx, gy):
         xs, w = ctx.saved_tensors
         want_dx, want_dw, want_db = ctx.needs_input_grad[:3]
+        fold = ctx.fold
+        if fold is not None:
+            gy = fold.gy(gy)
         dx = dw = db = None
         if gy.device.type == "cpu":
             if want_dx:
@@ -362,7 +376,10 @@ class _DenseConvFunction(torch.autograd.Function):
                 dw = ctx.kernel.weight_grad(xs, gyb, w.shape, **ctx.conv)
         if want_db:
             db = gy.sum((0, 1))
-        return dx, dw, db, None, None, None
+        if fold is not None:
+            dx = None if dx is None else fold.dx(dx)
+            dw = None if dw is None else fold.dw(dw)
+        return dx, dw, db, None, None, None, None
 
 
 denseconv = DenseConvKernel()

@@ -17,15 +17,60 @@ scope around the whole run in the JAX package) through ``training_scope``:
   high     the serving ladder's ``high``: TF32 for matmuls and convs (JAX's
            bf16x3 on the TPU is more exact than TF32).
   default  JAX's DEFAULT: every dot and conv takes bf16-rounded operands,
-           accumulates in fp32 and returns fp32; every other op (elementwise,
-           norms, softmax, losses, the VQ EMA, the master weights and AdamW
-           state, the NaN guard) stays fp32 with TF32 off. The dot and conv
-           call sites ask ``bf16_dots()`` at call time, as JAX's ops read
-           ``get_precision()``: the dense and grouped conv1d run their own
-           kernels (``ops/denseconv.py``, ``ops/groupconv.py``) or
-           ``rounded_dot``, the others ``bf16_dot``. No autocast: it
-           would hand bf16 activations on to the leaky ReLUs, residual adds
-           and L1 losses, which JAX's DEFAULT keeps in fp32.
+           sums their exact products in fp32 and returns fp32, and so do
+           their gradients (the incoming gradient rounded too); every other
+           op (elementwise, norms, softmax, losses, the master weights and
+           AdamW state, the NaN guard) stays fp32 with TF32 off. The call
+           sites ask ``bf16_dots()`` at call time, as JAX's ops read
+           ``get_precision()``. No autocast: it would hand bf16 activations
+           on to the leaky ReLUs, residual adds and L1 losses, which JAX's
+           DEFAULT keeps in fp32.
+
+The JAX package's ``precision=`` sites that read the rung, and the port's
+route for each under "default" (CPU: the same route, each product the fp32
+op on rounded operands, ``rounded_dot``'s arithmetic):
+
+  ops/conv.py:76 conv1d            dense stride 1: K3 (``ops/denseconv.py``)
+                                   where ``dense_kernel_takes``, else
+                                   ``rounded_dot`` (fp32 cuDNN, TF32 off);
+                                   grouped: K2-bf16 (``ops/groupconv.py``)
+  ops/conv.py:143 conv_transpose1d K3 over ``ConvTranspose1dFold`` (one
+                                   stride-1 conv1d, ``ops/conv.py``) where
+                                   ``dense_kernel_takes`` it, else
+                                   ``rounded_dot``
+  ops/conv.py:167 conv2d           K3 over ``Conv2dFold`` (one dilated
+                                   conv1d) where ``dense_kernel_takes`` it,
+                                   else ``rounded_dot``
+  nn/blocks.py:48 dense, :417-419  ``dot_at_rung`` (``nn/blocks.py:dense``)
+  nn/blocks.py:426, :433           ``einsum_at_rung`` (the aligner's MHA)
+  models/emformer.py:86            ``dot_at_rung`` (``nn/blocks.py:dense``)
+  models/emformer.py:155, :166     ``einsum_at_rung`` (``Emformer._attend``)
+  models/conan/prosody.py:89, :210 ``einsum_at_rung`` (VQ distances, the
+                                   forced alignment)
+  models/conan/prosody.py:106      ``dot_at_rung`` (the VQ EMA statistic)
+  ops/stft.py:110, :126            ``dot_at_rung`` (the STFT loss's DFT and
+                                   its transpose, autograd's)
+  ops/grouped_conv.py:97, :110     none: the block-diagonal dense form of a
+                                   grouped conv is the TPU's layout; the
+                                   port's grouped conv is K2-bf16 (above)
+  models/emformer.py:233, :248,    none: the banded (segment-windowed)
+  :371, :386                       attention; the port's Emformer trains
+                                   with dense masked attention, whose two
+                                   einsums are :155, :166's
+  models/emformer.py:504, :511;    serving only (the streaming step, the
+  audio/denoise.py:80;             denoiser, the packed vocoder tail): the
+  nn/module.py:58, :60             engine serves at ``exact``/``high``/
+                                   ``fast``, never at a training rung
+
+``dot_at_rung`` and ``einsum_at_rung`` run, on a CUDA tensor, one product
+with an fp32 result (``_Bf16Product``): cuBLAS's bf16 GEMM through
+``torch.mm`` / ``torch.bmm(..., out_dtype=torch.float32)`` (``aten::mm.dtype``,
+``bmm.dtype``), which multiply bf16 operands exactly and accumulate and
+return fp32. Chosen over TF32 products of the rounded fp32 operands (also
+exact: every bf16 value is a TF32 value) because the card's PyTorch (2.11,
+CUDA 12.8) registers both overloads, the operands move at half the bytes,
+and no global flag has to be set inside the backward, which
+``loss.backward()`` runs outside any scope. One route: no probing.
 """
 
 from __future__ import annotations
@@ -64,7 +109,8 @@ _bf16_dots = False
 
 def bf16_dots() -> bool:
     """True inside ``training_scope("default")``: the dot and conv call sites
-    then run through ``bf16_dot``. Read at call time."""
+    then take their "default" routes (the module's docstring). Read at call
+    time."""
     return _bf16_dots
 
 
@@ -112,32 +158,86 @@ class _Round(torch.autograd.Function):
         return g
 
 
-def bf16_dot(fn, *operands: torch.Tensor) -> torch.Tensor:
-    """``fn(*operands)``, a dot or conv without bias, at the "default" rung:
-    bf16-rounded operands, fp32 accumulation, an fp32 result, and the same
-    for its backward dots (their gradient operand rounded too).
-
-    On the card the operands go to ``fn`` as bf16 tensors, so cuBLAS and
-    cuDNN run their bf16 tensor-core kernels; these return bf16, cast back to
-    fp32 at once: one rounding of each result (forward, dx and dw) that JAX's
-    DEFAULT, with its fp32 output, does not make. On the CPU ``fn`` runs in
-    fp32 on the rounded values, which is exactly the fp32 product of
-    bf16-rounded operands, with no extra rounding (its bf16 kernels round
-    their output too, and are slow)."""
-    if operands[0].device.type == "cpu":
-        return rounded_dot(fn, *operands)
-    return fn(*(t.to(torch.bfloat16) for t in operands)).float()
-
-
 def rounded_dot(fn, *operands: torch.Tensor) -> torch.Tensor:
-    """``fn(*operands)`` in fp32 on bf16-rounded operands, its backward with
-    the incoming gradient rounded too: JAX's DEFAULT exactly, on any device.
-    ``bf16_dot``'s CPU route, and the plain version the card's bf16 route is
-    held to."""
+    """``fn(*operands)`` in the operands' type on bf16-rounded operands, its
+    backward with the incoming gradient rounded too: JAX's DEFAULT exactly,
+    on any device. The CPU route of every dot, the card's route of a conv
+    K3 does not take (fp32 cuDNN with TF32 off), and the plain version the
+    card's products are held to."""
     return _RoundGrad.apply(fn(*(_Round.apply(t) for t in operands)))
 
 
-def dot_at_rung(fn, *operands: torch.Tensor) -> torch.Tensor:
-    """``fn(*operands)`` (a dot or conv without bias) through ``bf16_dot``
-    under the "default" rung, else as it is."""
-    return bf16_dot(fn, *operands) if _bf16_dots else fn(*operands)
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for bf16 a [M, K] / [N, M, K] and b [K, N] / [N, K, M'] on the
+    card: exact products summed in fp32, an fp32 result."""
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    return mm(a, b, out_dtype=torch.float32)
+
+
+class _Bf16Product(torch.autograd.Function):
+    """a @ b (2-D, or 3-D batched) of CUDA fp32 tensors at the "default"
+    rung: the operands rounded to bf16 once, each product (forward, da =
+    g bᵀ, db = aᵀ g, the incoming gradient rounded) through ``_product``;
+    the rounded copies are what the backward keeps."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        for t in (a, b):
+            if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() not in (2, 3):
+                raise ValueError(f"bf16 product: no route for a {t.dtype} {tuple(t.shape)} "
+                                 f"on {t.device}")
+        ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.save_for_backward(ab if ctx.needs_input_grad[1] else None,
+                              bb if ctx.needs_input_grad[0] else None)
+        return _product(ab, bb)
+
+    @staticmethod
+    def backward(ctx, g):
+        ab, bb = ctx.saved_tensors
+        gb = g.to(torch.bfloat16)
+        da = _product(gb, bb.transpose(-1, -2)) if ctx.needs_input_grad[0] else None
+        db = _product(ab.transpose(-1, -2), gb) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def dot_at_rung(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(a, b)`` at the training rung. Under "default": on the
+    CPU ``rounded_dot``; on the card one ``_Bf16Product`` (a [..., K] with b
+    [K, N] as one [M, K] product, or 3-D a and b as one batched product)."""
+    if not _bf16_dots:
+        return torch.matmul(a, b)
+    if a.device.type == "cpu":
+        return rounded_dot(torch.matmul, a, b)
+    if b.dim() == 2 and a.dim() != 2:
+        y = _Bf16Product.apply(a.reshape(-1, a.shape[-1]), b)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
+    return _Bf16Product.apply(a, b)
+
+
+def _bmm_operands(spec: str, a: torch.Tensor, b: torch.Tensor):
+    """``torch.einsum(spec, a, b)`` for the port's four patterns as one
+    product over explicit permutes: (a', b', finish) with the einsum equal
+    to ``finish(a' @ b')``."""
+    if spec == "bqhd,bkhd->bhqk":
+        B, Q, H, D = a.shape
+        return (a.transpose(1, 2).reshape(B * H, Q, D),
+                b.permute(0, 2, 3, 1).reshape(B * H, D, b.shape[1]),
+                lambda y: y.reshape(B, H, Q, -1))
+    if spec == "bhqk,bkhd->bqhd":
+        B, H, Q, K = a.shape
+        return (a.reshape(B * H, Q, K), b.transpose(1, 2).reshape(B * H, K, -1),
+                lambda y: y.reshape(B, H, Q, -1).transpose(1, 2))
+    if spec == "btd,nd->btn":
+        return a, b.t(), lambda y: y
+    if spec == "bqk,bkh->bqh":
+        return a, b, lambda y: y
+    raise ValueError(f"einsum_at_rung: no product for {spec!r}")
+
+
+def einsum_at_rung(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(spec, a, b)`` at the training rung: under "default"
+    ``dot_at_rung`` of ``_bmm_operands``' product, on either device."""
+    if not _bf16_dots:
+        return torch.einsum(spec, a, b)
+    pa, pb, finish = _bmm_operands(spec, a, b)
+    return finish(dot_at_rung(pa, pb))

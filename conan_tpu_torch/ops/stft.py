@@ -63,7 +63,7 @@ def stft_realimag(wav: torch.Tensor, *, n_fft: int, hop: int,
         wav = F.pad(wav[:, None], (p, p), mode=pad_mode)[:, 0]
     basis = torch.from_numpy(_dft_kernel_np(n_fft, win_length)).to(wav.device, wav.dtype)
     frames = wav.unfold(-1, n_fft, hop)
-    ri = dot_at_rung(torch.matmul, frames, basis) if at_rung else frames @ basis  # [B, F, 2·n_bins]
+    ri = dot_at_rung(frames, basis) if at_rung else frames @ basis  # [B, F, 2·n_bins]
     n_bins = n_fft // 2 + 1
     return ri[..., :n_bins], ri[..., n_bins:]
 

@@ -1276,3 +1276,160 @@ def test_denseconv_launch_failure_raises(monkeypatch):
     with training_scope("default", dev), pytest.raises(RuntimeError, match="launch failed"):
         kernel(x, w, b, padding=(1, 1))
     assert kernel.launches == 0
+
+
+# The rest of the "default" rung (ops/conv.py's folds, ops/precision.py's
+# fp32-output product): conv2d and conv_transpose1d folded onto one
+# stride-1 conv1d (K3 where it takes the fold's geometry, else rounded_dot:
+# fp32 cuDNN with TF32 off), and every dot as one cuBLAS product with an fp32
+# result. Each value and gradient against the float64 op on the rounded
+# operands (the incoming gradient rounded; the bias's gradient is the plain
+# sum), relative L2 within DENSE_REL through K3 and 1e-5 elsewhere. The
+# route before (cuDNN's or cuBLAS's op on bf16 tensors, its bf16 result
+# cast to fp32) lands at ~1.5e-3: one bf16 rounding of each result.
+OTHER_REL = 1e-5
+
+
+def _default_rung_results(fn, shapes, grads, seed, dev):
+    """(the route's value and gradients at "default", the float64 ones on
+    the rounded operands, the K3 launches it made) for fn(a, b[, bias]) on
+    seeded operands of ``shapes``; ``grads``: which inputs take a gradient."""
+    from conan_tpu_torch.ops.denseconv import denseconv
+    from conan_tpu_torch.ops.precision import training_scope
+
+    rng = np.random.default_rng(seed)
+    ins = [torch.from_numpy((rng.standard_normal(s) / (np.sqrt(np.prod(s[1:])) if i == 1
+                                                       else 1)).astype(np.float32)).to(dev)
+           for i, s in enumerate(shapes)]
+    before = (denseconv.launches, denseconv.launches_dx, denseconv.launches_dw)
+    xs = [t.clone().requires_grad_(want) for t, want in zip(ins, grads)]
+    with training_scope("default", dev):
+        y = fn(*xs)
+    gy = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(np.float32)).to(dev)
+    got = (y,) + torch.autograd.grad(y, [x for x in xs if x.requires_grad], gy)
+    torch.cuda.synchronize()
+    launches = [a - b for a, b in zip((denseconv.launches, denseconv.launches_dx,
+                                       denseconv.launches_dw), before)]
+    rs = [(t.to(torch.bfloat16).double() if i < 2 else t.double()).requires_grad_(want)
+          for i, (t, want) in enumerate(zip(ins, grads))]
+    y64 = fn(*rs)       # outside any rung: the float64 op
+    g64 = gy.to(torch.bfloat16).double()
+    want = [y64.detach()]
+    for i, r in enumerate(rs):
+        if r.requires_grad:
+            want.append(torch.autograd.grad(y64, r, g64 if i < 2 else gy.double(),
+                                            retain_graph=True)[0])
+    return got, want, launches
+
+
+# (B, C, H, W, Co, (kh, kw), stride, padding): the MPD at period 2 and 11
+# (layer 1's 2 channels, layers 2-4 at stride 3, layer 5, post), the window
+# discriminators' c0 (32 x 80) and c1 at Conan's width
+CONV2D_CASES = [(2, 2, 400, 2, 32, (5, 1), (3, 1), (2, 0)),
+                (2, 32, 134, 2, 128, (5, 1), (3, 1), (2, 0)),
+                (2, 128, 45, 11, 512, (5, 1), (3, 1), (2, 0)),
+                (2, 512, 15, 11, 1024, (5, 1), (3, 1), (2, 0)),
+                (2, 1024, 9, 7, 1024, (5, 1), (1, 1), (2, 0)),
+                (2, 1024, 9, 5, 1, (3, 1), (1, 1), (1, 0)),
+                (3, 1, 32, 80, 128, (3, 3), (2, 2), (1, 1)),
+                (3, 128, 16, 40, 128, (3, 3), (2, 2), (1, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV2D_CASES)
+def test_conv2d_at_default_returns_fp32_results(case):
+    """conv2d under "default" on the card: fp32 value, dx, dw and db of the
+    rounded operands, each fold K3 takes launching K3, dx and dw once, the
+    others (one or two channels in, one out) none."""
+    from chip_smoke import DENSE_REL, rel_l2
+    from conan_tpu_torch.ops import conv as conv_ops
+    from conan_tpu_torch.ops.denseconv import dense_kernel_takes
+
+    dev = _card()
+    B, C, H, W, Co, k, s, pad = case
+    got, want, launches = _default_rung_results(
+        lambda x, w, b: conv_ops.conv2d(x, w, b, stride=s, padding=pad),
+        [(B, C, H, W), (Co, C, *k), (Co,)], (True, True, True), sum(case[:5]), dev)
+    qh, qw = -(-k[0] // s[0]), -(-k[1] // s[1])
+    Wo = (W + 2 * pad[1] - k[1]) // s[1] + 1
+    takes = dense_kernel_takes(qw * s[0] * s[1] * C, Co, qh, Wo)
+    assert launches == ([1, 1, 1] if takes else [0, 0, 0])
+    for name, a, b in zip(("y", "dx", "dw", "db"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert rel_l2(a.double(), b) <= (DENSE_REL if takes else OTHER_REL), name
+
+
+# (B, T, Cin, Cout, K, stride, padding, output_padding): the non-causal
+# generator's four ups at 512 initial channels, the nn upsampler's first
+TRANSPOSED_CASES = [(2, 50, 512, 256, 16, 8, 4, 0), (2, 400, 256, 128, 11, 5, 3, 0),
+                    (2, 2000, 128, 64, 8, 4, 2, 0), (2, 8000, 64, 32, 4, 2, 1, 0),
+                    (2, 57, 512, 256, 16, 8, 0, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRANSPOSED_CASES)
+def test_conv_transpose1d_at_default_returns_fp32_results(case):
+    from chip_smoke import DENSE_REL, rel_l2
+    from conan_tpu_torch.ops import conv as conv_ops
+
+    dev = _card()
+    B, T, Ci, Co, K, u, pad, op = case
+    conv = dict(stride=u, padding=pad, output_padding=op)
+
+    def fn(x, w, b):
+        if x.dtype == torch.float64:
+            return torch.nn.functional.conv_transpose1d(x.transpose(1, 2), w, b, **conv
+                                                        ).transpose(1, 2)
+        return conv_ops.conv_transpose1d(x, w, b, **conv)
+
+    got, want, launches = _default_rung_results(fn, [(B, T, Ci), (Ci, Co, K), (Co,)],
+                                                (True, True, True), sum(case), dev)
+    assert launches == [1, 1, 1]
+    for name, a, b in zip(("y", "dx", "dw", "db"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert rel_l2(a.double(), b) <= DENSE_REL, name
+
+
+# (what, a's shape, b's shape): dense's x @ wᵀ (the reshape to one [M, K]
+# product), the STFT loss's frames @ basis, the conditional MPD's mel
+# upsampler, the VQ EMA's onehotᵀ @ x, and the four einsums
+DOT_CASES = [("dense", (4, 300, 256), (256, 1024)), ("stft", (18, 51, 1024), (1024, 1026)),
+             ("cond", (18, 25, 80), (80, 640)), ("ema", (512, 2400), (2400, 256)),
+             ("bqhd,bkhd->bhqk", (4, 200, 2, 128), (4, 150, 2, 128)),
+             ("bhqk,bkhd->bqhd", (4, 2, 200, 150), (4, 150, 2, 128)),
+             ("btd,nd->btn", (4, 300, 256), (512, 256)),
+             ("bqk,bkh->bqh", (4, 300, 150), (4, 150, 256))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DOT_CASES, ids=[c[0] for c in DOT_CASES])
+def test_dots_at_default_return_fp32_results(case, monkeypatch):
+    """Every dot site's product under "default" on the card: three cuBLAS
+    products of bf16 operands with fp32 results (forward, both gradients),
+    each within 1e-5 of float64 on the rounded operands; no K3."""
+    from chip_smoke import rel_l2
+    from conan_tpu_torch.ops import precision
+
+    dev = _card()
+    what, a_shape, b_shape = case
+    products = []
+    real = precision._product
+
+    def product(a, b):
+        products.append((a.dtype, b.dtype))
+        return real(a, b)
+
+    monkeypatch.setattr(precision, "_product", product)
+
+    def fn(a, b):
+        if a.dtype == torch.float64:
+            return torch.einsum(what, a, b) if "->" in what else a @ b
+        return precision.einsum_at_rung(what, a, b) if "->" in what else \
+            precision.dot_at_rung(a, b)
+
+    got, want, launches = _default_rung_results(fn, [a_shape, b_shape], (True, True), len(what),
+                                                dev)
+    assert launches == [0, 0, 0] and products == [(torch.bfloat16, torch.bfloat16)] * 3
+    for name, a, b in zip(("y", "da", "db"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert rel_l2(a.double(), b) <= OTHER_REL, name

@@ -194,7 +194,8 @@ def _spy(monkeypatch):
     real = conv_ops.denseconv
 
     def spy(x, w, b=None, **kw):
-        calls.append((x.shape[-1], w.shape[0], w.shape[-1], kw["dilation"]))
+        f = kw.get("fold")        # conv2d's and conv_transpose1d's: the conv1d of their fold
+        calls.append(f.geometry if f else (x.shape[-1], w.shape[0], w.shape[-1], kw["dilation"]))
         return real(x, w, b, **kw)
 
     monkeypatch.setattr(conv_ops, "denseconv", spy)

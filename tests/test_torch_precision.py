@@ -14,7 +14,6 @@ tests/test_torch_groupconv.py holds the fp32 route to (atol 2e-4, rtol
 rebuilding the conv from it in float64.
 """
 
-import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +28,7 @@ from conan_tpu_torch.nn.blocks import MultiheadAttention, dense
 from conan_tpu_torch.ops.conv import causal_conv1d, conv1d, conv2d
 from conan_tpu_torch.ops.groupconv import (GroupConvKernel, grouped_conv1d_bf16_reference,
                                            grouped_conv1d_reference, kernel_weights_bf16)
-from conan_tpu_torch.ops.precision import (TRAINING_RUNGS, bf16_dots, dot_at_rung,
+from conan_tpu_torch.ops.precision import (TRAINING_RUNGS, bf16_dots, einsum_at_rung,
                                            training_scope)
 from conan_tpu_torch.train.tasks import ConanTask, EmformerTask, VocoderTask
 
@@ -82,8 +81,7 @@ def _ops(rng):
          lambda xx, ww: conv_cf(xx, ww, (4, 0), 1) + bc, (xc, wc)),
         ("conv2d", lambda xx, ww: conv2d(xx, ww, b2, stride=2, padding=1),
          lambda xx, ww: F.conv2d(xx, ww, stride=2, padding=1) + b2[:, None, None], (x2, w2)),
-        ("einsum", lambda aa, cc: dot_at_rung(functools.partial(torch.einsum, "bqhd,bkhd->bhqk"),
-                                              aa, cc),
+        ("einsum", lambda aa, cc: einsum_at_rung("bqhd,bkhd->bhqk", aa, cc),
          lambda aa, cc: torch.einsum("bqhd,bkhd->bhqk", aa, cc), (a, c)),
     ]
 

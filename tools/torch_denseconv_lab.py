@@ -7,6 +7,7 @@ ship.
     python3 tools/torch_denseconv_lab.py leaf [SEED]
     python3 tools/torch_denseconv_lab.py k3 [--watchdog]
     python3 tools/torch_denseconv_lab.py route PARENT_DIR
+    python3 tools/torch_denseconv_lab.py host PARENT_DIR
 
 step0  each training task's step at its chip_smoke.py shape (Conan and the
        postnet B=24 x 1496 frames of synthesized features, the vocoder
@@ -36,13 +37,31 @@ k3     chip_smoke.py's denseconv_row on K3_GEOMETRIES: K3, its dx and its
        ptxas report of csrc/denseconv*.cu printed (with --watchdog,
        -DK2BF16_WATCHDOG: a pipeline that deadlocks traps instead of
        hanging).
-route  the card tests' dense conv1d cases (tests/test_torch_cuda.py:
-       DENSE_CASES and the three rounded_dot ones) through ops.conv.conv1d
-       under training_scope("default"), once with the package of
-       PARENT_DIR (a `git archive` of an earlier commit) and once with
-       this tree's, each in its own process: the value and the dx, dw and
-       bias gradients against the float64 conv of the rounded operands
-       (relative L2), as the card tests hold them.
+route  the card tests' "default" cases (tests/test_torch_cuda.py: the
+       dense conv1d's DENSE_CASES and three rounded_dot ones; CONV2D_CASES,
+       TRANSPOSED_CASES and DOT_CASES) under training_scope("default"),
+       once with the package of PARENT_DIR (a `git archive` of an earlier
+       commit) and once with this tree's, each in its own process: the
+       value and the gradients against the float64 op on the rounded
+       operands (relative L2), as the card tests hold them. The dots go
+       through nn.blocks.dense (the "dense" case) or the precision module's
+       dot entry points, whichever API the tree has.
+host   the vocoder's training step (egs/soak_r5/vocoder.yaml, chip_smoke.py's
+       B=18 x 8000 batch, random weights), HOST_ORDER's processes:
+       "parent" the package of PARENT_DIR, "change" this tree's. Each
+       times HOST_STEPS steps at "highest", then at "default" (wall per
+       step, synchronized): a parent process its own route, a change
+       process HOST_VARIANTS of the MPD's and the window discriminators'
+       conv2d, a step each in turn: "fold" as shipped (K3 over the fold in
+       one autograd Function, rounded_dot for what K3 refuses), "fold0"
+       the same fold composed of autograd ops around ops.conv.conv1d,
+       "rounded" rounded_dot alone (fp32 cuDNN on the rounded operands,
+       TF32 off), "bf16" the parent's route (cuDNN's bf16 conv cast to
+       fp32). Then one step of each under torch.profiler (CPU and CUDA):
+       device ms, kernels, K3 launches, the ops with the most host time of
+       their own. Last, each variant's steps over all processes: median,
+       quartiles, and the change's variants minus "rounded" in the same
+       round.
 """
 
 from __future__ import annotations
@@ -299,6 +318,69 @@ for case in json.loads(sys.argv[2]):
 print(json.dumps(out))
 """
 
+# the same for conv2d, conv_transpose1d and the dots: argv[2] a JSON list of
+# [family, case]
+ROUTE_FAMILIES_CODE = r"""
+import functools, json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import torch.nn.functional as F
+from conan_tpu_torch.nn.blocks import dense
+from conan_tpu_torch.ops import conv as conv_ops
+from conan_tpu_torch.ops import precision
+from conan_tpu_torch.ops.precision import training_scope
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+rel = lambda a, b: float((a.detach().double() - b).norm() / b.norm())
+
+def dot(what, a, b):
+    if what == "dense":
+        return dense(a, b.t())
+    if hasattr(precision, "einsum_at_rung"):
+        return precision.einsum_at_rung(what, a, b) if "->" in what else precision.dot_at_rung(a, b)
+    fn = functools.partial(torch.einsum, what) if "->" in what else torch.matmul
+    return precision.dot_at_rung(fn, a, b)
+
+out = []
+for family, case in json.loads(sys.argv[2]):
+    rng = np.random.default_rng(7)
+    if family == "conv2d":
+        B, C, H, W, Co, k, s, pad = case
+        shapes = [(B, C, H, W), (Co, C, *k), (Co,)]
+        rung = lambda x, w, b: conv_ops.conv2d(x, w, b, stride=s, padding=pad)
+        plain = lambda x, w: F.conv2d(x, w, stride=s, padding=pad)
+        bias = lambda y, b: y + b[:, None, None]
+    elif family == "transposed":
+        B, T, Ci, Co, K, u, pad, op = case
+        shapes = [(B, T, Ci), (Ci, Co, K), (Co,)]
+        conv = dict(stride=u, padding=pad, output_padding=op)
+        rung = lambda x, w, b: conv_ops.conv_transpose1d(x, w, b, **conv)
+        plain = lambda x, w: F.conv_transpose1d(x.transpose(1, 2), w, **conv).transpose(1, 2)
+        bias = lambda y, b: y + b
+    else:
+        what, a_shape, b_shape = case
+        shapes = [a_shape, b_shape]
+        rung = lambda a, b: dot(what, a, b)
+        plain = (lambda a, b: torch.einsum(what, a, b)) if "->" in what else torch.matmul
+    ops = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev)
+           / (np.sqrt(np.prod(sh[1:])) if i == 1 else 1) for i, sh in enumerate(shapes)]
+    leaves = [t.clone().requires_grad_(True) for t in ops]
+    with training_scope("default", dev):
+        y = rung(*leaves)
+    gy = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(np.float32)).to(dev)
+    got = [y] + list(torch.autograd.grad(y, leaves, gy))
+    r64 = [(t.to(torch.bfloat16) if i < 2 else t).double().requires_grad_(True)
+           for i, t in enumerate(ops)]
+    y64 = plain(*r64[:2])
+    want = [y64.detach() if len(ops) == 2 else bias(y64, r64[2]).detach()]
+    want += list(torch.autograd.grad(y64, r64[:2], gy.to(torch.bfloat16).double()))
+    if len(ops) > 2:
+        want.append(gy.double().sum(tuple(range(gy.dim() - 1)) if family == "transposed"
+                                    else (0, 2, 3)))
+    out.append([family, case, [rel(a, c) for a, c in zip(got, want)]])
+print(json.dumps(out))
+"""
+
 
 def route(parent: str) -> None:
     import importlib.util
@@ -311,16 +393,163 @@ def route(parent: str) -> None:
     spec.loader.exec_module(card_tests)
     cases = card_tests.DENSE_CASES + [(2, 400, 1, 128, 15, 1, 7, 7), (2, 60, 1024, 1, 3, 1, 1, 1),
                            (2, 300, 32, 1, 7, 1, 6, 0)]
+    families = ([["conv2d", c] for c in card_tests.CONV2D_CASES]
+                + [["transposed", c] for c in card_tests.TRANSPOSED_CASES]
+                + [["dot", c] for c in card_tests.DOT_CASES])
     for label, root in (("parent", os.path.abspath(parent)), ("change", cs.ROOT)):
         res = subprocess.run([sys.executable, "-c", ROUTE_CODE, root, json.dumps(cases)],
                              capture_output=True, text=True, check=True)
         for case, errs in json.loads(res.stdout.strip().splitlines()[-1]):
             print(f"route {label} {case}: relative L2 from float64 y {errs[0]:.3g}, dx "
                   f"{errs[1]:.3g}, dw {errs[2]:.3g}, db {errs[3]:.3g}", flush=True)
+        res = subprocess.run([sys.executable, "-c", ROUTE_FAMILIES_CODE, root,
+                              json.dumps(families)], capture_output=True, text=True, check=True)
+        for family, case, errs in json.loads(res.stdout.strip().splitlines()[-1]):
+            print(f"route {label} {family} {case}: relative L2 from float64 "
+                  + ", ".join(f"{k} {e:.3g}" for k, e in zip(("y", "d0", "d1", "d2"), errs)),
+                  flush=True)
+
+
+HOST_STEPS = 8          # timed steps at "highest", and a variant's at "default"
+HOST_ORDER = ("parent", "change", "change", "parent", "parent", "change")
+# a "change" process's variants of the "default" rung's conv2d, taken in
+# turn a step each (the order rotating each round)
+HOST_VARIANTS = ("fold", "fold0", "rounded", "bf16")
+# run in a child process whose first sys.path entry is the tree to time;
+# argv[3] "parent" or "change"
+HOST_CODE = r"""
+import functools, json, os, sys, time
+root = sys.argv[1]
+sys.path.insert(0, root)
+import numpy as np, torch
+import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from conan_tpu_torch.config import load_config
+from conan_tpu_torch.models.vocoder import discriminators
+from conan_tpu_torch.ops import conv as conv_ops
+from conan_tpu_torch.ops import native, precision
+from conan_tpu_torch.train.tasks import VocoderTask
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+native.build()
+steps, variants = int(sys.argv[2]), sys.argv[4].split(",")
+conv2d = {"fold": discriminators.conv2d}
+if sys.argv[3] == "change":
+    def pair(v):
+        return (v, v) if isinstance(v, int) else tuple(v)
+
+    def fold0(x, w, b=None, *, stride=1, padding=0):
+        # the fold composed of autograd ops around conv1d
+        if not precision.bf16_dots():
+            return F.conv2d(x, w, b, stride=stride, padding=padding)
+        f = conv_ops.conv2d_fold(tuple(x.shape), tuple(w.shape), pair(stride), pair(padding))
+        y = conv_ops.conv1d(f.x(x), f.w(w), b, dilation=f.Wo)
+        return y.reshape(f.B, f.Ho, f.Wo, f.Co).permute(0, 3, 1, 2)
+
+    def rounded(x, w, b=None, *, stride=1, padding=0):
+        if not precision.bf16_dots():
+            return F.conv2d(x, w, b, stride=stride, padding=padding)
+        y = precision.rounded_dot(functools.partial(F.conv2d, stride=stride, padding=padding),
+                                  x, w)
+        return y if b is None else y + b[:, None, None]
+
+    def bf16(x, w, b=None, *, stride=1, padding=0):
+        # the parent's route: cuDNN's bf16 conv, its result cast to fp32
+        if not precision.bf16_dots():
+            return F.conv2d(x, w, b, stride=stride, padding=padding)
+        y = F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), stride=stride,
+                     padding=padding).float()
+        return y if b is None else y + b[:, None, None]
+
+    conv2d.update(fold0=fold0, rounded=rounded, bf16=bf16)
+else:
+    variants = ["parent"]
+    conv2d = {"parent": discriminators.conv2d}
+hp = load_config(os.path.join(root, "egs", "soak_r5", "vocoder.yaml"))
+batch = cs.train_batch(hp, np.random.default_rng(0), dev)
+
+
+def timed(task, state):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = task.train_step(state, batch)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) * 1e3
+
+
+out = {"highest": [], "default": {v: [] for v in variants}, "profile": {}}
+task = VocoderTask(dict(hp, train_precision="highest"))
+state = task.init_state(torch.Generator().manual_seed(1))
+for i in range(3 + steps):
+    state, ms = timed(task, state)
+    if i >= 3:
+        out["highest"].append(ms)
+task = VocoderTask(dict(hp, train_precision="default"))
+state = task.init_state(torch.Generator().manual_seed(1))
+for v in variants:
+    discriminators.conv2d = conv2d[v]
+    for _ in range(2):
+        state, _ = timed(task, state)
+for r in range(steps):
+    for v in variants[r % len(variants):] + variants[:r % len(variants)]:
+        discriminators.conv2d = conv2d[v]
+        state, ms = timed(task, state)
+        out["default"][v].append(ms)
+for v in variants:
+    discriminators.conv2d = conv2d[v]
+    launches = cs.denseconv.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        task.train_step(state, batch)
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    top = sorted((e for e in evs if e.device_type == DeviceType.CPU),
+                 key=lambda e: -e.self_cpu_time_total)[:12]
+    out["profile"][v] = {
+        "device_ms": sum(e.self_device_time_total for e in evs
+                         if e.device_type == DeviceType.CUDA) / 1e3,
+        "kernels": sum(e.count for e in evs if e.device_type == DeviceType.CUDA),
+        "k3": cs.denseconv.launches - launches,
+        "top_self_cpu": [[e.key, e.count, e.self_cpu_time_total / 1e3] for e in top]}
+print(json.dumps(out))
+"""
+
+
+def host(parent: str) -> None:
+    import subprocess
+
+    default = collections.defaultdict(list)        # variant → every step's ms
+    paired = collections.defaultdict(list)         # variant → ms minus "rounded" in its round
+    for label in HOST_ORDER:
+        root = os.path.abspath(parent) if label == "parent" else cs.ROOT
+        res = subprocess.run([sys.executable, "-c", HOST_CODE, root, str(HOST_STEPS), label,
+                              ",".join(HOST_VARIANTS)], capture_output=True, text=True,
+                             check=True)
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"host {label} highest: ms per step {[round(x, 3) for x in r['highest']]}, median "
+              f"{np.median(r['highest']):.3f}", flush=True)
+        for v, ms in r["default"].items():
+            default[v] += ms
+            if "rounded" in r["default"]:
+                paired[v] += [a - b for a, b in zip(ms, r["default"]["rounded"])]
+            p = r["profile"][v]
+            print(f"host {label} default {v}: ms per step {[round(x, 3) for x in ms]}, median "
+                  f"{np.median(ms):.3f}; profiled step device {p['device_ms']:.3f} ms, "
+                  f"{p['kernels']} kernels, K3 forward launches {p['k3']}; most host time of "
+                  f"their own: " + "; ".join(f"{k} x{n} {t:.2f} ms"
+                                             for k, n, t in p["top_self_cpu"]), flush=True)
+    for v, ms in default.items():
+        q = np.percentile(ms, [25, 50, 75])
+        print(f"host summary default {v}: {len(ms)} steps, median {q[1]:.3f} ms (quartiles "
+              f"{q[0]:.3f}-{q[2]:.3f})" + (
+                  f"; minus rounded in the same round: median {np.median(paired[v]):+.3f} ms "
+                  f"(quartiles {np.percentile(paired[v], 25):+.3f} to "
+                  f"{np.percentile(paired[v], 75):+.3f})" if v in paired else ""), flush=True)
 
 
 def main() -> None:
-    if len(sys.argv) < 2 or sys.argv[1] not in ("step0", "leaf", "k3", "route"):
+    if len(sys.argv) < 2 or sys.argv[1] not in ("step0", "leaf", "k3", "route", "host"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("torch_denseconv_lab: needs a CUDA card")
@@ -335,6 +564,9 @@ def main() -> None:
         return
     if sys.argv[1] == "route":
         route(sys.argv[2])
+        return
+    if sys.argv[1] == "host":
+        host(sys.argv[2])
         return
     native.build()
     if sys.argv[1] == "step0":
