@@ -2628,30 +2628,35 @@ def denseconv_row(g: tuple, calls: dict, gen: torch.Generator, dev: torch.device
                      f"in float64 (limit {DENSE_REL})")
         # the bare launches: weights laid out and maps encoded once
         bare = {}
-        for k, (src, w_layout, N, C, T_in, pad, flip) in {
-                "fwd": (xb, kernel_weights(w), Co, Ci, T, pl, 0),
-                "dx": (gyb, kernel_weights_dx(w), Ci, Co, T_out, d * (K - 1) - pl, 1)}.items():
-            plan = dense_plan(C, N, K)
+        sms = sm_count(dev.index or 0)
+        for k, (src, w_layout, N, C, T_in, T_o, pad, flip) in {
+                "fwd": (xb, kernel_weights(w), Co, Ci, T, T_out, pl, 0),
+                "dx": (gyb, kernel_weights_dx(w), Ci, Co, T_out, T, d * (K - 1) - pl, 1)
+        }.items():
+            plan = dense_plan(C, N, K, d, B * -(-T_o // 64), sms)
             wq = torch.empty_like(w_layout)
             maps = ctypes.create_string_buffer(256)
-            out = torch.full((B, T if flip else T_out, N), float("nan"), device=dev)
+            out = torch.full((B, T_o, N), float("nan"), device=dev)
             err = (lib.denseconv_weights(w.data_ptr(), wq.data_ptr(), N, C, K, flip, stream)
                    or lib.denseconv_describe(src.data_ptr(), wq.data_ptr(), B, T_in, C, N, K,
-                                             plan.bn, ctypes.addressof(maps)))
+                                             plan.bn, plan.win_rows, ctypes.addressof(maps)))
             if err or not torch.equal(wq, w_layout):
                 fail(f"{name} {k}: the weights' layout (cudaError {err}) differs from "
                      f"kernel_weights{'_dx' if flip else ''}")
             args = (ctypes.addressof(maps), None if flip else b.data_ptr(), out.data_ptr(), B,
-                    out.shape[1], C, N, K, d, pad, *plan.args, stream)
+                    T_o, C, N, K, d, pad, *plan.args, stream)
             # the closure holds the maps' buffer and the weights' layout: args
             # holds only their addresses
             bare[k] = (lambda args=args, maps=maps, wq=wq: lib.denseconv_run(*args), out)
-        wplan = dense_wgrad_plan(B, T_out, Ci, Co, K, d, sm_count(dev.index or 0))
-        part = torch.empty(wplan.part_floats, device=dev)
+        wplan = dense_wgrad_plan(B, T_out, Ci, Co, K, d, sms)
+        ws = torch.empty(wplan.ws_floats, device=dev)
+        counters = torch.zeros(max(1, 2 * wplan.n_tiles), dtype=torch.int32, device=dev)
         dw_bare = torch.full((Co, Ci, K), float("nan"), device=dev)
-        dw_args = (xb.data_ptr(), gyb.data_ptr(), part.data_ptr(), dw_bare.data_ptr(), B, T, Ci,
-                   T_out, Co, K, d, pl, *wplan.args, stream)
-        bare["dw"] = (lambda: lib.denseconv_weight_grad(*dw_args), dw_bare)
+        dw_args = (xb.data_ptr(), gyb.data_ptr(), ws.data_ptr() if wplan.ws_floats else None,
+                   counters.data_ptr(), dw_bare.data_ptr(), B, T, Ci, T_out, Co, K, d, pl,
+                   *wplan.args, stream)
+        bare["dw"] = (lambda ws=ws, counters=counters: lib.denseconv_weight_grad(*dw_args),
+                      dw_bare)
         for k, (fn, out) in bare.items():
             if fn():
                 fail(f"{name} {k}: the C entry refused the plan")
@@ -2665,10 +2670,9 @@ def denseconv_row(g: tuple, calls: dict, gen: torch.Generator, dev: torch.device
                                              warmup=1)
             row[f"{k}_library_fp32_ms"] = cuda_ms(libs[torch.float32][k], iters=DENSE_ITERS,
                                                   warmup=1)
-        for k, keys in (("fwd", ("denseconv_kernel",)), ("dx", ("denseconv_kernel",)),
-                        ("dw", ("denseconv_wgrad_kernel", "denseconv_wgrad_reduce_kernel"))):
-            row[f"{k}_kernel_device_ms"] = total(
-                kernel_device_ms(wrappers[k], key, iters=DENSE_ITERS) for key in keys)
+        for k, key in (("fwd", "denseconv_kernel"), ("dx", "denseconv_kernel"),
+                       ("dw", "denseconv_wgrad_kernel")):
+            row[f"{k}_kernel_device_ms"] = kernel_device_ms(wrappers[k], key, iters=DENSE_ITERS)
     row["bound_ms"], row["bound_by"] = denseconv_bound_ms(B, T, Ci, T_out, Co, K)
     print(f"denseconv geometry: B={B} T={T} {Ci}->{Co} k={K} dilation {d} pad ({pl}, {pr}), "
           f"calls a step {calls}: "

@@ -101,6 +101,19 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// shared-memory descriptor of an MN-major tile with the 128-byte swizzle
+// (K3 dw's operands): rows of 64 MN values (128 bytes) a k, 8-row swizzle
+// atoms 1024 bytes apart (the stride byte offset), the next 64 MN values
+// `lbo` bytes on. The swizzle follows the shared-memory address, as TMA
+// wrote it, so a start inside an atom (a tap's shifted rows) needs no base
+// offset (checked on the card: the atom's phase there as the base offset
+// gives wrong sums).
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t saddr, uint32_t lbo) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
 // shared-memory descriptor of a K-major tile without swizzle (the forward's
 // window, the weight gradient's A and B): a core matrix is 8 rows x 16 bytes
 // (8 k values) stored contiguously, the next 8 k values `lbo` bytes on, the
@@ -183,10 +196,11 @@ struct Wgmma<64> {
   }
 };
 
-// m64n128k16 (K3's tile of 128 output channels)
+// m64n128k16 (K3's tile of 128 output channels; K3 dw's 128 out-channels,
+// with TRANS_A its x window MN-major)
 template <>
 struct Wgmma<128> {
-  template <int TRANS_B = 0>
+  template <int TRANS_B = 0, int TRANS_A = 0>
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -195,7 +209,7 @@ struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        "%64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
           "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
           "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
@@ -206,7 +220,7 @@ struct Wgmma<128> {
           "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
           "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
   }
 };
 
@@ -229,6 +243,20 @@ inline EncodeTiled encode_tiled() {
     return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
   }();
   return fn;
+}
+
+// a 3-D map over a bf16 [B, T, C] channels-last tensor (K3's x and gy):
+// boxes of one batch row, `rows` rows x 64 channels (128-byte rows), 128-byte
+// swizzle, zero fill outside
+inline CUresult sw128_rows_map(CUtensorMap* map, const void* t, int B, int T, int C, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return CUDA_ERROR_NOT_INITIALIZED;
+  const cuuint64_t dim[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t stride[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1}, ones[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(t), dim, stride, box,
+                ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // a 3-D map over an fp32 [B, T, C] channels-last tensor: boxes of

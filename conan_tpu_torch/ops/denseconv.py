@@ -10,13 +10,16 @@ gradients. The JAX package leaves the conv to XLA
 (``conan_tpu/ops/conv.py:68-76``); on the card cuDNN only returns a bf16
 conv in bf16, so the port runs its own kernels there: on a CUDA tensor the
 forward and dx launch K3 (``csrc/denseconv.cu``: a TMA-fed ``wgmma``
-implicit GEMM whose A boxes are x's rows a tap at a time, the padding its
-zero fill; dx is the same kernel over the flipped taps) and dw launches K3
-dw (``csrc/denseconv_bwd.cu``: both operands read in place as MN-major
-``wgmma`` operands, split partial sums added in a fixed order). x and the
-incoming gradient are rounded to bf16 once a call here; the one C call
-lays the weights out (``kernel_weights`` / ``kernel_weights_dx`` are that
-layout's plain versions), encodes the tensor maps and launches. On a CPU
+implicit GEMM on persistent blocks whose A is a window of x's rows staged
+once a 64-channel chunk and indexed a tap at a time, the padding its zero
+fill; dx is the same kernel over the flipped taps) and dw launches K3 dw
+(``csrc/denseconv_bwd.cu``: both operands read in place as MN-major
+``wgmma`` operands, a chunk staged once for every tap of the block, split
+partial sums, where the plan splits, added in a fixed order in the same
+launch). x and the incoming gradient are rounded to bf16 once a call here;
+the one C call lays the weights out (``kernel_weights`` /
+``kernel_weights_dx`` are that layout's plain versions), encodes the
+tensor maps and launches. On a CPU
 tensor each runs its plain version (``dense_conv1d_bf16_reference`` and
 its ``_input_grad_`` / ``_weight_grad_`` kin: the fp32 conv, or its
 backward conv, of the rounded operands, the values ``precision.
@@ -37,16 +40,21 @@ from conan_tpu_torch.ops import native
 from conan_tpu_torch.ops.groupconv import _current, sm_count
 
 SLOT = 64               # output rows an m64 slot holds (csrc/denseconv.cu:kSlot)
-CHUNK = 64              # input channels a reduction step (kChunk)
+CHUNK = 64              # input channels a window (kChunk)
+NWG = 2                 # K3's consumer warpgroups a block (kNwg)
+MAX_WINDOW = 256        # window rows a TMA box holds (kMaxWindow)
 SMEM_LIMIT = 227 * 1024
-# K3's tiles by output tile width BN: (NWG consumer warpgroups, stages), the
-# instantiations csrc/denseconv.cu:DENSECONV_BUILT builds
-DENSE_TILES = {128: (2, 4), 64: (2, 4)}
+# K3's tiles (BN output channels, MI m64 slots a warpgroup) in the order the
+# plan tries them, the instantiations csrc/denseconv.cu:DENSECONV_BUILT builds
+DENSE_TILES = ((128, 2), (128, 1), (64, 2), (64, 1))
+DENSE_WSTAGES = 4       # weight boxes in flight
+DENSE_XSTAGES = 4       # window buffers in flight where a window serves fewer than 4 taps, else 2
 WGRAD_ROWS = 64         # rows of dw's reduction a chunk (csrc/denseconv_bwd.cu:kRows)
-WGRAD_MAX_TPW = 4       # taps a warpgroup (DENSECONV_WGRAD_BUILT: 1-4)
-WGRAD_MAX_WINDOW = 256  # x window rows a TMA box holds (kMaxWindow)
-WGRAD_STAGES = 4
-WGRAD_REDUCE_FLOATS = 48 * 1024 // 4   # one out-channel's C x K sums in shared memory
+# K3 dw's taps a warpgroup by out-channel tile NB, the instantiations
+# csrc/denseconv_bwd.cu:DENSECONV_WGRAD_BUILT builds (TPW * NB / 2 accumulators)
+WGRAD_TPW = {128: (1, 2), 64: (1, 2, 3, 4)}
+WGRAD_CONSUMERS = 256   # two consumer warpgroups (kConsumers)
+WGRAD_STAGES = 4        # chunks in flight, fewer where shared memory is short
 
 
 def _round_up(v: int, m: int) -> int:
@@ -60,16 +68,24 @@ def _rnd(t: torch.Tensor) -> torch.Tensor:
 
 
 class DensePlan(NamedTuple):
-    """K3's tile for one (C in, N out) pair: ``args`` go to the C entry
-    points; ``smem`` is a block's shared memory."""
+    """K3's plan for one geometry: the tile (``bn`` output channels, ``mi``
+    m64 slots a consumer warpgroup), ``tpr`` taps a window run of
+    ``win_rows`` rows a slot, ``wstages`` weight boxes and ``xstages``
+    windows in flight; ``args`` go to the C entry points; ``smem`` is a
+    block's shared memory, ``tiles`` the tiles of the geometry it was
+    planned for."""
     bn: int
-    nwg: int
-    stages: int
+    mi: int
+    tpr: int
+    win_rows: int
+    wstages: int
+    xstages: int
     smem: int
+    tiles: int
 
     @property
     def args(self) -> tuple[int, ...]:
-        return tuple(self)[:3]
+        return tuple(self)[:6]
 
 
 def _check_channels(what: str, Ci: int, Co: int, K: int, dilation: int) -> None:
@@ -80,81 +96,157 @@ def _check_channels(what: str, Ci: int, Co: int, K: int, dilation: int) -> None:
         raise ValueError(f"{what}: {K} taps at dilation {dilation}")
 
 
+def dense_smem(bn: int, mi: int, win_rows: int, xstages: int = 2,
+               wstages: int = DENSE_WSTAGES) -> int:
+    """A K3 block's shared memory (csrc/denseconv.cu:dense_smem_bytes): the
+    weight ring, ``xstages`` window buffers of NWG * mi slots' windows, the
+    barriers."""
+    return 1024 + wstages * bn * 128 + xstages * NWG * mi * win_rows * 128 + \
+        16 * (wstages + xstages)
+
+
+def dense_window(K: int, dilation: int) -> tuple[int, int]:
+    """(taps a run, window rows) of K3's windows: every tap in one window
+    where its 64 + (K-1)·dilation rows fit a TMA box, else the fewest runs
+    whose windows fit, their taps balanced (one tap a run at the least)."""
+    for runs in range(1, K):
+        tpr = -(-K // runs)
+        rows = _round_up(SLOT + (tpr - 1) * dilation, 8)
+        if rows <= MAX_WINDOW:
+            return tpr, rows
+    return 1, SLOT
+
+
 @functools.lru_cache(maxsize=512)
-def dense_plan(C: int, N: int, K: int) -> DensePlan:
-    """K3's plan for the conv of C input and N output channels (the input
-    gradient's: C the forward's Co, N its Ci): the output tile width of 128
-    or 64 that wastes fewer columns of N (128 on a tie), with DENSE_TILES'
-    warpgroups and stages. Raises ValueError for what the kernel does not
-    take."""
-    _check_channels("denseconv", C, N, K, 1)
-    bn = 128 if _round_up(N, 128) <= _round_up(N, 64) else 64
-    nwg, stages = DENSE_TILES[bn]
-    smem = 1024 + stages * (nwg * SLOT * CHUNK * 2 + bn * 128) + 16 * stages
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"denseconv: {smem} bytes of shared memory")
-    return DensePlan(bn, nwg, stages, smem)
+def dense_plan(C: int, N: int, K: int, dilation: int = 1, slots: int = 1,
+               sms: int = 1) -> DensePlan:
+    """K3's plan for the conv of C input and N output channels, K taps at
+    ``dilation``, over ``slots`` m64 slots of output rows (the input
+    gradient's: C the forward's Co, N its Ci) on a card of ``sms`` SMs: the
+    window of dense_window; the first tile of DENSE_TILES (an output tile
+    width of 64 only where 128 wastes more columns of N) whose shared
+    memory fits and whose tiles reach half the SMs, else the one with the
+    most tiles (the larger tiles reuse each weight box more, the smaller
+    keep more SMs at work on a short conv: `tools/torch_denseconv_lab.py
+    sweep`); DENSE_XSTAGES windows in flight where a window serves fewer
+    than 4 taps and they fit, else 2. Raises ValueError for what the kernel
+    does not take."""
+    _check_channels("denseconv", C, N, K, dilation)
+    tpr, rows = dense_window(K, dilation)
+    widths = (128, 64) if _round_up(N, 128) <= _round_up(N, 64) else (64,)
+    fits = []
+    for bn, mi in DENSE_TILES:
+        xstages = DENSE_XSTAGES if tpr < 4 else 2
+        while xstages > 2 and dense_smem(bn, mi, rows, xstages) > SMEM_LIMIT:
+            xstages -= 1
+        smem = dense_smem(bn, mi, rows, xstages)
+        if bn not in widths or smem > SMEM_LIMIT:
+            continue
+        tiles = -(-slots // (NWG * mi)) * -(-N // bn)
+        plan = DensePlan(bn, mi, tpr, rows, DENSE_WSTAGES, xstages, smem, tiles)
+        if 2 * tiles >= sms:
+            return plan
+        fits.append(plan)
+    return max(fits, key=lambda p: p.tiles)   # (64, 1) fits any window
 
 
 class WgradTiles(NamedTuple):
-    """K3 dw's tiling of one geometry: ``tpw`` taps a consumer warpgroup,
-    ``nwg`` warpgroups (64 out-channels each), ``stages`` chunks in flight,
-    ``win_rows`` x rows a chunk's window, ``runs`` runs of taps, ``smem``."""
+    """K3 dw's tiling of one geometry: ``nb`` out-channels a block, ``tpw``
+    taps a consumer warpgroup, ``xboxes`` 64-channel x boxes a block (2: the
+    warpgroups take 64 in-channels each at the same taps; 1: the same 64
+    in-channels at tpw taps each), ``taps`` a block, ``runs`` runs of taps,
+    ``win_rows`` x rows a chunk's window, ``stages`` chunks in flight,
+    ``smem`` a block's shared memory."""
+    nb: int
     tpw: int
-    nwg: int
-    stages: int
-    win_rows: int
+    xboxes: int
+    taps: int
     runs: int
+    win_rows: int
+    stages: int
     smem: int
 
 
+def wgrad_smem(nb: int, xboxes: int, win_rows: int, stages: int) -> int:
+    """A K3 dw block's shared memory (csrc/denseconv_bwd.cu:wgrad_smem_bytes)."""
+    return 1024 + stages * (nb // 64 * WGRAD_ROWS * 128 + xboxes * win_rows * 128 + 16)
+
+
+# the plan's reckoning of a tile's time on one SM, in cycles: a chunk takes
+# the longer of its products at the dense bf16 rate (4096 FLOP a cycle) over
+# the share of it a tile width reaches with both operands in shared memory
+# and its staged bytes at WGRAD_STAGE_BYTES_PER_CYCLE; the tile's dw stores
+# one a cycle (a thread's taps of one weight in one store where they align)
+WGRAD_MMA_SHARE = {128: 0.8, 64: 0.65}
+WGRAD_STAGE_BYTES_PER_CYCLE = 48
+
+
 @functools.lru_cache(maxsize=512)
-def dense_wgrad_tiles(Ci: int, Co: int, K: int, dilation: int) -> WgradTiles:
-    """K3 dw's tiles: min(K, WGRAD_MAX_TPW) taps a warpgroup, two
-    warpgroups where Co is past 64, one else; the window of 64 rows and the
-    run's taps. Raises ValueError for what the kernel does not take."""
+def dense_wgrad_tiles(Ci: int, Co: int, K: int, dilation: int,
+                      n_chunks: int = 1024) -> WgradTiles:
+    """K3 dw's tiles for a reduction of ``n_chunks`` 64-row chunks: of the
+    built (out-channels a block, taps a warpgroup) and the two ways of
+    sharing the block's x window, whose window fits a TMA box and whose two
+    stages fit shared memory, the one whose tiles take the fewest cycles in
+    all (WGRAD_MMA_SHARE, WGRAD_STAGE_BYTES_PER_CYCLE: the products, taps
+    past K and channels past Ci and Co included, against the bytes staged,
+    and the stores), then the fewest bytes staged. Raises ValueError for
+    what the kernel does not take."""
     _check_channels("denseconv dw", Ci, Co, K, dilation)
-    if Ci * K > WGRAD_REDUCE_FLOATS:
-        raise ValueError(f"denseconv dw: an out-channel's {Ci} x {K} sums past the reduction's "
-                         f"48 KB")
-    tpw = min(K, WGRAD_MAX_TPW)
-    nwg = 2 if Co > 64 else 1
-    win_rows = _round_up(WGRAD_ROWS + (tpw - 1) * dilation, 8)
-    if win_rows > WGRAD_MAX_WINDOW:
-        raise ValueError(f"denseconv dw: a window of {win_rows} rows (dilation {dilation}) "
-                         f"past a TMA box's {WGRAD_MAX_WINDOW}")
-    smem = 1024 + WGRAD_STAGES * (nwg * 8 * WGRAD_ROWS * 16 + 8 * win_rows * 16) + \
-        16 * WGRAD_STAGES
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"denseconv dw: {smem} bytes of shared memory")
-    return WgradTiles(tpw, nwg, WGRAD_STAGES, win_rows, -(-K // tpw), smem)
+    best = None
+    for nb, xboxes in ((128, 2), (128, 1), (64, 2), (64, 1)):
+        for tpw in WGRAD_TPW[nb]:
+            taps = tpw * (3 - xboxes)
+            if taps > 2 * K:
+                continue
+            win = _round_up(WGRAD_ROWS + (taps - 1) * dilation, 8)
+            stage = nb // 64 * WGRAD_ROWS * 128 + xboxes * win * 128
+            stages = min(WGRAD_STAGES, (SMEM_LIMIT - 1024) // (stage + 16))
+            if win > MAX_WINDOW or stages < 2:
+                continue
+            tiles = -(-K // taps) * -(-Ci // (64 * xboxes)) * -(-Co // nb)
+            mma = 2 * WGRAD_ROWS * taps * 64 * xboxes * nb / 4096 / WGRAD_MMA_SHARE[nb]
+            vec = tpw if tpw in (2, 4) and K % tpw == 0 else 1
+            cycles = n_chunks * max(mma, stage / WGRAD_STAGE_BYTES_PER_CYCLE) + \
+                64 * xboxes * nb * taps / vec
+            key = (tiles * cycles, tiles * stage)
+            if best is None or key < best[0]:
+                best = (key, WgradTiles(nb, tpw, xboxes, taps, -(-K // taps), win, stages,
+                                        wgrad_smem(nb, xboxes, win, stages)))
+    return best[1]   # one tap on two boxes fits any dilation
 
 
 class WgradPlan(NamedTuple):
-    """K3 dw's plan: its tiles and ``splits`` ranges of the reduction's
-    ``n_chunks`` 64-row chunks; ``args`` go to the C entry point, which
-    checks them; the partial sums take ``part_floats`` of fp32 scratch."""
+    """K3 dw's plan: its tiles, ``n_tiles`` of them, each in ``splits``
+    ranges of the reduction's ``n_chunks`` 64-row chunks; ``args`` go to
+    the C entry point, which checks them; split tiles' partial sums take
+    ``ws_floats`` of fp32 workspace (0 unsplit) and two int32 counters a
+    tile."""
     tiles: WgradTiles
+    n_tiles: int
     splits: int
     n_chunks: int
-    part_floats: int
+    ws_floats: int
 
     @property
     def args(self) -> tuple[int, ...]:
         t = self.tiles
-        return (t.tpw, t.nwg, t.stages, t.win_rows, self.splits)
+        return (t.nb, t.tpw, t.xboxes, t.stages, t.win_rows, self.splits)
 
 
 @functools.lru_cache(maxsize=512)
 def dense_wgrad_plan(B: int, T_out: int, Ci: int, Co: int, K: int, dilation: int,
                      sms: int) -> WgradPlan:
-    """K3 dw's plan on a card of ``sms`` SMs: ``dense_wgrad_tiles``, and
-    splits enough for two blocks an SM, at most one a chunk."""
-    tiles = dense_wgrad_tiles(Ci, Co, K, dilation)
+    """K3 dw's plan on a card of ``sms`` SMs: ``dense_wgrad_tiles``; splits
+    only where the tiles fill less than half the card, then as many as keep
+    a block an SM (the split launch is cooperative: its blocks are all
+    resident), at most one a chunk."""
     n_chunks = B * -(-T_out // WGRAD_ROWS)
-    base = -(-Ci // 64) * -(-Co // (64 * tiles.nwg)) * tiles.runs
-    splits = max(1, min(n_chunks, -(-2 * sms // base)))
-    return WgradPlan(tiles, splits, n_chunks, splits * K * Co * Ci)
+    t = dense_wgrad_tiles(Ci, Co, K, dilation, n_chunks)
+    n_tiles = -(-Ci // (64 * t.xboxes)) * -(-Co // t.nb) * t.runs
+    splits = 1 if 2 * n_tiles > sms else min(n_chunks, sms // n_tiles)
+    ws = 0 if splits == 1 else n_tiles * splits * t.tpw * t.nb // 2 * WGRAD_CONSUMERS
+    return WgradPlan(t, n_tiles, splits, n_chunks, ws)
 
 
 def dense_kernel_takes(Ci: int, Co: int, K: int, dilation: int) -> bool:
@@ -162,8 +254,8 @@ def dense_kernel_takes(Ci: int, Co: int, K: int, dilation: int) -> bool:
     input and Co output channels, K taps at ``dilation``: the route's one
     decision, from the shape alone (``ops.conv.conv1d``)."""
     try:
-        dense_plan(Ci, Co, K)
-        dense_plan(Co, Ci, K)
+        dense_plan(Ci, Co, K, dilation)
+        dense_plan(Co, Ci, K, dilation)
         dense_wgrad_tiles(Ci, Co, K, dilation)
     except ValueError:
         return False
@@ -232,12 +324,22 @@ class DenseConvKernel:
     """Wrapper of the CUDA kernels: checks its inputs, allocates outputs and
     scratch, launches on the current stream and counts the launches of each
     kernel: ``launches`` (K3), ``launches_dx`` (K3 over the flipped taps)
-    and ``launches_dw`` (K3 dw and its reduction)."""
+    and ``launches_dw`` (K3 dw: one launch a call, its split sums inside)."""
 
     def __init__(self):
         self.launches = 0
         self.launches_dx = 0
         self.launches_dw = 0
+        self._counters: dict[torch.device, torch.Tensor] = {}
+
+    def _tile_counters(self, device: torch.device, n: int) -> torch.Tensor:
+        """K3 dw's zeroed int32 counters, two a split tile: kept per device
+        (the kernel leaves them zeroed), grown as a plan needs."""
+        c = self._counters.get(device)
+        if c is None or c.numel() < n:
+            c = self._counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                     device=device)
+        return c
 
     def _conv(self, xb: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None, T_out: int,
               N: int, dilation: int, pad_l: int, flip: bool) -> torch.Tensor:
@@ -256,7 +358,7 @@ class DenseConvKernel:
         if T_out < 1:
             raise ValueError(f"denseconv: {T} rows give no output for K {K} at dilation "
                              f"{dilation}")
-        plan = dense_plan(C, N, K)
+        plan = dense_plan(C, N, K, dilation, B * -(-T_out // SLOT), sm_count(xb.device.index))
         lib = native.load()
         y = torch.empty(B, T_out, N, device=xb.device)
         wq = torch.empty(N, K * _round_up(C, CHUNK), dtype=torch.bfloat16, device=xb.device)
@@ -311,11 +413,15 @@ class DenseConvKernel:
         plan = dense_wgrad_plan(B, T_out, Ci, Co, K, dilation, sm_count(xb.device.index))
         lib = native.load()
         dw = torch.empty(Co, Ci, K, device=xb.device)
-        part = torch.empty(plan.part_floats, device=xb.device)
+        ws = counters = None
+        if plan.splits > 1:
+            ws = torch.empty(plan.ws_floats, device=xb.device)
+            counters = self._tile_counters(xb.device, 2 * plan.n_tiles)
         with _current(xb.device):
             err = lib.denseconv_weight_grad(
-                xb.data_ptr(), gyb.data_ptr(), part.data_ptr(), dw.data_ptr(), B, T, Ci, T_out,
-                Co, K, dilation, padding[0], *plan.args,
+                xb.data_ptr(), gyb.data_ptr(), None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), dw.data_ptr(), B, T, Ci,
+                T_out, Co, K, dilation, padding[0], *plan.args,
                 torch.cuda.current_stream(xb.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"denseconv dw kernel launch failed: cudaError {err}")

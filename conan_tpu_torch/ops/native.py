@@ -138,19 +138,20 @@ def load() -> ctypes.CDLL:
     # stride, pad_l and the plan's (nwg, splits, stg_rows, tpw, nbt, n_tb), stream
     lib.groupconv_weight_grad_bf16.argtypes = [P, P, P, P, *[I] * 15, P]
     # K3: x, w, wq (the weights' layout, written), bias or None, y, B, T, C,
-    # T_out, N, K, dilation, pad_l, flip, and the plan's (bn, nwg, stages),
-    # stream
-    lib.denseconv_forward.argtypes = [P, P, P, P, P, *[I] * 12, P]
+    # T_out, N, K, dilation, pad_l, flip, and the plan's (bn, mi, tpr,
+    # win_rows, wstages, xstages), stream
+    lib.denseconv_forward.argtypes = [P, P, P, P, P, *[I] * 15, P]
     # w, wq, N, C, K, flip, stream
     lib.denseconv_weights.argtypes = [P, P, I, I, I, I, P]
-    # x, wq, B, T, C, N, K, bn, maps (256 bytes, written)
-    lib.denseconv_describe.argtypes = [P, P, I, I, I, I, I, I, P]
-    # maps, bias or None, y, B, T_out, C, N, K, dilation, pad_l, bn, nwg,
-    # stages, stream
-    lib.denseconv_run.argtypes = [P, P, P, *[I] * 10, P]
-    # K3 dw: x, gy, part, dw, B, T, C, T_out, N, K, dilation, pad_l and the
-    # plan's (tpw, nwg, stages, win_rows, splits), stream
-    lib.denseconv_weight_grad.argtypes = [P, P, P, P, *[I] * 13, P]
+    # x, wq, B, T, C, N, K, bn, win_rows, maps (256 bytes, written)
+    lib.denseconv_describe.argtypes = [P, P, I, I, I, I, I, I, I, P]
+    # maps, bias or None, y, B, T_out, C, N, K, dilation, pad_l, and the
+    # plan's (bn, mi, tpr, win_rows, wstages, xstages), stream
+    lib.denseconv_run.argtypes = [P, P, P, *[I] * 13, P]
+    # K3 dw: x, gy, ws or None, counters or None, dw, B, T, C, T_out, N, K,
+    # dilation, pad_l and the plan's (nb, tpw, xboxes, stages, win_rows,
+    # splits), stream
+    lib.denseconv_weight_grad.argtypes = [P, P, P, P, P, *[I] * 14, P]
     for fn in (lib.groupconv_forward_bf16, lib.groupconv_bf16_weights,
                lib.groupconv_bf16_describe, lib.groupconv_bf16_conv,
                lib.groupconv_input_grad_bf16, lib.groupconv_bf16_dx_weights,

@@ -1272,10 +1272,57 @@ def test_denseconv_launch_failure_raises(monkeypatch):
     dev = _card()
     x, w, b, _gy = _dense_operands((2, 100, 64, 64, 3, 1, 1, 1), dev)
     kernel = dc.DenseConvKernel()
-    monkeypatch.setattr(dc, "dense_plan", lambda C, N, K: dc.DensePlan(32, 2, 4, 0))
+    monkeypatch.setattr(dc, "dense_plan", lambda *args: dc.DensePlan(32, 2, 1, 64, 4, 2, 0, 1))
     with training_scope("default", dev), pytest.raises(RuntimeError, match="launch failed"):
         kernel(x, w, b, padding=(1, 1))
     assert kernel.launches == 0
+
+
+# K3's kernels at the edges of their plans, each result against the float64
+# plain version within DENSE_REL and dw twice the same bits: (B, T, Ci, Co,
+# K, dilation, pad_l, pad_r, dw split): K = 1 (dw's tiles split), K = 31 in
+# one window, the conv2d fold's 8-channel input at dilation 40, 32 and 80
+# channels (tiles and chunks past the channels), 1024 -> 1024 on a few
+# short rows (dw unsplit, the forward's
+# tiles of one slot a warpgroup), a left pad past dilation*(K-1) (dx's
+# windows start past its rows), windows past a TMA box (taps in runs)
+K3_EDGE_CASES = [(2, 300, 256, 512, 1, 1, 0, 0, True), (2, 150, 256, 512, 31, 1, 15, 15, None),
+                 (3, 700, 8, 128, 2, 40, 40, 0, None), (2, 1000, 32, 32, 11, 5, 50, 0, True),
+                 (2, 300, 80, 160, 5, 1, 2, 2, None), (2, 200, 160, 80, 1, 1, 0, 0, True),
+                 (18, 110, 1024, 1024, 5, 1, 2, 2, False), (2, 120, 64, 64, 3, 1, 5, 0, None),
+                 (1, 400, 16, 24, 5, 60, 240, 0, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_EDGE_CASES)
+def test_denseconv_kernels_at_their_plans_edges(case):
+    """K3, its dx and dw through the wrapper on the card, one launch each,
+    against the plain versions in float64 within DENSE_REL; dw a second
+    time the same bits (split sums added in a fixed order, no atomics); the
+    dw plan split or not as the case says."""
+    from chip_smoke import DENSE_REL, rel_l2
+    from conan_tpu_torch.ops import denseconv as dc
+    from conan_tpu_torch.ops.groupconv import sm_count
+
+    dev = _card()
+    B, T, Ci, Co, K, d, pl, pr, split = case
+    x, w, b, gy = _dense_operands(case[:8], dev)
+    conv = dict(dilation=d, padding=(pl, pr))
+    plan = dc.dense_wgrad_plan(B, gy.shape[1], Ci, Co, K, d, sm_count(dev.index or 0))
+    if split is not None:
+        assert (plan.splits > 1) == split
+    kernel = dc.DenseConvKernel()
+    xb, gyb = dc._bf16_operand(x, "x"), dc._bf16_operand(gy, "gy")
+    got = (kernel.launch(xb, w, b, **conv), kernel.input_grad(gyb, w, x.shape, **conv),
+           kernel.weight_grad(xb, gyb, w.shape, **conv))
+    again = kernel.weight_grad(xb, gyb, w.shape, **conv)
+    torch.cuda.synchronize()
+    assert (kernel.launches, kernel.launches_dx, kernel.launches_dw) == (1, 1, 2)
+    want = _dense_want(x, w, b, gy, case[:8])[:3]
+    for name, a, ref in zip(("y", "dx", "dw"), got, want):
+        assert a.dtype == torch.float32 and a.shape == ref.shape, name
+        assert rel_l2(a.double(), ref) <= DENSE_REL, name
+    assert torch.equal(got[2], again)
 
 
 # The rest of the "default" rung (ops/conv.py's folds, ops/precision.py's

@@ -52,9 +52,15 @@ def _operands(case, seed):
 
 # (B, T, Ci, Co, K, dilation, pad_l, pad_r): symmetric k = 3 and 31, causal
 # k = 5 (pad_r 0), causal dilated k = 3 at dilation 5, k = 1, dilated
-# symmetric k = 5
+# symmetric k = 5, causal k = 5 at dilation 60 (K3's window then takes
+# its taps in two runs), channels past 64 (two chunks, the second mostly
+# the zeros past C)
 CASES = [(2, 40, 16, 24, 3, 1, 1, 1), (1, 50, 8, 16, 31, 1, 15, 15), (2, 33, 16, 8, 5, 1, 4, 0),
-         (2, 37, 8, 16, 3, 5, 10, 0), (3, 20, 24, 16, 1, 1, 0, 0), (1, 45, 16, 16, 5, 2, 4, 4)]
+         (2, 37, 8, 16, 3, 5, 10, 0), (3, 20, 24, 16, 1, 1, 0, 0), (1, 45, 16, 16, 5, 2, 4, 4),
+         (1, 300, 8, 16, 5, 60, 240, 0), (1, 70, 80, 40, 3, 1, 1, 1)]
+# and a left pad past dilation*(K-1): dx's window starts past its rows
+# (pad_l negative)
+LAYOUT_CASES = CASES + [(2, 40, 16, 24, 3, 1, 5, 0)]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -84,28 +90,46 @@ def test_plain_versions_match_jax_conv1d(case):
 
 
 def _emulate(src: torch.Tensor, wq: torch.Tensor, C: int, K: int, d: int, pad_l: int,
-             T_out: int) -> torch.Tensor:
-    """What csrc/denseconv.cu computes, in float64: for each tap j the rows
-    t + j*d - pad_l of src (zero outside, as TMA fills), times the layout's
-    columns j*Cp .. j*Cp + C."""
+             T_out: int, plan=None) -> torch.Tensor:
+    """What csrc/denseconv.cu computes, in float64, as dense_plan tiles it:
+    for each m64 slot (64 output rows t0 .. of one batch row), 64-channel
+    chunk c and run r of plan.tpr taps, the slot's window of plan.win_rows
+    rows from t0 + r*tpr*d - pad_l (zero outside [0, T) and past C, as TMA
+    fills); tap j's A the window's rows (j - r*tpr)*d on, times the
+    layout's 64 columns (j*nci + c)*64 .. (zero past C)."""
     B, T, _ = src.shape
-    Cp = wq.shape[1] // K
-    y = torch.zeros(B, T_out, wq.shape[0], dtype=torch.float64)
-    for j in range(K):
-        rows = torch.arange(T_out) + j * d - pad_l
-        ok = (rows >= 0) & (rows < T)
-        a = torch.zeros(B, T_out, C, dtype=torch.float64)
-        a[:, ok] = src[:, rows[ok]].double()
-        y += a @ wq[:, j * Cp:j * Cp + C].double().T
-    return y
+    N = wq.shape[0]
+    nci = -(-C // 64)
+    slots = -(-T_out // dc.SLOT)
+    plan = plan or dc.dense_plan(C, N, K, d, B * slots, 132)
+    runs = -(-K // plan.tpr)
+    assert runs * plan.tpr >= K and plan.win_rows >= dc.SLOT + (plan.tpr - 1) * d
+    xs = src.double()
+    y = torch.zeros(B, slots * dc.SLOT, N, dtype=torch.float64)
+    for slot in range(slots):
+        t0 = slot * dc.SLOT
+        for c in range(nci):
+            for r in range(runs):
+                rows = torch.arange(plan.win_rows) + t0 + r * plan.tpr * d - pad_l
+                ok = (rows >= 0) & (rows < T)
+                win = torch.zeros(B, plan.win_rows, 64, dtype=torch.float64)
+                win[:, ok, :min(64, C - 64 * c)] = xs[:, rows[ok], 64 * c:64 * c + 64]
+                for j in range(r * plan.tpr, min(K, (r + 1) * plan.tpr)):
+                    o = (j - r * plan.tpr) * d
+                    col = (j * nci + c) * 64
+                    y[:, t0:t0 + dc.SLOT] += win[:, o:o + dc.SLOT] @ \
+                        wq[:, col:col + 64].double().T
+    return y[:, :T_out]
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", LAYOUT_CASES)
 def test_weight_layouts_rebuild_the_conv_and_its_input_gradient(case):
-    """kernel_weights (the forward's layout) over the taps' row windows is
-    the conv of the rounded operands; kernel_weights_dx over gy's windows
-    padded by dilation*(K-1) - pad_l is its input gradient; both in float64
-    to 1e-12, and the layouts' padding channels are zero."""
+    """kernel_weights (the forward's layout) over dense_plan's windows and
+    taps is the conv of the rounded operands; kernel_weights_dx over gy's
+    windows padded by dilation*(K-1) - pad_l (negative where pad_l is past
+    it) is its input gradient; both in float64 to 1e-12, and the layouts'
+    padding channels are zero. The windows also as a plan of one tap a run
+    (a window of 64 rows, every tap its own run)."""
     B, T, Ci, Co, K, d, pl, pr = case
     x, w, _b, gy = (torch.from_numpy(a) for a in _operands(case, seed=7 + sum(case)))
     conv = dict(dilation=d, padding=(pl, pr))
@@ -114,64 +138,252 @@ def test_weight_layouts_rebuild_the_conv_and_its_input_gradient(case):
     assert wq_dx.shape == (Ci, K * dc._round_up(Co, 64))
     assert not wq.view(Co, K, -1)[:, :, Ci:].any() and not wq_dx.view(Ci, K, -1)[:, :, Co:].any()
     xr = x.to(torch.bfloat16)
-    y = _emulate(xr, wq, Ci, K, d, pl, gy.shape[1])
     want = dc.dense_conv1d_bf16_reference(x.double(), w.double(), **conv)
-    assert _rel(y, want) <= 1e-12
-    dx = _emulate(gy.to(torch.bfloat16), wq_dx, Co, K, d, d * (K - 1) - pl, T)
     want_dx = dc.dense_conv1d_bf16_input_grad_reference(gy.double(), w.double(), x.shape, **conv)
-    assert _rel(dx, want_dx) <= 1e-12
+    one_tap = dc.DensePlan(128, 1, 1, 64, 4, 2, 0, 0)
+    for plan in (None, one_tap):
+        y = _emulate(xr, wq, Ci, K, d, pl, gy.shape[1], plan)
+        assert _rel(y, want) <= 1e-12
+        dx = _emulate(gy.to(torch.bfloat16), wq_dx, Co, K, d, d * (K - 1) - pl, T, plan)
+        assert _rel(dx, want_dx) <= 1e-12
 
 
-@pytest.mark.parametrize("case", [(3, 150, 16, 136, 11, 3, 30, 0), (2, 70, 8, 8, 5, 1, 2, 2),
-                                  (1, 200, 72, 16, 1, 1, 0, 0)])
-def test_weight_grad_tiling_rebuilds_dw(case):
-    """K3 dw's tiling as csrc/denseconv_bwd.cu walks it (dense_wgrad_plan's
-    runs of taps, each a window from t0 + j0*dilation - pad_l; 64-row
-    chunks of one batch row; the splits' partial sums added in order), in
-    float64 on the rounded operands: dw of the plain version to 1e-12."""
-    B, T, Ci, Co, K, d, pl, pr = case
-    x, w, _b, gy = (torch.from_numpy(a) for a in _operands(case, seed=3 + sum(case)))
+def _fragment_coords(regs: int):
+    """For each consumer thread u (256) and accumulator register rr of an
+    m64n(2*regs) tile: (warpgroup, row m, column q), the wgmma layout."""
+    u = torch.arange(dc.WGRAD_CONSUMERS)[:, None]
+    rr = torch.arange(regs)[None, :]
+    wg, wl, gid, tig = u // 128, (u // 32) % 4, (u % 32) // 4, u % 4
+    m = wl * 16 + gid + 8 * ((rr // 2) % 2)
+    q = 8 * (rr // 4) + 2 * tig + rr % 2
+    return wg.expand(-1, regs), m, q
+
+
+def _emulate_dw(x: torch.Tensor, gy: torch.Tensor, Co: int, K: int, d: int, pl: int,
+                sms: int) -> tuple[torch.Tensor, object]:
+    """What csrc/denseconv_bwd.cu computes, in float64, as dense_wgrad_plan
+    tiles it: for each tile (in-channel tile, out-channel tile, run) and
+    split, every chunk of 64 rows of one batch row: gy's rows for the
+    tile's nb out-channels and each warpgroup's x window (its 64-channel box
+    and taps: the same taps on two boxes, or two runs of tpw taps on one),
+    tap p the window's rows p*dilation on (a tap past K repeats the last);
+    the accumulators as the threads' registers; an unsplit tile stored from
+    the registers, a split one through the workspace (element r of thread u
+    at r*256 + u), each split adding its share of the elements over the
+    splits in order and decoding each element's register back to dw. Every
+    dw element must be written once (NaN left otherwise)."""
+    B, T, Ci = x.shape
     T_out = gy.shape[1]
-    plan = dc.dense_wgrad_plan(B, T_out, Ci, Co, K, d, sms=4)
-    tiles = plan.tiles
+    plan = dc.dense_wgrad_plan(B, T_out, Ci, Co, K, d, sms)
+    t = plan.tiles
+    regs = t.nb // 2
+    E = t.tpw * regs * dc.WGRAD_CONSUMERS
     xr, gr = x.to(torch.bfloat16).double(), gy.to(torch.bfloat16).double()
     cpr = -(-T_out // dc.WGRAD_ROWS)
-    part = torch.zeros(plan.splits, K, Co, Ci, dtype=torch.float64)
-    for sp in range(plan.splits):
-        for c in range(sp * plan.n_chunks // plan.splits, (sp + 1) * plan.n_chunks // plan.splits):
-            b, t0 = c // cpr, (c % cpr) * dc.WGRAD_ROWS
-            g = torch.zeros(dc.WGRAD_ROWS, Co, dtype=torch.float64)
-            n = min(dc.WGRAD_ROWS, T_out - t0)
-            g[:n] = gr[b, t0:t0 + n]
-            for run in range(tiles.runs):
-                j0 = run * tiles.tpw
-                rows = torch.arange(tiles.win_rows) + t0 + j0 * d - pl
+    n_c, n_n = -(-Ci // (64 * t.xboxes)), -(-Co // t.nb)
+    assert plan.n_tiles == n_c * n_n * t.runs and t.runs * t.taps >= K
+    assert plan.ws_floats == (0 if plan.splits == 1 else plan.n_tiles * plan.splits * E)
+    wg, m, q = _fragment_coords(regs)
+    dw = torch.full((Co, Ci, K), float("nan"), dtype=torch.float64)
+    written = torch.zeros(Co, Ci, K, dtype=torch.int64)
+
+    def store(n, ci, j, v):
+        ok = (j < K) & (ci < Ci) & (n < Co)
+        dw[n[ok], ci[ok], j[ok]] = v[ok]
+        written.index_put_((n[ok], ci[ok], j[ok]), torch.ones_like(n[ok]), accumulate=True)
+
+    for tile in range(plan.n_tiles):
+        ct, nt, run = tile % n_c, (tile // n_c) % n_n, tile // (n_c * n_n)
+        c0, n0, j0 = ct * 64 * t.xboxes, nt * t.nb, run * t.taps
+        xq = [w if t.xboxes == 2 else 0 for w in (0, 1)]
+        tb0 = [0 if t.xboxes == 2 else w * t.tpw for w in (0, 1)]
+        parts = []
+        for sp in range(plan.splits):
+            acc = torch.zeros(2, t.tpw, 64, t.nb, dtype=torch.float64)
+            for c in range(sp * plan.n_chunks // plan.splits,
+                           (sp + 1) * plan.n_chunks // plan.splits):
+                b, t0 = c // cpr, (c % cpr) * dc.WGRAD_ROWS
+                g = torch.zeros(dc.WGRAD_ROWS, t.nb, dtype=torch.float64)
+                gsl = gr[b, t0:t0 + dc.WGRAD_ROWS, n0:n0 + t.nb]
+                g[:gsl.shape[0], :gsl.shape[1]] = gsl
+                rows = torch.arange(t.win_rows) + t0 + j0 * d - pl
                 ok = (rows >= 0) & (rows < T)
-                win = torch.zeros(tiles.win_rows, Ci, dtype=torch.float64)
-                win[ok] = xr[b, rows[ok]]
-                for p in range(tiles.tpw):
-                    j = j0 + p
-                    if j < K:
-                        part[sp, j] += g.T @ win[p * d:p * d + dc.WGRAD_ROWS]
-    dw = part.sum(0).permute(1, 2, 0)
+                for w in (0, 1):
+                    win = torch.zeros(t.win_rows, 64, dtype=torch.float64)
+                    xsl = xr[b][rows[ok]][:, c0 + 64 * xq[w]:c0 + 64 * xq[w] + 64]
+                    win[ok, :xsl.shape[1]] = xsl
+                    for p in range(t.tpw):
+                        o = (min(j0 + tb0[w] + p, K - 1) - j0) * d
+                        acc[w, p] += win[o:o + dc.WGRAD_ROWS].T @ g
+            # registers: reg[u, p, rr] = acc[wg(u), p, m(u, rr), q(u, rr)]
+            reg = torch.stack([acc[wg, p, m, q] for p in range(t.tpw)], 1)
+            parts.append(reg)
+        # the coordinates of register (u, p, rr): tap, in-channel, out-channel
+        p_idx = torch.arange(t.tpw)[None, :, None]
+        j = j0 + torch.where(wg == 1, tb0[1], tb0[0])[:, None, :] + p_idx
+        ci = c0 + torch.where(wg == 1, 64 * xq[1], 64 * xq[0])[:, None, :] + m[:, None, :]
+        n = n0 + q[:, None, :].expand(-1, t.tpw, -1)
+        ci = ci.expand(-1, t.tpw, -1)
+        if plan.splits == 1:
+            store(n.flatten(), ci.flatten(), j.flatten(), parts[0].flatten())
+            continue
+        ws = torch.stack([r.permute(1, 2, 0).reshape(-1) for r in parts])   # [split][E]
+        for sp in range(plan.splits):
+            lo, hi = sp * E // plan.splits, (sp + 1) * E // plan.splits
+            e = torch.arange(lo, hi)
+            v = ws[0, e].clone()
+            for qq in range(1, plan.splits):
+                v += ws[qq, e]
+            r, u = e // dc.WGRAD_CONSUMERS, e % dc.WGRAD_CONSUMERS
+            p, rr = r // regs, r % regs
+            uwg, uwl, ugid, utig = u // 128, (u // 32) % 4, (u % 32) // 4, u % 4
+            jj = j0 + (0 if t.xboxes == 2 else 1) * uwg * t.tpw + p
+            cc = c0 + (64 if t.xboxes == 2 else 0) * uwg + uwl * 16 + ugid + 8 * ((rr // 2) % 2)
+            nn = n0 + 8 * (rr // 4) + 2 * utig + rr % 2
+            store(nn, cc, jj, v)
+    assert torch.equal(written, torch.ones_like(written)), "each dw element written once"
+    return dw, plan
+
+
+@pytest.mark.parametrize("sms", [132, 4])
+@pytest.mark.parametrize("case", [(3, 150, 16, 136, 11, 3, 30, 0), (2, 70, 8, 8, 5, 1, 2, 2),
+                                  (1, 200, 72, 16, 1, 1, 0, 0), (2, 100, 24, 256, 3, 2, 4, 0),
+                                  (1, 90, 16, 128, 31, 1, 15, 15)])
+def test_weight_grad_tiling_rebuilds_dw(case, sms):
+    """K3 dw's tiling as csrc/denseconv_bwd.cu walks it (_emulate_dw: the
+    tiles, each warpgroup's x box and taps, the windows' tap offsets, the
+    splits' partial sums in the workspace added in split order and decoded
+    back to dw), in float64 on the rounded operands: every dw element once,
+    equal to the plain version's to 1e-12; on a card of 132 SMs and of 4
+    (whose split tiles take the workspace)."""
+    B, T, Ci, Co, K, d, pl, pr = case
+    x, w, _b, gy = (torch.from_numpy(a) for a in _operands(case, seed=3 + sum(case)))
+    dw, plan = _emulate_dw(x, gy, Co, K, d, pl, sms)
     want = dc.dense_conv1d_bf16_weight_grad_reference(x.double(), gy.double(), w.shape,
                                                       dilation=d, padding=(pl, pr))
     assert _rel(dw, want) <= 1e-12
-    assert plan.part_floats == plan.splits * K * Co * Ci and 1 <= plan.splits <= plan.n_chunks
+    assert 1 <= plan.splits <= plan.n_chunks
 
 
 @pytest.mark.parametrize("Ci,Co,K,d,what", [
     (4, 16, 3, 1, "channels"), (16, 12, 3, 1, "channels"), (1, 128, 15, 1, "channels"),
-    (1024, 1, 3, 1, "channels"), (16, 16, 0, 1, "taps"), (2048, 64, 7, 1, "sums"),
-    (64, 64, 4, 80, "window")])
+    (1024, 1, 3, 1, "channels"), (16, 16, 0, 1, "taps"), (2048, 64, 7, 0, "dilation"),
+    (64, 64, 4, -80, "dilation")])
 def test_plans_raise_on_what_the_kernels_do_not_take(Ci, Co, K, d, what):
     """dense_plan and dense_wgrad_tiles raise ValueError for what K3, its dx
     or its dw does not take, and the route's predicate says no."""
     with pytest.raises(ValueError):
-        dc.dense_plan(Ci, Co, K)
-        dc.dense_plan(Co, Ci, K)
+        dc.dense_plan(Ci, Co, K, d)
+        dc.dense_plan(Co, Ci, K, d)
         dc.dense_wgrad_tiles(Ci, Co, K, d)
     assert not dc.dense_kernel_takes(Ci, Co, K, d), what
+
+
+@pytest.mark.parametrize("Ci,Co,K,d", [(2048, 64, 7, 1), (64, 64, 4, 80), (8, 128, 31, 200)])
+def test_plans_take_what_the_first_kernels_refused(Ci, Co, K, d):
+    """What the first K3 dw refused, its kernels now take: an out-channel's
+    C x K sums past 48 KB (they went through a reduction launch's shared
+    memory; now each tile's own registers), windows past a TMA box (each
+    kernel now takes its taps in runs whose windows fit, one tap a run at
+    the least)."""
+    assert dc.dense_kernel_takes(Ci, Co, K, d)
+    fwd, dw = dc.dense_plan(Ci, Co, K, d), dc.dense_wgrad_tiles(Ci, Co, K, d)
+    assert fwd.win_rows <= dc.MAX_WINDOW and dw.win_rows <= dc.MAX_WINDOW
+
+
+def _source(name: str) -> str:
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "conan_tpu_torch", "csrc", name)) as f:
+        return f.read()
+
+
+def test_plans_match_the_kernels_built():
+    """The plans choose among what the sources instantiate, with their
+    constants: DENSE_TILES against denseconv.cu's DENSECONV_BUILT, kSlot,
+    kChunk, kNwg, kMaxWindow; WGRAD_TPW against denseconv_bwd.cu's
+    DENSECONV_WGRAD_BUILT, kRows, kMaxWindow, kConsumers."""
+    import re
+
+    fwd, bwd = _source("denseconv.cu"), _source("denseconv_bwd.cu")
+
+    def built(src, name):
+        body = re.search(rf"#define {name}\(X\)(.*?)\n\n", src, re.S).group(1)
+        return [tuple(map(int, t)) for t in re.findall(r"X\((\d+), (\d+)\)", body)]
+
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert built(fwd, "DENSECONV_BUILT") == list(dc.DENSE_TILES)
+    assert (const(fwd, "kSlot"), const(fwd, "kChunk"), const(fwd, "kNwg"),
+            const(fwd, "kMaxWindow")) == (dc.SLOT, dc.CHUNK, dc.NWG, dc.MAX_WINDOW)
+    assert {nb: tuple(t for b, t in built(bwd, "DENSECONV_WGRAD_BUILT") if b == nb)
+            for nb in dc.WGRAD_TPW} == dc.WGRAD_TPW
+    assert (const(bwd, "kRows"), const(bwd, "kMaxWindow"), const(bwd, "kConsumers")) == (
+        dc.WGRAD_ROWS, dc.MAX_WINDOW, dc.WGRAD_CONSUMERS)
+
+
+@pytest.mark.parametrize("K,d", [(1, 1), (2, 40), (5, 11), (11, 5), (31, 1), (31, 8), (16, 1),
+                                 (4, 150)])
+@pytest.mark.parametrize("C,N", [(256, 512), (512, 256), (32, 32), (8, 128), (1024, 1024),
+                                 (80, 160)])
+def test_dense_plan_constraints(C, N, K, d):
+    """dense_plan's windows hold their run's taps in a TMA box (a multiple
+    of 8 rows, at most 256, the fewest runs); its tile is built and its
+    shared memory fits; it is the first of DENSE_TILES whose tiles reach
+    half the card where one does, else the one with the most tiles, never
+    64 wide where 128 wastes no more of N; 4 windows in flight where a
+    window serves fewer than 4 taps and they fit, else 2."""
+    for slots, sms in ((24 * 24, 132), (18, 132), (36, 132), (1, 1)):
+        plan = dc.dense_plan(C, N, K, d, slots, sms)
+        runs = -(-K // plan.tpr)
+        assert plan.win_rows % 8 == 0 and plan.win_rows <= dc.MAX_WINDOW
+        assert plan.win_rows >= dc.SLOT + (plan.tpr - 1) * d and runs * plan.tpr >= K
+        assert runs == 1 or dc.SLOT + (-(-K // (runs - 1)) - 1) * d > dc.MAX_WINDOW
+        assert (plan.bn, plan.mi) in dc.DENSE_TILES
+        assert plan.smem == dc.dense_smem(plan.bn, plan.mi, plan.win_rows, plan.xstages) \
+            <= dc.SMEM_LIMIT
+        if plan.tpr >= 4:
+            assert plan.xstages == 2
+        else:
+            assert plan.xstages == dc.DENSE_XSTAGES or dc.dense_smem(
+                plan.bn, plan.mi, plan.win_rows, plan.xstages + 1) > dc.SMEM_LIMIT
+        assert plan.tiles == -(-slots // (dc.NWG * plan.mi)) * -(-N // plan.bn)
+        widths = (128, 64) if dc._round_up(N, 128) <= dc._round_up(N, 64) else (64,)
+        tiles = {t: -(-slots // (dc.NWG * t[1])) * -(-N // t[0]) for t in dc.DENSE_TILES
+                 if t[0] in widths and dc.dense_smem(*t, plan.win_rows) <= dc.SMEM_LIMIT}
+        half = [t for t in tiles if 2 * tiles[t] >= sms]
+        assert (plan.bn, plan.mi) == (half[0] if half else max(tiles, key=tiles.get))
+
+
+@pytest.mark.parametrize("K,d", [(1, 1), (2, 40), (5, 1), (11, 5), (31, 1), (7, 3), (3, 200)])
+@pytest.mark.parametrize("Ci,Co", [(256, 512), (512, 256), (32, 32), (8, 128), (1024, 1024),
+                                   (80, 160), (1536, 1024)])
+def test_dense_wgrad_plan_constraints(Ci, Co, K, d):
+    """dense_wgrad_tiles: a built (nb, tpw), taps a block tpw * (3 -
+    xboxes), at most 2K, its window in a TMA box, two stages at least in
+    shared memory; dense_wgrad_plan: no split where the tiles fill half the
+    card, else splits whose blocks are all resident at once (a block an SM)
+    and at most one a chunk, the workspace only then."""
+    t = dc.dense_wgrad_tiles(Ci, Co, K, d, 24 * 24)
+    assert t.tpw in dc.WGRAD_TPW[t.nb] and t.xboxes in (1, 2)
+    assert t.taps == t.tpw * (3 - t.xboxes) <= 2 * K and t.runs == -(-K // t.taps)
+    assert t.win_rows % 8 == 0 and dc.WGRAD_ROWS + (t.taps - 1) * d <= t.win_rows <= 256
+    assert 2 <= t.stages <= dc.WGRAD_STAGES
+    assert t.smem == dc.wgrad_smem(t.nb, t.xboxes, t.win_rows, t.stages) <= dc.SMEM_LIMIT
+    for B, T_out, sms in ((24, 1496, 132), (18, 125, 132), (1, 64, 132), (2, 300, 8)):
+        plan = dc.dense_wgrad_plan(B, T_out, Ci, Co, K, d, sms)
+        assert plan.n_chunks == B * -(-T_out // 64)
+        assert plan.tiles == dc.dense_wgrad_tiles(Ci, Co, K, d, plan.n_chunks)
+        if 2 * plan.n_tiles > sms:
+            assert plan.splits == 1 and plan.ws_floats == 0
+        else:
+            assert plan.splits == min(plan.n_chunks, sms // plan.n_tiles)
+            assert plan.n_tiles * plan.splits <= sms
+            pt = plan.tiles
+            assert plan.ws_floats == (0 if plan.splits == 1 else plan.n_tiles * plan.splits
+                                      * pt.tpw * pt.nb // 2 * dc.WGRAD_CONSUMERS)
 
 
 # the production geometries (Ci, Co, K, dilation) of the Conan, vocoder and

@@ -8,6 +8,9 @@ ship.
     python3 tools/torch_denseconv_lab.py k3 [--watchdog]
     python3 tools/torch_denseconv_lab.py route PARENT_DIR
     python3 tools/torch_denseconv_lab.py host PARENT_DIR
+    python3 tools/torch_denseconv_lab.py profile DIR [DIR ...] [--variants V,..] [--k3] [--watchdog]
+    python3 tools/torch_denseconv_lab.py compare PARENT_DIR
+    python3 tools/torch_denseconv_lab.py sweep
 
 step0  each training task's step at its chip_smoke.py shape (Conan and the
        postnet B=24 x 1496 frames of synthesized features, the vocoder
@@ -62,6 +65,29 @@ host   the vocoder's training step (egs/soak_r5/vocoder.yaml, chip_smoke.py's
        their own. Last, each variant's steps over all processes: median,
        quartiles, and the change's variants minus "rounded" in the same
        round.
+profile  K3's kernels of each DIR (a `git archive` of a commit, or "." for
+       this tree) on PROFILE_GEOMETRIES, each built three ways from its
+       csrc/ into build/denseconv_lab/: as it is ("full"), with every wgmma
+       statement taken out ("loads": the TMA loads, barriers and epilogue
+       alone) and with every TMA load taken out and its barrier expecting
+       no bytes ("mma": the products on whatever shared memory holds);
+       --variants takes a subset, --k3 K3_GEOMETRIES instead. Each
+       library runs the tree's own chip_smoke.denseconv_row in a child
+       process (the probes' wrong results are reported, not failed on):
+       bare-launch ms of fwd, dx and dw, their device ms by the profiler,
+       dw's split reduction (the parent's denseconv_wgrad_reduce_kernel)
+       apart where the tree has one.
+compare  the bare launches of K3, dx and dw (chip_smoke.denseconv_row's
+       "bare" ms, and the profiler's device ms) on the 94 geometries of the
+       "default" steps (tools/denseconv_geometries.json: recorded by
+       chip_smoke.py's recording_convs, with their calls a step), in
+       COMPARE_ORDER's processes: "parent" PARENT_DIR's package, "change"
+       this tree's. Per geometry each side's mean over its processes, the
+       change over the parent; then per task the sums weighted by the calls
+       a step, beside the bound.
+sweep  bare launches of K3 (fwd, dx) at every tile and stage count and of
+       K3 dw at every tiling and split count on SWEEP_GEOMETRIES, the plans'
+       choices starred (sweep's docstring).
 """
 
 from __future__ import annotations
@@ -70,6 +96,9 @@ import collections
 import contextlib
 import json
 import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 
@@ -548,8 +577,278 @@ def host(parent: str) -> None:
                   f"{np.percentile(paired[v], 75):+.3f})" if v in paired else ""), flush=True)
 
 
+# the step-0 geometries: Conan's k=31 and k=1 layers, the vocoder's 1024 ->
+# 1024 k=5 and its 32 -> 32 k=11 resblock conv
+PROFILE_GEOMETRIES = [(24, 1496, 256, 512, 31, 1, 1, 15, 15), (18, 125, 1024, 1024, 5, 1, 1, 2, 2),
+                      (18, 8000, 32, 32, 11, 1, 5, 50, 0), (24, 1496, 256, 512, 1, 1, 1, 0, 0),
+                      (24, 1496, 512, 256, 1, 1, 1, 0, 0)]
+PROFILE_VARIANTS = ("full", "loads", "mma")
+
+
+def probe_source(text: str, variant: str) -> str:
+    """A K3 source as the probe ``variant`` builds it (profile's "loads":
+    no wgmma statement; "mma": no TMA load, each barrier expecting no
+    bytes)."""
+    if variant == "loads":
+        return re.sub(r"Wgmma<[^;]*;", ";", text, flags=re.S)
+    if variant == "mma":
+        text = re.sub(r"tma_load_[23]d\([^;]*;", ";", text, flags=re.S)
+        return re.sub(r"mbar_expect_tx\(([^,;]+),[^;]*;", r"mbar_expect_tx(\1, 0);", text,
+                      flags=re.S)
+    return text
+
+
+def build_variant(root: str, label: str, variant: str) -> str:
+    """The port's kernel library of the tree at ``root``, its K3 sources
+    patched by probe_source, built as ops/native.build does into
+    build/denseconv_lab/<label>-<variant>/; returns the library's path."""
+    out = os.path.join(OUT, f"{label}-{variant}")
+    shutil.rmtree(out, ignore_errors=True)
+    csrc = os.path.join(out, "csrc")
+    shutil.copytree(os.path.join(root, "conan_tpu_torch", "csrc"), csrc)
+    for name in ("denseconv.cu", "denseconv_bwd.cu"):
+        path = os.path.join(csrc, name)
+        with open(path) as f:
+            text = f.read()
+        with open(path, "w") as f:
+            f.write(probe_source(text, variant))
+    srcs = sorted(n for n in os.listdir(csrc) if n.endswith(".cu"))
+    nvcc = native._nvcc()
+    procs = [subprocess.Popen([nvcc, *native.COMPILE_FLAGS, os.path.join(csrc, n), "-o",
+                               os.path.join(out, n + ".o")], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for n in srcs]
+    logs = [p.communicate()[0] for p in procs]
+    lib = os.path.join(out, "libconan_kernels.so")
+    if any(p.returncode for p in procs) or subprocess.run(
+            [nvcc, *native.NVCC_FLAGS, *[os.path.join(out, n + ".o") for n in srcs], "-o", lib],
+            capture_output=True).returncode:
+        raise SystemExit(f"profile: {label} {variant} did not build:\n" + "".join(logs)[-4000:])
+    fn = ""
+    for line in "".join(logs).splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = line.split("'")[1] if "'" in line else line.split()[-1]
+        elif "denseconv" in fn and ("Used" in line or "spill" in line) or "C75" in line:
+            print(f"ptxas {label} {variant} {fn[:70]}:", line.strip()[:150], flush=True)
+    return lib
+
+
+# run in a child process whose first sys.path entry is the tree to time:
+# argv[2] the library to load in place of the tree's own ("" for its own),
+# argv[3] a JSON list of geometries, argv[4] "probe" where the checks only print
+ROWS_CODE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from pathlib import Path
+import torch
+import chip_smoke as cs
+from conan_tpu_torch.ops import denseconv as dc
+from conan_tpu_torch.ops import native
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+if sys.argv[2]:
+    native.LIB_PATH = Path(sys.argv[2])
+native.load()
+if sys.argv[4] == "probe":
+    def fail(msg):
+        print("probe, not checked:", msg[:120], file=sys.stderr)
+    cs.fail = fail
+dev = torch.device("cuda")
+gen = torch.Generator().manual_seed(0)
+out = []
+for g in json.loads(sys.argv[3]):
+    row = cs.denseconv_row(tuple(g), {}, gen, dev)
+    if "denseconv_wgrad_reduce_kernel" in open(
+            Path(sys.argv[1]) / "conan_tpu_torch" / "csrc" / "denseconv_bwd.cu").read():
+        B, T, Ci, Co, K, _s, d, pl, pr = g
+        x = torch.randn(B, T, Ci, device=dev).to(torch.bfloat16)
+        gy = torch.randn(B, T + pl + pr - d * (K - 1), Co, device=dev).to(torch.bfloat16)
+        row["dw_reduce_device_ms"] = cs.kernel_device_ms(
+            lambda: dc.denseconv.weight_grad(x, gy, (Co, Ci, K), dilation=d, padding=(pl, pr)),
+            "denseconv_wgrad_reduce_kernel")
+    out.append(row)
+print(json.dumps(out))
+"""
+
+
+def tree_rows(root: str, geoms: list, lib: str = "", probe: bool = False) -> list[dict]:
+    """chip_smoke.denseconv_row of the tree at ``root`` on ``geoms``, in a
+    child process (``lib``: a library to load in place of the tree's)."""
+    res = subprocess.run([sys.executable, "-c", ROWS_CODE, os.path.abspath(root), lib,
+                          json.dumps(geoms), "probe" if probe else "check"],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise SystemExit(f"rows of {root} ({lib or 'its own library'}) failed:\n"
+                         + res.stdout[-3000:] + res.stderr[-3000:])
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def profile(roots: list[str], variants=PROFILE_VARIANTS, geoms=PROFILE_GEOMETRIES) -> None:
+    geoms = [list(g) for g in geoms]
+    libs = {(root, v): build_variant(root, f"tree{i}", v)
+            for i, root in enumerate(roots) for v in variants}
+    for root in roots:
+        for v in variants:
+            for g, r in zip(geoms, tree_rows(root, geoms, libs[root, v], probe=True)):
+                B, T, Ci, Co, K, _s, d, pl, pr = g
+                print(f"profile {root} {v}: B={B} T={T} {Ci}->{Co} k={K} d={d} pad=({pl},{pr}): "
+                      + "; ".join(f"{k} bare {r[k + '_launch_ms']:.4f} ms device "
+                                  f"{cs.ms_text(r[k + '_kernel_device_ms'])} (rel L2 from "
+                                  f"float64 {r[k + '_rel_l2']:.3g})"
+                                  for k in ("fwd", "dx", "dw"))
+                      + (f"; dw's reduction device {cs.ms_text(r['dw_reduce_device_ms'])}"
+                         if "dw_reduce_device_ms" in r else "")
+                      + f"; bound {r['bound_ms']:.4g} ms by {r['bound_by']}", flush=True)
+
+
+# the sweep's geometries: the forward's tile choice where the card holds
+# few, many or very many tiles, the long k=31 conv, the k <= 2 convs whose
+# fp32 output is most of their bytes, and dw's split and unsplit tiles
+SWEEP_GEOMETRIES = [(24, 1496, 256, 512, 31, 1, 1, 15, 15), (24, 1496, 256, 512, 2, 1, 2, 2, 0),
+                    (24, 1496, 512, 256, 1, 1, 1, 0, 0), (18, 32, 1024, 1024, 5, 1, 1, 2, 2),
+                    (18, 125, 1024, 1024, 5, 1, 1, 2, 2), (18, 200, 256, 256, 7, 1, 1, 6, 0),
+                    (24, 374, 80, 160, 5, 1, 1, 2, 2), (24, 2600, 8, 128, 2, 1, 40, 0, 0),
+                    (18, 8000, 32, 32, 11, 1, 5, 50, 0), (18, 25, 512, 2048, 16, 1, 1, 15, 0)]
+
+
+def sweep(dev: torch.device) -> None:
+    """Bare launches of K3 (fwd, dx) at every tile of DENSE_TILES, each with
+    4 or 8 weight stages and 2 to 4 windows in flight, and of K3 dw at
+    every built (nb, tpw) and window share, unsplit and split as
+    dense_wgrad_plan would; each result against the first's (DIFF where
+    the forward's bits or dw's relative L2 past 1e-5 differ), the ms by
+    CUDA events (4 * DENSE_ITERS after a warm call); the plans' choices
+    starred."""
+    from conan_tpu_torch.ops import denseconv as dc
+    from conan_tpu_torch.ops.groupconv import sm_count
+
+    import ctypes
+
+    lib = native.load()
+    sms = sm_count(dev.index or 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator().manual_seed(0)
+    for g in SWEEP_GEOMETRIES:
+        B, T, Ci, Co, K, _s, d, pl, pr = g
+        T_out = T + pl + pr - d * (K - 1)
+        x = torch.randn(B, T, Ci, generator=gen).to(dev)
+        w = ((torch.rand(Co, Ci, K, generator=gen) * 2 - 1) * (3 / (Ci * K)) ** 0.5).to(dev)
+        gy = torch.randn(B, T_out, Co, generator=gen).to(dev)
+        xb, gyb = dc._bf16_operand(x, "x"), dc._bf16_operand(gy, "gy")
+        name = f"B={B} T={T} {Ci}->{Co} k={K} d={d}"
+        for k, (src, N, C, T_in, T_o, pad, flip) in {
+                "fwd": (xb, Co, Ci, T, T_out, pl, 0),
+                "dx": (gyb, Ci, Co, T_out, T, d * (K - 1) - pl, 1)}.items():
+            slots = B * -(-T_o // dc.SLOT)
+            chosen = dc.dense_plan(C, N, K, d, slots, sms)
+            tpr, rows = dc.dense_window(K, d)
+            wq = torch.empty(N, K * dc._round_up(C, 64), dtype=torch.bfloat16, device=dev)
+            if lib.denseconv_weights(w.data_ptr(), wq.data_ptr(), N, C, K, flip, stream):
+                raise SystemExit("sweep: the weights' layout was refused")
+            ref, out = None, []
+            for bn, mi in dc.DENSE_TILES:
+                if bn == 128 and dc._round_up(N, 128) > dc._round_up(N, 64):
+                    continue
+                for wst, xst in ((4, 2), (4, 3), (4, 4), (8, 2)):
+                    if dc.dense_smem(bn, mi, rows, xst, wst) > dc.SMEM_LIMIT:
+                        continue
+                    maps = ctypes.create_string_buffer(256)
+                    y = torch.empty(B, T_o, N, device=dev)
+                    if lib.denseconv_describe(src.data_ptr(), wq.data_ptr(), B, T_in, C, N, K, bn,
+                                              rows, ctypes.addressof(maps)):
+                        raise SystemExit("sweep: the maps were refused")
+                    args = (ctypes.addressof(maps), None, y.data_ptr(), B, T_o, C, N, K, d, pad,
+                            bn, mi, tpr, rows, wst, xst, stream)
+                    if lib.denseconv_run(*args):
+                        raise SystemExit(f"sweep: {name} {k} ({bn}, {mi}, {wst}, {xst}) refused")
+                    torch.cuda.synchronize()
+                    ref = y.clone() if ref is None else ref
+                    same = torch.equal(y, ref)
+                    ms = cs.cuda_ms(lambda args=args: lib.denseconv_run(*args),
+                                    iters=cs.DENSE_ITERS * 4, warmup=1)
+                    mark = "*" if chosen.args == (bn, mi, tpr, rows, wst, xst) else ""
+                    out.append(f"{mark}({bn},{mi},w{wst},x{xst}) {ms:.4f}{'' if same else ' DIFF'}")
+            print(f"sweep {name} {k}: " + "; ".join(out), flush=True)
+        plan = dc.dense_wgrad_plan(B, T_out, Ci, Co, K, d, sms)
+        out, ref = [], None
+        for nb, xboxes in ((128, 2), (128, 1), (64, 2), (64, 1)):
+            for tpw in dc.WGRAD_TPW[nb]:
+                taps = tpw * (3 - xboxes)
+                win = dc._round_up(dc.WGRAD_ROWS + (taps - 1) * d, 8)
+                stage = nb // 64 * dc.WGRAD_ROWS * 128 + xboxes * win * 128
+                stages = min(dc.WGRAD_STAGES, (dc.SMEM_LIMIT - 1040) // (stage + 16))
+                if taps > 2 * K or win > dc.MAX_WINDOW or stages < 2:
+                    continue
+                tiles = -(-Ci // (64 * xboxes)) * -(-Co // nb) * -(-K // taps)
+                for splits in sorted({1, max(1, min(plan.n_chunks, sms // tiles))}):
+                    ws = torch.empty(max(1, tiles * splits * tpw * nb // 2 * 256), device=dev)
+                    cnt = torch.zeros(2 * tiles, dtype=torch.int32, device=dev)
+                    dw = torch.empty(Co, Ci, K, device=dev)
+                    args = (xb.data_ptr(), gyb.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
+                            dw.data_ptr(), B, T, Ci, T_out, Co, K, d, pl, nb, tpw, xboxes,
+                            stages, win, splits, stream)
+                    if lib.denseconv_weight_grad(*args):
+                        continue
+                    torch.cuda.synchronize()
+                    ref = dw.clone() if ref is None else ref
+                    close = cs.rel_l2(dw.double(), ref.double()) < 1e-5
+                    ms = cs.cuda_ms(lambda args=args: lib.denseconv_weight_grad(*args),
+                                    iters=cs.DENSE_ITERS * 4, warmup=1)
+                    mark = "*" if (plan.tiles.nb, plan.tiles.tpw, plan.tiles.xboxes,
+                                   plan.splits) == (nb, tpw, xboxes, splits) else ""
+                    out.append(f"{mark}({nb},t{tpw},x{xboxes},s{splits}) {ms:.4f}"
+                               + ("" if close else " DIFF"))
+        print(f"sweep {name} dw: " + "; ".join(out), flush=True)
+
+
+COMPARE_ORDER = ("parent", "change", "change", "parent")
+
+
+def compare(parent: str) -> None:
+    with open(os.path.join(cs.ROOT, "tools", "denseconv_geometries.json")) as f:
+        recorded = json.load(f)
+    geoms = [g for g, _ in recorded]
+    runs = collections.defaultdict(list)
+    for label in COMPARE_ORDER:
+        t0 = time.perf_counter()
+        runs[label].append(tree_rows(parent if label == "parent" else cs.ROOT, geoms))
+        print(f"compare: {label} rows in {time.perf_counter() - t0:.1f} s", flush=True)
+    keys = [f"{k}_{m}" for k in ("fwd", "dx", "dw") for m in ("launch_ms", "kernel_device_ms")]
+
+    def mean(label, i, key):
+        vals = [rows[i][key] for rows in runs[label]]
+        return None if None in vals else sum(vals) / len(vals)
+
+    sums = collections.defaultdict(float)     # (task, side, key) → ms a step
+    for i, (g, calls) in enumerate(recorded):
+        side = {lab: {k: mean(lab, i, k) for k in keys} for lab in ("parent", "change")}
+        bound = runs["change"][0][i]["bound_ms"]
+        print(f"compare B={g[0]} T={g[1]} {g[2]}->{g[3]} k={g[4]} d={g[6]} pad=({g[7]},{g[8]}) "
+              f"calls {calls}: " + "; ".join(
+                  f"{k} bare {side['parent'][k + '_launch_ms']:.4f} -> "
+                  f"{side['change'][k + '_launch_ms']:.4f} ms "
+                  f"({side['change'][k + '_launch_ms'] / side['parent'][k + '_launch_ms']:.2f}x)"
+                  f", device {cs.ms_text(side['parent'][k + '_kernel_device_ms'])} -> "
+                  f"{cs.ms_text(side['change'][k + '_kernel_device_ms'])}"
+                  for k in ("fwd", "dx", "dw")) + f"; bound {bound:.4g} ms", flush=True)
+        for task, n in calls.items():
+            sums[task, "bound", ""] += n * bound
+            for lab in ("parent", "change"):
+                for k in keys:
+                    v = side[lab][k] if side[lab][k] is not None else side[lab][
+                        k.replace("kernel_device_ms", "launch_ms")]
+                    sums[task, lab, k] += n * v
+    for task in sorted({t for _, c in recorded for t in c}):
+        print(f"compare sums, {task}, weighted by the calls a step (ms a step): "
+              + "; ".join(f"{k} bare {sums[task, 'parent', k + '_launch_ms']:.4f} -> "
+                          f"{sums[task, 'change', k + '_launch_ms']:.4f}, device "
+                          f"{sums[task, 'parent', k + '_kernel_device_ms']:.4f} -> "
+                          f"{sums[task, 'change', k + '_kernel_device_ms']:.4f}"
+                          for k in ("fwd", "dx", "dw"))
+              + f"; bound {sums[task, 'bound', '']:.4f} a kernel", flush=True)
+
+
 def main() -> None:
-    if len(sys.argv) < 2 or sys.argv[1] not in ("step0", "leaf", "k3", "route", "host"):
+    if len(sys.argv) < 2 or sys.argv[1] not in ("step0", "leaf", "k3", "route", "host",
+                                                "profile", "compare", "sweep"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("torch_denseconv_lab: needs a CUDA card")
@@ -562,11 +861,33 @@ def main() -> None:
     if sys.argv[1] == "k3":
         k3(dev, "--watchdog" in sys.argv)
         return
+    if sys.argv[1] == "sweep":
+        native.build()
+        sweep(dev)
+        return
     if sys.argv[1] == "route":
         route(sys.argv[2])
         return
     if sys.argv[1] == "host":
         host(sys.argv[2])
+        return
+    if sys.argv[1] == "profile":
+        args = sys.argv[2:]
+        kw = {}
+        if "--variants" in args:
+            i = args.index("--variants")
+            kw["variants"] = tuple(args[i + 1].split(","))
+            args = args[:i] + args[i + 2:]
+        if "--watchdog" in args:     # a pipeline that deadlocks traps instead of hanging
+            native.COMPILE_FLAGS.append("-DK2BF16_WATCHDOG")
+            args.remove("--watchdog")
+        if "--k3" in args:           # K3_GEOMETRIES in place of the step-0 profile's
+            kw["geoms"] = K3_GEOMETRIES
+            args.remove("--k3")
+        profile(args, **kw)
+        return
+    if sys.argv[1] == "compare":
+        compare(sys.argv[2])
         return
     native.build()
     if sys.argv[1] == "step0":
