@@ -1002,24 +1002,27 @@ def groupconv_bf16_dx_launch_ms(gy: torch.Tensor, w: torch.Tensor, x_shape, stri
 def groupconv_bf16_dw_launch_ms(x: torch.Tensor, gy: torch.Tensor, w_shape, stride: int,
                                 pad: int, groups: int, lib=None, plan=None,
                                 iters: int = 50) -> tuple[float, torch.Tensor]:
-    """K2-bf16 dw alone (its two launches, the splits' product and their
-    sum), by CUDA events: the C entry point ``groupconv_weight_grad_bf16``
-    called ``iters`` times back to back on scratch allocated once. ``lib``
-    and ``plan`` default to the shipped library and the plan the wrapper
-    takes on this card. Returns (ms a call, dw)."""
+    """K2-bf16 dw alone (its one launch), by CUDA events: the C entry point
+    ``groupconv_weight_grad_bf16`` called ``iters`` times back to back, a
+    split plan's workspace and zeroed counters allocated once (the kernel
+    leaves the counters zeroed). ``lib`` and ``plan`` default to the
+    shipped library and the plan the wrapper takes on this card. Returns
+    (ms a call, dw)."""
     lib = lib or native.load()
     B, T, Ci = x.shape
     T_out, Co = gy.shape[1], gy.shape[2]
     plan = plan or bf16_wgrad_plan(B, T_out, Ci, Co, groups, w_shape[2], stride,
                                    sm_count(x.device.index))
     dw = torch.full(tuple(w_shape), float("nan"), device=x.device)
-    part = torch.empty(plan.part_floats, device=x.device)
+    ws = torch.empty(max(plan.ws_floats, 4), device=x.device)
+    counters = torch.zeros(2 * plan.n_tiles, dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream().cuda_stream
     geometry = (B, T, Ci, T_out, Co, groups, w_shape[2], stride, pad)
 
     def launch():
-        if lib.groupconv_weight_grad_bf16(x.data_ptr(), gy.data_ptr(), part.data_ptr(),
-                                          dw.data_ptr(), *geometry, *plan.args, stream):
+        if lib.groupconv_weight_grad_bf16(x.data_ptr(), gy.data_ptr(), ws.data_ptr(),
+                                          counters.data_ptr(), dw.data_ptr(), *geometry,
+                                          *plan.args, stream):
             fail(f"groupconv_weight_grad_bf16 refused {geometry} with {plan}")
 
     return cuda_ms(launch, iters=iters), dw
@@ -1032,7 +1035,7 @@ def groupconv_bf16_grad_row(name: str, x: torch.Tensor, w: torch.Tensor, gy: tor
     the wrapper and as bare launches (dx's weight layout against
     kernel_weights_bf16_dx, bit for bit), then timed: bare launches and
     wrapper calls by CUDA events, the kernels' device time by the profiler
-    (dx: its conv; dw: its two kernels), the plain versions and cuDNN's bf16
+    (dx: its conv; dw: its one kernel), the plain versions and cuDNN's bf16
     conv1d_input / conv1d_weight (bf16 tensors, the yardstick only)."""
     conv = dict(stride=stride, padding=(pad, pad), groups=groups)
     row = {}
@@ -1065,9 +1068,7 @@ def groupconv_bf16_grad_row(name: str, x: torch.Tensor, w: torch.Tensor, gy: tor
             row[f"{which}_ms"] = cuda_ms(kernel_fn, iters=20)
             row[f"{which}_plain_ms"] = cuda_ms(plain_fn, iters=10)
         row["dx_kernel_device_ms"] = kernel_device_ms(grads["dx"][0], "groupconv_bf16_kernel")
-        row["dw_kernel_device_ms"] = total(
-            kernel_device_ms(grads["dw"][0], key)
-            for key in ("k2bf16_wgrad_kernel", "k2bf16_wgrad_reduce_kernel"))
+        row["dw_kernel_device_ms"] = kernel_device_ms(grads["dw"][0], "k2bf16_wgrad_kernel")
         xp = F.pad(x.transpose(1, 2), (pad, pad)).bfloat16()
         gy_b, w_b = gy.transpose(1, 2).bfloat16(), w.bfloat16()
         row["dx_library_ms"] = cuda_ms(lambda: torch.nn.grad.conv1d_input(
@@ -1655,7 +1656,8 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator,
         default_wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels_d = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     default_device_ms = sum(e.self_device_time_total for e in kernels_d) / 1e3
-    # the forward's and dx's convs are one kernel (dx runs it over the phases)
+    # the forward's and dx's convs are one kernel template (dx runs it on the
+    # phases side by side, with its own epilogue)
     bf16_evs = [e for e in kernels_d if "groupconv_bf16_kernel" in e.key]
     dw_evs = [e for e in kernels_d if "k2bf16_wgrad" in e.key]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1676,8 +1678,8 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator,
     if sum(e.count for e in bf16_evs) != k2_pred + dx_pred \
             or any(groups != 1 for _name, groups, _shapes in cudnn_grouped):
         fail(f"train_precision {shipped}: the profiled step ran groupconv_bf16_kernel "
-             f"{sum(e.count for e in bf16_evs)} times, k2bf16_wgrad's two kernels "
-             f"{sum(e.count for e in dw_evs)}, predicted {k2_pred} + {dx_pred}, {2 * dw_pred}; "
+             f"{sum(e.count for e in bf16_evs)} times, k2bf16_wgrad_kernel "
+             f"{sum(e.count for e in dw_evs)}, predicted {k2_pred} + {dx_pred}, {dw_pred}; "
              f"cuDNN's grouped dgrad/wgrad kernels (name, the conv's groups, shapes) "
              f"{cudnn_grouped}")
     grouped_by = {}
@@ -1699,7 +1701,7 @@ def train_phase(seed: int, dev: torch.device, rng: np.random.Generator,
           f"{default_device_ms:.3f} ms (busy {100 * default_device_ms / default_wall_ms:.1f}%), "
           f"{sum(e.count for e in kernels_d)} kernels, K2-bf16 forward and dx convs "
           f"x{sum(e.count for e in bf16_evs)} "
-          f"{sum(e.self_device_time_total for e in bf16_evs) / 1e3:.3f} ms, dw's two kernels "
+          f"{sum(e.self_device_time_total for e in bf16_evs) / 1e3:.3f} ms, dw's kernel "
           f"x{sum(e.count for e in dw_evs)} "
           f"{sum(e.self_device_time_total for e in dw_evs) / 1e3:.3f} ms; in a second step "
           f"recording shapes, cuDNN kernels named grouped dgrad or wgrad {len(cudnn_grouped)}, "

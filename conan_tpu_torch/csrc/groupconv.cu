@@ -144,19 +144,24 @@
 // the port's backward handed it to cuDNN (15-23 ms over the MSD's 15
 // geometries a pass, bf16 results where JAX's DEFAULT returns fp32). Its
 // bound is the forward's: bytes on 13 of the 15 geometries (gy and w read,
-// dx written once), the bf16 product on scales 1 and 2's 1024 -> 1024. Its design
-// runs the forward kernel above over the stride's phases, one conv a phase
-// and the phase in blockIdx.y: dx's padded row p = m*s + ph is the stride-1
-// conv of gy with the taps j = ph + s*i, flipped, and each group's channel
-// roles swapped (cig' = cog, cog' = cig), so no product of the zeros a
-// dilated gy would hold is computed. Phase ph has ceil((K - ph) / s) taps,
-// its k-steps and window offset in a table in the kernel's arguments (a
-// phase computed from the tile index made ptxas serialize every wgmma,
-// C7520); k2bf16_dx_weights_kernel lays the phases' weights out in the same
-// C call (plain version ops/groupconv.py:kernel_weights_bf16_dx); the
-// epilogue stores output t of phase ph at dx row t*s + ph - y_off, so each
-// dx row is written once. The MSD's 128 -> 256 layer has cig 8, dx's cog':
-// its tile is wgmma m64n8k16.
+// dx written once), the bf16 product on scales 1 and 2's 1024 -> 1024. Its
+// design is the forward kernel above run on one stride-1 conv of gy whose
+// out-channels are dx's phases side by side (groupconv_bf16_kernel<...,
+// true>): dx's padded row p = m*s + ph is the conv of gy with the taps j =
+// ph + s*i, flipped, and each group's channel roles swapped (cig' = cog), so
+// no product of the zeros a dilated gy would hold is computed. Every phase
+// gets kp = ceil(K / s) taps, a phase with fewer padded with zero weights
+// at the front, so that at k-step (row offset k, 16 channels) all s phases
+// read the same gy rows: one A descriptor serves them all, and a group's
+// s*cig columns are one B, N = s*cig (64, 16, 64, 128 and 64 on the MSD's
+// five layers, where the first design ran a conv a phase with the phase in
+// blockIdx.y at N = cig, 32/8/16/32/64: each phase re-read the same gy
+// window, and at N 8-32 the A reads of a product outlasted it). The cost is
+// the zero taps, kp*s - K of them (42 for 41 at s = 2, 44 at s = 4).
+// k2bf16_dx_weights_kernel lays the weights out in the same C call (plain
+// version ops/groupconv.py:kernel_weights_bf16_dx); the epilogue stores
+// output t's column block ph at dx row t*s + ph - y_off, so each dx row is
+// written once.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -410,18 +415,13 @@ struct Bf16Args {
   int win_rows;     // fp32 staging rows
   int win_u;        // bf16 window rows a phase: win_rows / stride, and a slot's reach
   int alloc_full;   // staging rows of a whole batch row's window (a multiple of kRowBox)
-  int n_co_tiles, n_tiles;   // n_tiles: those of one phase
-  // The input gradient runs `phases` convs in one launch (the forward: 1),
-  // phase ph = blockIdx.y with nks[ph] k-steps of 16 (taps(ph) =
-  // ceil((taps - ph) / phases) of its K taps), its window pad[ph] = pad_l -
-  // (K - taps(ph)) rows to the left, its weights rows ph * Co .. of the
-  // layout, and output t of batch row b stored at row t * phases + ph -
-  // y_off of y's y_rows (rows outside not stored). The phase comes from the
-  // grid and its figures from this table, so that what bounds a tile's
-  // wgmmas stays uniform to the compiler (a phase computed from the tile
-  // index made ptxas serialize every wgmma, C7520).
-  int phases, y_rows, y_off;
-  int nks[8], pad[8];
+  int n_co_tiles, n_tiles;
+  int nks;          // k-steps of 16 a tile: K * cigp / 16
+  // The input gradient (groupconv_bf16_kernel<..., true>): this conv's
+  // out-channel ph * dx_cig + ci of group g is dx's phase ph, channel g *
+  // dx_cig + ci of Co / dx_s, and its output t of batch row b goes to dx row
+  // t * dx_s + ph - y_off of y_rows (rows outside not stored).
+  int dx_s, dx_cig, y_rows, y_off;
 };
 
 // M tile mt: the m64 slots v0 .. v1-1 (slot v: batch row v / slots, outputs
@@ -464,7 +464,8 @@ struct Bf16Tiles {
   static constexpr int KSTEPS = 4 * KC;              // k-steps of 16 a stage
   static constexpr int TAPS = KC * 64 / CIGP;        // taps a stage
   static_assert(CIGP == 16 || CIGP == 32 || CIGP == 64, "cigp divides a 64-wide box");
-  static_assert(BN == 8 || BN == 16 || BN == 32 || BN == 64, "wgmma widths instantiated");
+  static_assert(BN == 8 || BN == 16 || BN == 32 || BN == 64 || BN == 128,
+                "wgmma widths instantiated");
 };
 
 size_t bf16_smem_bytes(int bn, int kc, int stages, int win_rows, int win_u, int cig, int stride) {
@@ -482,7 +483,7 @@ __device__ __forceinline__ int staged_rows(const Bf16Args& a, const TileRows& r)
          round_up(seg_t_hi(a, r.v1, r.b_last) * a.stride + a.K, kRowBox);
 }
 
-template <int BN, int CIGP, int MI, int NWG, int KC, int STAGES>
+template <int BN, int CIGP, int MI, int NWG, int KC, int STAGES, bool DX>
 __global__ void __launch_bounds__(Bf16Tiles<BN, CIGP, MI, NWG, KC, STAGES>::THREADS, 1)
 groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
                       const __grid_constant__ CUtensorMap xmap, const Bf16Args a) {
@@ -510,7 +511,7 @@ groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
   }
   __syncthreads();
 
-  const int ph = blockIdx.y, nks = a.nks[ph], pad = a.pad[ph];
+  const int nks = a.nks, pad = a.pad_l;
   const int nchunks = (nks + P::KSTEPS - 1) / P::KSTEPS;   // stages a tile
   const int per_m = a.groups * a.n_co_tiles;
 
@@ -540,7 +541,7 @@ groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
     for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x, ++it) {
       const int rest = tile % per_m, g = rest / a.n_co_tiles, ct = rest % a.n_co_tiles;
       const int next = tile + gridDim.x;
-      const int w_row = ph * a.Co + g * a.cog + ct * BN;
+      const int w_row = g * a.cog + ct * BN;
       for (int c = 0; c < nchunks; ++c, ++chunk) {
         if (c == STAGES && next < a.n_tiles) load_window(next, it + 1);
         const int st = chunk % STAGES;
@@ -639,21 +640,52 @@ groupconv_bf16_kernel(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) fence_acc(acc[mi]);
 
+    // the input gradient's first column of this thread: phase and channel
+    const int dx_ci = a.Co / a.dx_s, dx_ph0 = (ct * BN + 2 * tig) / a.dx_cig;
+    const int dx_ci0 = ct * BN + 2 * tig - dx_ph0 * a.dx_cig;
+    const bool one_phase = a.dx_cig % BN == 0;
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi) {
       const int v = r.v0 + wg * MI + mi;
       if (v >= r.v1) continue;
       const int b = v / a.slots;
+      float* dx_row = a.y + (size_t)b * a.y_rows * dx_ci + g * a.dx_cig;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int t = (v - b * a.slots) * kSlot + wl * 16 + gid + 8 * h;
-        const int row = t * a.phases + ph - a.y_off;
-        if (t >= a.T_out || row < 0 || row >= a.y_rows) continue;
-        float* yr = a.y + ((size_t)b * a.y_rows + row) * a.Co + g * a.cog + ct * BN + 2 * tig;
+        if (t >= a.T_out) continue;
+        if constexpr (DX) {
+          // column n = ct*BN + 8*nb + 2*tig: phase ph = n / dx_cig, channel
+          // ci (a float2 stays in one phase: dx_cig is a multiple of 8), dx
+          // row t*s + ph - y_off; (ph, ci) advanced 8 columns a step, or one
+          // row for the tile where its columns are one phase's
+          int ph = dx_ph0, ci = dx_ci0;
+          if (one_phase) {
+            const int row = t * a.dx_s + ph - a.y_off;
+            if (row < 0 || row >= a.y_rows) continue;
+            float* yr = dx_row + (size_t)row * dx_ci + ci;
 #pragma unroll
-        for (int nb = 0; nb < BN / 8; ++nb)
-          *reinterpret_cast<float2*>(yr + 8 * nb) =
-              make_float2(acc[mi][4 * nb + 2 * h], acc[mi][4 * nb + 2 * h + 1]);
+            for (int nb = 0; nb < BN / 8; ++nb)
+              *reinterpret_cast<float2*>(yr + 8 * nb) =
+                  make_float2(acc[mi][4 * nb + 2 * h], acc[mi][4 * nb + 2 * h + 1]);
+            continue;
+          }
+#pragma unroll
+          for (int nb = 0; nb < BN / 8; ++nb) {
+            const int row = t * a.dx_s + ph - a.y_off;
+            if (row >= 0 && row < a.y_rows)
+              *reinterpret_cast<float2*>(dx_row + (size_t)row * dx_ci + ci) =
+                  make_float2(acc[mi][4 * nb + 2 * h], acc[mi][4 * nb + 2 * h + 1]);
+            ci += 8;
+            if (ci >= a.dx_cig) ci -= a.dx_cig, ++ph;
+          }
+        } else {
+          float* yr = a.y + ((size_t)b * a.T_out + t) * a.Co + g * a.cog + ct * BN + 2 * tig;
+#pragma unroll
+          for (int nb = 0; nb < BN / 8; ++nb)
+            *reinterpret_cast<float2*>(yr + 8 * nb) =
+                make_float2(acc[mi][4 * nb + 2 * h], acc[mi][4 * nb + 2 * h + 1]);
+        }
       }
     }
   }
@@ -675,15 +707,16 @@ __global__ void k2bf16_weights_kernel(const float* __restrict__ w, __nv_bfloat16
   }
 }
 
-// The input gradient's weights: for phase ph (taps(ph) = ceil((K - ph) / s))
-// wq[ph*Ci + n, k*cogp + c] = bf16(w[g*cog + c, ci, ph + s*(taps(ph) - 1 - k)])
-// for k < taps(ph) and c < cog, else 0, with n = g*cig + ci: the taps of the
-// phase flipped and each group's channel roles swapped, k < kp =
-// ceil(K / s) (ops/groupconv.py:kernel_weights_bf16_dx). A block an
-// in-channel n: its cog x K weights into shared memory, its s rows written
-// in order.
+// The input gradient's weights, the phases side by side in N: for phase ph
+// (taps(ph) = ceil((K - ph) / s)) and k < kp = ceil(K / s)
+// wq[(g*s + ph)*cig + ci, k*cogp + c] = bf16(w[g*cog + c, ci, ph + s*(kp - 1 - k)])
+// where kp - 1 - k < taps(ph) and c < cog, else 0: each phase's taps flipped
+// and padded at the front, so that tap k of every phase reads the same gy
+// row, and each group's channel roles swapped (ops/groupconv.py:
+// kernel_weights_bf16_dx). A block an in-channel g*cig + ci: its cog x K
+// weights into shared memory, its s rows written in order.
 __global__ void k2bf16_dx_weights_kernel(const float* __restrict__ w,
-                                         __nv_bfloat16* __restrict__ wq, int Ci, int cig, int cog,
+                                         __nv_bfloat16* __restrict__ wq, int cig, int cog,
                                          int cogp, int K, int s, int kp) {
   extern __shared__ float w_n[];   // [cog][K]
   const int n = blockIdx.x, g = n / cig, ci = n - g * cig;
@@ -695,16 +728,17 @@ __global__ void k2bf16_dx_weights_kernel(const float* __restrict__ w,
   const int row = kp * cogp;
   for (int e = threadIdx.x; e < s * row; e += blockDim.x) {
     const int ph = e / row, q = e - ph * row, k = q / cogp, c = q - k * cogp;
-    const int taps = (K - ph + s - 1) / s;
-    const float v = k < taps && c < cog ? w_n[c * K + ph + s * (taps - 1 - k)] : 0.f;
-    wq[((size_t)ph * Ci + n) * row + q] = __float2bfloat16_rn(v);
+    const int j = ph + s * (kp - 1 - k);
+    const float v = j < K && c < cog ? w_n[c * K + j] : 0.f;
+    wq[((size_t)(g * s + ph) * cig + ci) * row + q] = __float2bfloat16_rn(v);
   }
 }
 
-// The input gradient as `stride` stride-1 convs of gy, one a phase of dx's
-// padded rows p = m*s + ph (m = m0 + t, m0 = pad_l / s): kp = ceil(K / s)
-// taps, t_m outputs, the window `pad` rows to the left of t (phase ph: pad -
-// (kp - taps(ph))), output t stored at dx row t*s + ph - y_off.
+// The input gradient as one stride-1 conv of gy whose s*cig out-channels a
+// group are dx's phases side by side: dx's padded row p = m*s + ph (m = m0 +
+// t, m0 = pad_l / s) is output t's column block ph; kp = ceil(K / s) taps,
+// t_m outputs, the window `pad` rows to the left of t, output t's block ph
+// stored at dx row t*s + ph - y_off.
 struct DxGeometry {
   int kp, t_m, pad, y_off;
 };
@@ -720,25 +754,20 @@ struct Bf16Plan {
   int bn, mi, nwg, kc, stages, win_rows, win_u;
 };
 
-// the geometry's kernel arguments, or false for what the kernel does not take;
-// `phases` and what follows as Bf16Args has them (the forward: 1, K, T_out, 0)
+// the geometry's kernel arguments, or false for what the kernel does not
+// take (a negative pad_l only for the input gradient's conv, `dx`)
 bool bf16_args(int B, int T, int Ci, int T_out, int Co, int groups, int K, int stride,
-               int pad_l, const Bf16Plan& p, Bf16Args* a, int phases = 1, int taps = 0,
-               int y_rows = 0, int y_off = 0) {
-  if (phases == 1) taps = K, y_rows = T_out;
+               int pad_l, const Bf16Plan& p, Bf16Args* a, bool dx = false) {
   if (groups < 1 || Ci % groups || Co % groups || B < 1 || T < 1 || T_out < 1 || K < 1 ||
-      stride < 1 || stride > 8 || (stride & (stride - 1)) || (pad_l < 0 && phases == 1) ||
-      p.bn < 1 || p.mi < 1 || p.nwg < 1 || p.win_rows < 1 || p.win_rows % kRowBox ||
-      phases < 1 || phases > 8 || taps < phases || (taps + phases - 1) / phases != K ||
-      y_rows < 1)
+      stride < 1 || stride > 8 || (stride & (stride - 1)) || (pad_l < 0 && !dx) ||
+      p.bn < 1 || p.mi < 1 || p.nwg < 1 || p.win_rows < 1 || p.win_rows % kRowBox)
     return false;
   const int cig = Ci / groups, cog = Co / groups;
   const int cigp = round_up(cig, 16);
   if (cig % 8 || cig > 64 || cog % p.bn) return false;
   const int mb = p.mi * p.nwg, slots = (T_out + kSlot - 1) / kSlot;
   const long long n_slots = (long long)B * slots;
-  if (n_slots + mb > (1LL << 31) || (long long)phases * Co * K * cigp >= (1LL << 31))
-    return false;
+  if (n_slots + mb > (1LL << 31) || (long long)Co * K * cigp >= (1LL << 31)) return false;
   const int alloc_full = round_up((T_out - 1) * stride + K, kRowBox);
   // the most staging rows a tile's segments take, and the window rows its
   // descriptors reach (ops/groupconv.py:bf16_plan)
@@ -749,12 +778,7 @@ bool bf16_args(int B, int T, int Ci, int T_out, int Co, int groups, int K, int s
   const long long n_tiles = (n_slots + mb - 1) / mb * groups * (cog / p.bn);
   if (n_tiles >= (1LL << 31)) return false;
   *a = Bf16Args{nullptr, B, T_out, Co, cig, cog, K, stride, pad_l, groups, slots, p.win_rows,
-                p.win_u, alloc_full, cog / p.bn, (int)n_tiles, phases, y_rows, y_off, {}, {}};
-  for (int ph = 0; ph < phases; ++ph) {
-    const int taps_ph = (taps - ph + phases - 1) / phases;
-    a->nks[ph] = taps_ph * cigp / 16;
-    a->pad[ph] = pad_l - (K - taps_ph);
-  }
+                p.win_u, alloc_full, cog / p.bn, (int)n_tiles, K * cigp / 16, 1, 8, T_out, 0};
   return true;
 }
 
@@ -779,12 +803,12 @@ int bf16_maps(const float* x, const void* wq, int B, int T, int Ci, int w_rows, 
   return e == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int BN, int CIGP, int MI, int NWG, int KC, int STAGES>
+template <int BN, int CIGP, int MI, int NWG, int KC, int STAGES, bool DX>
 int launch_bf16(const CUtensorMap* maps, const Bf16Args& a, cudaStream_t s) {
   using P = Bf16Tiles<BN, CIGP, MI, NWG, KC, STAGES>;
   const size_t smem = bf16_smem_bytes(BN, KC, STAGES, a.win_rows, a.win_u, a.cig, a.stride);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = groupconv_bf16_kernel<BN, CIGP, MI, NWG, KC, STAGES>;
+  auto kernel = groupconv_bf16_kernel<BN, CIGP, MI, NWG, KC, STAGES, DX>;
   static size_t opted[conan::kMaxDevices] = {};
   cudaError_t e = conan::allow_dynamic_smem(kernel, smem, opted);
   if (e != cudaSuccess) return (int)e;
@@ -819,25 +843,29 @@ int launch_bf16(const CUtensorMap* maps, const Bf16Args& a, cudaStream_t s) {
     const std::lock_guard<std::mutex> lock(grids_mutex);
     grids[n_grids++ % 16] = Grid{dev, smem, blocks};
   }
-  // the phases share the device: blocks / phases persistent blocks each
-  const dim3 grid(min(a.n_tiles, max(1, blocks / a.phases)), a.phases);
-  kernel<<<grid, P::THREADS, smem, s>>>(maps[0], maps[1], a);
+  kernel<<<min(a.n_tiles, blocks), P::THREADS, smem, s>>>(maps[0], maps[1], a);
   return (int)cudaGetLastError();
 }
 
 // The instantiated tiles: (BN, CIGP, MI, NWG, KC, STAGES).
-// ops/groupconv.py:bf16_plan picks among the shipped ones.
-// The last three serve the input gradient alone on the MSD (its cog' is the
-// forward's cig: 32 over cigp 64, 16 over 32, 8 over 16).
+// ops/groupconv.py:bf16_plan picks among the shipped ones (BF16_TILES), and
+// for the input gradient among K2BF16_DX_TILES (BF16_DX_TILES): on the MSD
+// its s*cig out-channels over cigp = cog rounded up to 16 are 64 over 32,
+// 16 over 16, 64 and 128 over 64; 32 over 32 serves other geometries (the
+// CPU tests').
 #define K2BF16_SHIPPED(X) \
   X(64, 64, 2, 1, 2, 3)   \
   X(64, 32, 2, 1, 2, 3)   \
   X(32, 32, 2, 1, 2, 4)   \
   X(32, 16, 2, 1, 2, 4)   \
-  X(16, 16, 4, 1, 2, 3)   \
-  X(32, 64, 2, 1, 2, 3)   \
-  X(16, 32, 4, 1, 2, 3)   \
-  X(8, 16, 4, 1, 2, 3)
+  X(16, 16, 4, 1, 2, 3)
+
+#define K2BF16_DX_TILES(X) \
+  X(128, 64, 2, 1, 2, 3)   \
+  X(64, 64, 2, 1, 2, 3)    \
+  X(64, 32, 2, 1, 2, 3)    \
+  X(32, 32, 2, 1, 2, 4)    \
+  X(16, 16, 4, 1, 2, 3)
 
 // Built only for tools/torch_kernel_lab.py's sweep (-DK2BF16_SWEEP).
 #ifdef K2BF16_SWEEP
@@ -868,14 +896,19 @@ int launch_bf16(const CUtensorMap* maps, const Bf16Args& a, cudaStream_t s) {
 #endif
 
 int dispatch_bf16(const CUtensorMap* maps, const Bf16Args& a, const Bf16Plan& p,
-                  cudaStream_t s) {
+                  cudaStream_t s, bool dx = false) {
   const int cigp = round_up(a.cig, 16);
-#define K2BF16_TRY(BN, CIGP, MI, NWG, KC, ST)                                                \
-  if (p.bn == BN && cigp == CIGP && p.mi == MI && p.nwg == NWG && p.kc == KC &&              \
-      p.stages == ST)                                                                        \
-    return launch_bf16<BN, CIGP, MI, NWG, KC, ST>(maps, a, s);
-  K2BF16_SHIPPED(K2BF16_TRY)
-  K2BF16_SWEPT(K2BF16_TRY)
+#define K2BF16_TRY(BN, CIGP, MI, NWG, KC, ST, DX)                                        \
+  if (dx == DX && p.bn == BN && cigp == CIGP && p.mi == MI && p.nwg == NWG &&            \
+      p.kc == KC && p.stages == ST)                                                      \
+    return launch_bf16<BN, CIGP, MI, NWG, KC, ST, DX>(maps, a, s);
+#define K2BF16_FWD(BN, CIGP, MI, NWG, KC, ST) K2BF16_TRY(BN, CIGP, MI, NWG, KC, ST, false)
+#define K2BF16_BWD(BN, CIGP, MI, NWG, KC, ST) K2BF16_TRY(BN, CIGP, MI, NWG, KC, ST, true)
+  K2BF16_SHIPPED(K2BF16_FWD)
+  K2BF16_SWEPT(K2BF16_FWD)
+  K2BF16_DX_TILES(K2BF16_BWD)
+#undef K2BF16_BWD
+#undef K2BF16_FWD
 #undef K2BF16_TRY
   return (int)cudaErrorInvalidValue;   // a tile not instantiated
 }
@@ -892,18 +925,27 @@ int bf16_dx_weights(const float* w, void* wq, int Ci, int Co, int groups, int K,
   const int cig = Ci / groups, cog = Co / groups;
   if ((size_t)cog * K * sizeof(float) > 48 * 1024) return (int)cudaErrorInvalidValue;
   k2bf16_dx_weights_kernel<<<Ci, 256, (size_t)cog * K * sizeof(float), s>>>(
-      w, static_cast<__nv_bfloat16*>(wq), Ci, cig, cog, round_up(cog, 16), K, stride,
+      w, static_cast<__nv_bfloat16*>(wq), cig, cog, round_up(cog, 16), K, stride,
       (K + stride - 1) / stride);
   return (int)cudaGetLastError();
 }
 
-// the input gradient's kernel arguments (its conv's Ci is Co, its Co is Ci)
+// the input gradient's kernel arguments (its conv's Ci is Co, its Co is
+// stride * Ci: the phases side by side)
 bool dx_args(int B, int T, int Ci, int T_out, int Co, int groups, int K, int stride, int pad_l,
              const Bf16Plan& p, Bf16Args* a) {
-  if (stride < 1 || K < stride || pad_l < 0 || T < 1) return false;
+  if (stride < 1 || stride > 8 || K < stride || pad_l < 0 || T < 1 || Ci % groups ||
+      (Ci / groups) % 8)
+    return false;
   const DxGeometry d = dx_geometry(T, K, stride, pad_l);
-  return d.t_m >= 1 && bf16_args(B, T_out, Co, d.t_m, Ci, groups, d.kp, 1, d.pad, p, a, stride,
-                                 K, T, d.y_off);
+  if (d.t_m < 1 || !bf16_args(B, T_out, Co, d.t_m, stride * Ci, groups, d.kp, 1, d.pad, p, a,
+                              true))
+    return false;
+  a->dx_s = stride;
+  a->dx_cig = Ci / groups;
+  a->y_rows = T;
+  a->y_off = d.y_off;
+  return true;
 }
 
 }  // namespace
@@ -987,9 +1029,10 @@ extern "C" int groupconv_bf16_conv(const void* maps, float* y, int B, int T, int
 // K2-bf16 dx, the "default" rung's input gradient of the same conv: dx
 // [B, T, Ci] fp32 (8-byte aligned, every row written) from gy [B, T_out, Co]
 // fp32 (16-byte aligned) and w [Co, cig, K]; wq the [stride * Ci, kp * cogp]
-// bf16 layout k2bf16_dx_weights_kernel writes (cogp = cog rounded up to 16;
-// 16-byte aligned); the plan from ops/groupconv.py:bf16_dx_plan, the
-// forward's plan of the phases' conv. Returns as the forward's entry points.
+// bf16 layout k2bf16_dx_weights_kernel writes (rows (group, phase, ci); cogp
+// = cog rounded up to 16; 16-byte aligned); the plan from
+// ops/groupconv.py:bf16_dx_plan, the forward's plan of the phases' conv
+// among K2BF16_DX_TILES. Returns as the forward's entry points.
 
 // the weights' layout alone: one launch on `stream`
 extern "C" int groupconv_bf16_dx_weights(const float* w, void* wq, int Ci, int Co, int groups,
@@ -1014,7 +1057,7 @@ extern "C" int groupconv_bf16_dx_conv(const void* maps, float* dx, int B, int T,
   a.y = dx;
   CUtensorMap m[2];
   memcpy(m, maps, sizeof m);
-  return dispatch_bf16(m, a, p, (cudaStream_t)stream);
+  return dispatch_bf16(m, a, p, (cudaStream_t)stream, true);
 }
 
 // as the wrapper calls it: the weights laid out, the tensor maps, the conv
@@ -1035,7 +1078,7 @@ extern "C" int groupconv_input_grad_bf16(const float* gy, const float* w, void* 
   int err = bf16_maps(gy, wq, B, T_out, Co, stride * Ci, groups, a.K, bn, maps);
   if (err) return err;
   if ((err = bf16_dx_weights(w, wq, Ci, Co, groups, K, stride, s))) return err;
-  return dispatch_bf16(maps, a, p, s);
+  return dispatch_bf16(maps, a, p, s, true);
 }
 
 // The "default" rung's forward, as the wrapper calls it: the weights laid

@@ -259,14 +259,16 @@ inline CUresult sw128_rows_map(CUtensorMap* map, const void* t, int B, int T, in
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// a 3-D map over an fp32 [B, T, C] channels-last tensor: boxes of
-// kRowBox rows x `box_c` channels of one batch row, zero fill outside
-inline CUresult fp32_rows_map(CUtensorMap* map, const float* t, int B, int T, int C, int box_c) {
+// a 3-D map over an fp32 [B, T, C] channels-last tensor: boxes of `rows`
+// rows (kRowBox unless given) x `box_c` channels of one batch row, zero
+// fill outside
+inline CUresult fp32_rows_map(CUtensorMap* map, const float* t, int B, int T, int C, int box_c,
+                              int rows = kRowBox) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return CUDA_ERROR_NOT_INITIALIZED;
   const cuuint64_t dim[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t stride[2] = {(cuuint64_t)C * 4, (cuuint64_t)T * C * 4};
-  const cuuint32_t box[3] = {(cuuint32_t)box_c, (cuuint32_t)kRowBox, 1}, ones[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_c, (cuuint32_t)rows, 1}, ones[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(t), dim, stride, box,
                 ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -20,10 +20,12 @@ product of bf16-rounded operands, fp32 accumulation, fp32 output, as the TPU
 kernel computes when handed bf16 operands; its plain version is
 ``grouped_conv1d_reference`` on the rounded operands, in fp32; the backward
 takes bf16-rounded operands too: on a CUDA tensor the hand-written K2-bf16
-dx (the forward kernel run over the stride's phases, ``bf16_dx_plan``,
-weights laid out as ``kernel_weights_bf16_dx``) and K2-bf16 dw
+dx (the forward kernel run on one conv of gy whose out-channels are the
+stride's phases side by side, ``bf16_dx_plan``, weights laid out as
+``kernel_weights_bf16_dx``) and K2-bf16 dw
 (``csrc/groupconv_bwd.cu``, ``bf16_wgrad_plan``; its (cig, cog) are the
-MSD's, ``WGRAD_TPW``), both with fp32 results;
+MSD's, ``WGRAD_TPW``; one launch, split sums inside), both with fp32
+results;
 their plain versions ``grouped_conv1d_bf16_input_grad_reference`` and
 ``grouped_conv1d_bf16_weight_grad_reference`` are the CPU route. K2-bf16 is a
 warp-specialized ``wgmma`` kernel fed by TMA whose M runs over 64-output
@@ -101,19 +103,20 @@ def kernel_weights_bf16_dx(w: torch.Tensor, groups: int, stride: int) -> torch.T
     """w [Co, cig, K] as K2-bf16 dx's TMA reads it, the plain version of the
     kernel's own preparation (``k2bf16_dx_weights_kernel``):
     [stride · Ci, kp · cogp] bf16, kp = ceil(K / stride), cogp = cog rounded
-    up to 16. Row ph · Ci + g · cig + ci holds phase ph's taps j = ph +
-    stride · (taps - 1 - k) at k = 0 .. taps - 1 (flipped; zero past
-    them), each tap's cog out-channels of group g (the conv's channel roles
-    swapped; zero past cog)."""
+    up to 16. Row (g · stride + ph) · cig + ci, the phases of a group side by
+    side, holds phase ph's taps j = ph + stride · (kp - 1 - k) at k = kp -
+    taps .. kp - 1 (flipped, and padded with zeros at the front, so that tap
+    k of every phase reads the same gy row), each tap's cog out-channels of
+    group g (the conv's channel roles swapped; zero past cog)."""
     Co, cig, K = w.shape
     cog, kp = Co // groups, -(-K // stride)
     cogp = _round_up(cog, 16)
     wg = w.reshape(groups, cog, cig, K).permute(0, 2, 3, 1)                # [G, cig, K, cog]
-    wq = w.new_zeros(stride, groups, cig, kp, cogp)
+    wq = w.new_zeros(groups, stride, cig, kp, cogp)
     for ph in range(stride):
         taps = phase_taps(K, stride, ph)
         j = ph + stride * (taps - 1 - torch.arange(taps))
-        wq[ph, :, :, :taps, :cog] = wg[:, :, j]
+        wq[:, ph, :, kp - taps:, :cog] = wg[:, :, j]
     return wq.reshape(stride * groups * cig, kp * cogp).to(torch.bfloat16)
 
 
@@ -121,10 +124,13 @@ def kernel_weights_bf16_dx(w: torch.Tensor, groups: int, stride: int) -> torch.T
 # instantiations csrc/groupconv.cu:K2BF16_SHIPPED builds. A tile is MI·NWG
 # m64 slots (64 outputs of one batch row each) by BN out-channels of one
 # group; NWG consumer warpgroups, KC 64-wide weight boxes a stage, STAGES
-# stages.
+# stages. BF16_DX_TILES: those K2BF16_DX_TILES builds with the input
+# gradient's epilogue (the MSD's phases side by side: s·cig columns over
+# cigp = cog rounded up to 16).
 BF16_TILES = {(64, 64): (2, 1, 2, 3), (64, 32): (2, 1, 2, 3), (32, 32): (2, 1, 2, 4),
-              (32, 16): (2, 1, 2, 4), (16, 16): (4, 1, 2, 3), (32, 64): (2, 1, 2, 3),
-              (16, 32): (4, 1, 2, 3), (8, 16): (4, 1, 2, 3)}
+              (32, 16): (2, 1, 2, 4), (16, 16): (4, 1, 2, 3)}
+BF16_DX_TILES = {(128, 64): (2, 1, 2, 3), (64, 64): (2, 1, 2, 3), (64, 32): (2, 1, 2, 3),
+                 (32, 32): (2, 1, 2, 4), (16, 16): (4, 1, 2, 3)}
 ROW_BOX = 16            # window rows a TMA box (csrc/groupconv.cu:kRowBox)
 SLOT = 64               # outputs of one batch row an m64 block holds (kSlot)
 SMEM_LIMIT = 227 * 1024
@@ -159,11 +165,11 @@ class Bf16Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=512)
 def bf16_plan(B: int, T_out: int, Ci: int, Co: int, groups: int, K: int, stride: int,
-              tiles: tuple[int, ...] | None = None, phases: int = 1) -> Bf16Plan:
-    """K2-bf16's plan: the widest wgmma width of 64, 32, 16, 8 that divides
-    cog and is built for cigp, with its tile (``BF16_TILES``), or ``tiles`` =
-    (bn, mi, nwg, kc, stages). ``phases`` convs of this geometry run in one
-    launch (the input gradient's, ``bf16_dx_plan``). It sizes the fp32 staging buffer: a tile of
+              tiles: tuple[int, ...] | None = None, dx: bool = False) -> Bf16Plan:
+    """K2-bf16's plan: the widest wgmma width of 128, 64, 32, 16, 8 that
+    divides cog and is built for cigp, with its tile (``BF16_TILES``; for the input
+    gradient's conv, ``dx``, ``BF16_DX_TILES``), or ``tiles`` =
+    (bn, mi, nwg, kc, stages). It sizes the fp32 staging buffer: a tile of
     MB = mi·nwg slots touches at most nseg = min(B, (MB-1) // slots + 2)
     batch rows (slots = ceil(T_out / 64) a row), and a segment of n outputs
     reads (n-1)·s + K rows, staged from a multiple of ROW_BOX; and the bf16
@@ -181,11 +187,12 @@ def bf16_plan(B: int, T_out: int, Ci: int, Co: int, groups: int, K: int, stride:
                          f"layout kernel's 48 KB")
     cigp = _round_up(cig, 16)
     if tiles is None:
-        bn = next((n for n in (64, 32, 16, 8) if cog % n == 0 and (n, cigp) in BF16_TILES),
+        table = BF16_DX_TILES if dx else BF16_TILES
+        bn = next((n for n in (128, 64, 32, 16, 8) if cog % n == 0 and (n, cigp) in table),
                   None)
         if bn is None:
             raise ValueError(f"groupconv_bf16: no tile built for cog {cog}, cigp {cigp}")
-        tiles = (bn, *BF16_TILES[bn, cigp])
+        tiles = (bn, *table[bn, cigp])
     bn, mi, nwg, kc, stages = tiles
     mb, slots = mi * nwg, -(-T_out // SLOT)
     alloc_full = _round_up((T_out - 1) * stride + K, ROW_BOX)
@@ -199,17 +206,18 @@ def bf16_plan(B: int, T_out: int, Ci: int, Co: int, groups: int, K: int, stride:
     if smem > SMEM_LIMIT:
         raise ValueError(f"groupconv_bf16: a window of {win_rows} rows needs {smem} bytes of "
                          f"shared memory")
-    n_tiles = -(-B * slots // mb) * phases * groups * (cog // bn)
+    n_tiles = -(-B * slots // mb) * groups * (cog // bn)
     return Bf16Plan(bn, mi, nwg, kc, stages, win_rows, win_u, smem, n_tiles)
 
 
 class DxGeometry(NamedTuple):
     """K2-bf16 dx's phases (``csrc/groupconv.cu:dx_geometry``): dx's padded
-    row p = m · stride + ph, m = m0 + t (m0 = pad_l // stride), is the
-    stride-1 conv of gy with phase ph's flipped taps; ``kp`` = ceil(K /
-    stride) taps, ``t_m`` outputs t a phase, the window ``pad`` rows to the
-    left of t (phase ph: pad - (kp - taps)), output t stored at dx row t ·
-    stride + ph - ``y_off`` where that lies in [0, T)."""
+    row p = m · stride + ph, m = m0 + t (m0 = pad_l // stride), is column
+    block ph of output t of one stride-1 conv of gy, each phase's flipped
+    taps padded at the front to ``kp`` = ceil(K / stride); ``t_m`` outputs,
+    the window ``pad`` rows to the left of t (the same for every phase),
+    block ph of output t stored at dx row t · stride + ph - ``y_off`` where
+    that lies in [0, T)."""
     kp: int
     t_m: int
     pad: int
@@ -224,50 +232,77 @@ def dx_geometry(T: int, K: int, stride: int, pad_l: int) -> DxGeometry:
 @functools.lru_cache(maxsize=512)
 def bf16_dx_plan(B: int, T: int, Ci: int, T_out: int, Co: int, groups: int, K: int,
                  stride: int, pad_l: int) -> tuple[DxGeometry, Bf16Plan]:
-    """K2-bf16 dx's phases and plan: the forward's plan of a stride-1 conv
-    of gy (Co channels in, Ci out, kp taps, t_m outputs), ``stride`` phases
-    a launch. Raises ValueError for what the kernel does not take."""
+    """K2-bf16 dx's phases and plan: the forward's plan (among
+    ``BF16_DX_TILES``) of a stride-1 conv of gy, Co channels in and the
+    phases side by side, stride · Ci out, kp taps, t_m outputs. Raises
+    ValueError for what the kernel does not take."""
     if K < stride or pad_l < 0:
         raise ValueError(f"groupconv_bf16 dx: {K} taps at stride {stride} (every phase a tap), "
                          f"pad {pad_l}")
     geo = dx_geometry(T, K, stride, pad_l)
-    return geo, bf16_plan(B, geo.t_m, Co, Ci, groups, geo.kp, 1, phases=stride)
+    if Ci % groups or (Ci // groups) % 8:
+        raise ValueError(f"groupconv_bf16 dx: channels per group {Ci // groups} out (a "
+                         f"multiple of 8)")
+    return geo, bf16_plan(B, geo.t_m, Co, stride * Ci, groups, geo.kp, 1, dx=True)
 
 
 WGRAD_ROWS = 64         # gy rows a chunk of K2-bf16 dw's reduction (groupconv_bwd.cu:kRc)
 WGRAD_GY_LEAD = 16      # gy rows staged before a chunk's first, for the shifts (kGyLead)
-WGRAD_STAGING = 2       # chunks in flight a block (kStaging)
+WGRAD_MAX_STAGES = 4    # chunks in flight a block by TMA, fewer where shared memory is short
+WGRAD_TILE_SLOTS = 3    # bf16 tile pairs a block (kTileSlots)
+WGRAD_MAX_BOX_ROWS = 256   # rows a TMA box holds at most (kMaxBoxRows)
 # K2-bf16 dw's instantiations, csrc/groupconv_bwd.cu:K2BF16_WGRAD_BUILT: the
-# MSD's (cig, cog) and the B taps a warpgroup multiplies (tpw x cig / 2
-# accumulators a thread), at most WGRAD_MAX_WARPGROUPS warpgroups a block
-# (kMaxWarpgroups: 168 registers a thread)
-WGRAD_TPW = {(32, 32): 7, (8, 16): 6, (16, 32): 7, (32, 64): 7, (64, 64): 4}
-WGRAD_MAX_WARPGROUPS = 3
+# MSD's (cig, cog) and the B taps a consumer warpgroup multiplies (tpw x
+# cig / 2 accumulators a thread, within the 240 registers the producer
+# warpgroup hands each consumer thread: at 128-168 ptxas serialized or
+# spilled the wgmmas of tpw 7-11 at cig 32, and at 240 tpw 11 at cig 32
+# still spilled 4-16 bytes), at most WGRAD_MAX_WARPGROUPS
+# consumer warpgroups a block (kMaxWarpgroups) beside the producer's
+WGRAD_TPW = {(32, 32): 7, (8, 16): 6, (16, 32): 11, (32, 64): 7, (64, 64): 3}
+WGRAD_CONSUMER_REGS = 240   # kConsumerRegs
+WGRAD_MAX_WARPGROUPS = 2
+WGRAD_WARPGROUPS = tuple(range(1, WGRAD_MAX_WARPGROUPS + 1))   # those the plan weighs
+# the plan's reckoning of a chunk (groupconv_bwd.cu's design): a consumer's
+# wgmma m64nNk16 reads 2 KB of A and N·32 bytes of B from shared memory at
+# WGRAD_SMEM_BYTES_PER_CYCLE, TMA stages the chunk's fp32 x window and gy
+# rows at WGRAD_LOAD_BYTES_PER_CYCLE, a consumer warpgroup rounds
+# WGRAD_ROUND_PER_CYCLE values a cycle, and the three overlap, beside a
+# fixed WGRAD_CHUNK_CYCLES; a split tile's partial sums are written and
+# read back at the load rate
+WGRAD_SMEM_BYTES_PER_CYCLE = 128
+WGRAD_LOAD_BYTES_PER_CYCLE = 32
+WGRAD_ROUND_PER_CYCLE = 32
+WGRAD_CHUNK_CYCLES = 1000   # a chunk's waits and barrier (tools/torch_kernel_lab.py bwd)
 
 
 class WgradPlan(NamedTuple):
     """K2-bf16 dw's plan: ``args`` go to the C entry point, which checks
     them against the geometry. M = 64 rows are ``shifts`` = 64 / cog shifts
     of gy's out-channels, so only the ``nbt`` B taps (``wgrad_b_taps``) are
-    multiplied; a block takes ``nwg`` warpgroups of ``tpw`` B taps (one of
-    ``n_tb`` runs of a group's B taps) and one of ``splits`` ranges of the
-    reduction's ``n_chunks`` 64-row chunks (``wgrad_split``); ``stg_rows``
-    x rows stage a chunk's window; the partial sums take ``part_floats`` of
-    fp32 scratch."""
+    multiplied; a block takes ``nwg`` consumer warpgroups of ``tpw`` B taps
+    (one of ``n_tb`` runs of a group's B taps; a tile is a group's run) and
+    one of ``splits`` ranges of the reduction's ``n_chunks`` 64-row chunks
+    (``wgrad_split``); ``stages`` chunks of ``stg_rows`` x rows are staged
+    at once; a tile's dw order holds ``span`` taps; split tiles' partial
+    sums take ``ws_floats`` of fp32 workspace (0 unsplit) and two int32
+    counters a tile, ``n_tiles`` = groups · n_tb of them."""
     nwg: int
-    splits: int
-    stg_rows: int
     tpw: int
+    splits: int
+    stages: int
+    stg_rows: int
     nbt: int
     n_tb: int
     shifts: int
     n_chunks: int
+    span: int
+    n_tiles: int
     smem: int
-    part_floats: int
+    ws_floats: int
 
     @property
     def args(self) -> tuple[int, ...]:
-        return tuple(self)[:6]
+        return tuple(self)[:5]
 
 
 def wgrad_b_taps(K: int, stride: int, shifts: int) -> list[int]:
@@ -276,10 +311,25 @@ def wgrad_b_taps(K: int, stride: int, shifts: int) -> list[int]:
     return [j for j in range(K) if j % (shifts * stride) < stride]
 
 
+def wgrad_runs(K: int, stride: int, shifts: int, per: int) -> list[tuple[list[int], int, int]]:
+    """The runs of ``per`` B taps (a tile's): each one's B taps, its first
+    tap j_lo and its last j_hi (its B taps' shifts included)."""
+    taps = wgrad_b_taps(K, stride, shifts)
+    return [(taps[i:i + per], taps[i], min(K - 1, taps[min(i + per, len(taps)) - 1]
+                                           + (shifts - 1) * stride))
+            for i in range(0, len(taps), per)]
+
+
 def wgrad_split(n_chunks: int, splits: int, sp: int) -> range:
     """The chunks c of split sp (chunk c: batch row c // cpr, outputs 64 ·
     (c % cpr) .. of it), as the kernel cuts them."""
     return range(sp * n_chunks // splits, (sp + 1) * n_chunks // splits)
+
+
+def wgrad_share(rows: int, splits: int, sp: int) -> range:
+    """The rows (o, ci) of a split tile's dw order that split sp adds up
+    over the splits (in split order) and writes, as the kernel cuts them."""
+    return range(sp * rows // splits, (sp + 1) * rows // splits)
 
 
 @functools.lru_cache(maxsize=16)
@@ -288,42 +338,74 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def wgrad_smem(cig: int, cog: int, stride: int, stg_rows: int, stages: int, span: int) -> int:
+    """K2-bf16 dw's shared memory (``groupconv_bwd.cu:wgrad_smem_bytes``):
+    the staging and the tile slots, or the epilogue's dw-order tile where
+    that is larger, beside the mbarriers."""
+    win = cig // 8 * stride * (stg_rows // stride + 1) * 16
+    main = (stages * (stg_rows * cig * 4 + (WGRAD_GY_LEAD + WGRAD_ROWS) * cog * 4)
+            + WGRAD_TILE_SLOTS * (win + WGRAD_ROWS * 128))
+    return 256 + max(main, cog * cig * span * 4)
+
+
+def wgrad_stg_rows(rows: int) -> tuple[int, int]:
+    """The staging rows for a window of ``rows`` x rows, and the TMA boxes
+    that bring them: the fewest boxes of at most WGRAD_MAX_BOX_ROWS rows,
+    each a multiple of ROW_BOX rows."""
+    boxes = -(-rows // WGRAD_MAX_BOX_ROWS)
+    return _round_up(rows, ROW_BOX * boxes), boxes
+
+
 @functools.lru_cache(maxsize=512)
 def bf16_wgrad_plan(B: int, T_out: int, Ci: int, Co: int, groups: int, K: int,
                     stride: int, sms: int) -> WgradPlan:
     """K2-bf16 dw's plan on a card of ``sms`` SMs: WGRAD_TPW's B taps a
-    warpgroup, as many warpgroups a block as the B taps need (at most
-    WGRAD_MAX_WARPGROUPS); splits enough for ``sms`` times the blocks an SM
-    holds by shared memory and by registers (reckoned at 40 a thread beside
-    the accumulators), at most 2, and at most one split a chunk. Raises
-    ValueError for what the kernel does not take."""
+    warpgroup, 1 to WGRAD_MAX_WARPGROUPS consumer warpgroups a block (the
+    most of the cheapest by a reckoning of a chunk's products, loads and
+    rounding, the WGRAD_*_PER_CYCLE rates, over the rounds of blocks the
+    card runs, and of the split sums); splits only where the tiles fill less
+    than half the card, then as many as keep a block an SM (the split
+    launch is cooperative: its blocks are all resident), at most one a
+    chunk. Raises ValueError for what the kernel does not take."""
     cig, cog = Ci // groups, Co // groups
     if (cig, cog) not in WGRAD_TPW:
         raise ValueError(f"groupconv_bf16 dw: channels per group {cig} in, {cog} out: built "
                          f"for (in, out) {tuple(WGRAD_TPW)}")
     if stride not in (1, 2, 4, 8):
         raise ValueError(f"groupconv_bf16 dw: stride {stride} (the window's phases: 1, 2, 4, 8)")
-    if K * (cog + 1) * 4 > 48 * 1024:
-        raise ValueError(f"groupconv_bf16 dw: {K} taps x {cog} out-channels past the "
-                         f"reduction's 48 KB")
     shifts, tpw = 64 // cog, WGRAD_TPW[cig, cog]
-    taps = wgrad_b_taps(K, stride, shifts)
-    nbt = len(taps)
-    nwg = min(WGRAD_MAX_WARPGROUPS, -(-nbt // tpw))
-    per = nwg * tpw
-    n_tb = -(-nbt // per)
-    span = max(taps[min(t * per + per, nbt) - 1] - taps[t * per] + 1 for t in range(n_tb))
-    stg_rows = _round_up((WGRAD_ROWS - 1) * stride + span, ROW_BOX)
-    smem = (128 + WGRAD_STAGING * (stg_rows * cig * 4 + (WGRAD_GY_LEAD + WGRAD_ROWS) * cog * 4)
-            + 2 * (stg_rows * cig * 2 + WGRAD_ROWS * 128) + 8 * WGRAD_STAGING)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"groupconv_bf16 dw: a window of {stg_rows} rows needs {smem} bytes "
-                         f"of shared memory")
+    nbt = len(wgrad_b_taps(K, stride, shifts))
     n_chunks = B * -(-(T_out + shifts - 1) // WGRAD_ROWS)
-    blocks = sms * min(2, SMEM_LIMIT // smem, 65536 // (nwg * 128 * (40 + tpw * cig // 2)))
-    splits = max(1, min(n_chunks, -(-blocks // (groups * n_tb))))
-    return WgradPlan(nwg, splits, stg_rows, tpw, nbt, n_tb, shifts, n_chunks, smem,
-                     splits * groups * K * cig * cog)
+    best, refused = None, ""
+    for nwg in sorted((n for n in WGRAD_WARPGROUPS if n == 1 or n <= -(-nbt // tpw)),
+                      reverse=True):
+        runs = wgrad_runs(K, stride, shifts, nwg * tpw)
+        window = max(bts[-1] - j_lo + 1 for bts, j_lo, _ in runs)
+        span = max(j_hi - j_lo + 1 for _, j_lo, j_hi in runs)
+        stg_rows, _boxes = wgrad_stg_rows((WGRAD_ROWS - 1) * stride + window)
+        stages = next((n for n in range(WGRAD_MAX_STAGES, 1, -1)
+                       if wgrad_smem(cig, cog, stride, stg_rows, n, span) <= SMEM_LIMIT), 0)
+        if not stages or span > 64:   # the epilogue's lane takes two taps of a row
+            refused = f"a window of {stg_rows} rows or a tile of {span} taps"
+            continue
+        tiles = groups * len(runs)
+        splits = 1 if 2 * tiles > sms else min(n_chunks, sms // tiles)
+        mma = 4 * nwg * tpw * (2048 + 32 * cig) / WGRAD_SMEM_BYTES_PER_CYCLE
+        load = 4 * (stg_rows * cig + (WGRAD_GY_LEAD + WGRAD_ROWS) * cog) \
+            / WGRAD_LOAD_BYTES_PER_CYCLE
+        rnd = (stg_rows * cig + WGRAD_ROWS * 64) / WGRAD_ROUND_PER_CYCLE / nwg
+        sums = 0 if splits == 1 else 8 * cog * cig * span / WGRAD_LOAD_BYTES_PER_CYCLE
+        cost = -(-tiles * splits // sms) * (
+            -(-n_chunks // splits) * (max(mma, load, rnd) + WGRAD_CHUNK_CYCLES) + sums)
+        if best is None or cost < best[0]:
+            smem = wgrad_smem(cig, cog, stride, stg_rows, stages, span)
+            ws = 0 if splits == 1 else tiles * splits * cog * cig * span
+            best = (cost, WgradPlan(nwg, tpw, splits, stages, stg_rows, nbt, len(runs), shifts,
+                                    n_chunks, span, tiles, smem, ws))
+    if best is None:
+        raise ValueError(f"groupconv_bf16 dw: {refused} past the {SMEM_LIMIT} bytes of shared "
+                         f"memory or 64 taps")
+    return best[1]
 
 
 def _rnd(t: torch.Tensor) -> torch.Tensor:
@@ -374,14 +456,24 @@ class GroupConvKernel:
     ``launches`` (3xTF32: the weights split here, ``kernel_weights``),
     ``launches_bf16`` (K2-bf16: one allocation holds y and the weights'
     layout, which the one C call writes), ``launches_bf16_dx`` (its input
-    gradient, likewise) and ``launches_bf16_dw`` (its weight gradient: dw
-    and the splits' partial sums)."""
+    gradient, likewise) and ``launches_bf16_dw`` (its weight gradient: one
+    launch a call, its split sums inside)."""
 
     def __init__(self):
         self.launches = 0
         self.launches_bf16 = 0
         self.launches_bf16_dx = 0
         self.launches_bf16_dw = 0
+        self._counters: dict[torch.device, torch.Tensor] = {}
+
+    def _tile_counters(self, device: torch.device, n: int) -> torch.Tensor:
+        """K2-bf16 dw's zeroed int32 counters, two a split tile: kept per
+        device (the kernel leaves them zeroed), grown as a plan needs."""
+        c = self._counters.get(device)
+        if c is None or c.numel() < n:
+            c = self._counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                     device=device)
+        return c
 
     def launch(self, x: torch.Tensor, w: torch.Tensor, *, stride: int,
                padding: tuple[int, int], groups: int, bf16: bool = False) -> torch.Tensor:
@@ -472,10 +564,14 @@ class GroupConvKernel:
         lib = native.load()
         x, gy = _aligned(x), _aligned(gy)
         dw = torch.empty(Co, cig, K, device=x.device)
-        part = torch.empty(plan.part_floats, device=x.device)
+        ws = counters = None
+        if plan.splits > 1:
+            ws = torch.empty(plan.ws_floats, device=x.device)
+            counters = self._tile_counters(x.device, 2 * plan.n_tiles)
         with _current(x.device):
             err = lib.groupconv_weight_grad_bf16(
-                x.data_ptr(), gy.data_ptr(), part.data_ptr(), dw.data_ptr(), B, T, Ci,
+                x.data_ptr(), gy.data_ptr(), None if ws is None else ws.data_ptr(),
+                None if counters is None else counters.data_ptr(), dw.data_ptr(), B, T, Ci,
                 gy.shape[1], Co, groups, K, stride, padding[0], *plan.args,
                 torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:

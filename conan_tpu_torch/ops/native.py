@@ -134,9 +134,10 @@ def load() -> ctypes.CDLL:
     lib.groupconv_bf16_dx_weights.argtypes = [P, P, I, I, I, I, I, P]
     # maps, dx, geometry and plan, stream
     lib.groupconv_bf16_dx_conv.argtypes = [P, P, *geometry_plan, P]
-    # K2-bf16 dw: x, gy, part, dw, geometry B, T, Ci, T_out, Co, groups, K,
-    # stride, pad_l and the plan's (nwg, splits, stg_rows, tpw, nbt, n_tb), stream
-    lib.groupconv_weight_grad_bf16.argtypes = [P, P, P, P, *[I] * 15, P]
+    # K2-bf16 dw: x, gy, ws and counters (or None: an unsplit plan), dw,
+    # geometry B, T, Ci, T_out, Co, groups, K, stride, pad_l and the plan's
+    # (nwg, tpw, splits, stages, stg_rows), stream
+    lib.groupconv_weight_grad_bf16.argtypes = [P, P, P, P, P, *[I] * 14, P]
     # K3: x, w, wq (the weights' layout, written), bias or None, y, B, T, C,
     # T_out, N, K, dilation, pad_l, flip, and the plan's (bn, mi, tpr,
     # win_rows, wstages, xstages), stream

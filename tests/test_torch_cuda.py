@@ -762,6 +762,44 @@ def test_groupconv_bf16_grads_ragged(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 8000, 128, 128, 41, 2, 4, 20),     # 4 tiles: splits
+                                  (18, 500, 1024, 1024, 41, 1, 16, 20)])  # 80 tiles: none
+def test_groupconv_bf16_dw_splits_in_one_launch_with_the_same_bits(case):
+    """K2-bf16 dw is one launch a call: a plan that splits adds its splits
+    in order inside it (the same bits on every call; its tile counters,
+    kept per device, left zeroed), and a plan that does not split
+    allocates neither workspace nor counters."""
+    from chip_smoke import BF16_KERNEL_GRAD_REL, rel_l2
+    from conan_tpu_torch.ops.groupconv import (bf16_wgrad_plan,
+                                               grouped_conv1d_bf16_weight_grad_reference,
+                                               sm_count)
+
+    dev = _card()
+    B, T, ci, co, k, s, g, pd = case
+    kernel = GroupConvKernel()
+    rng = np.random.default_rng(sum(case))
+    T_out = (T + 2 * pd - k) // s + 1
+    x = torch.from_numpy(rng.standard_normal((B, T, ci)).astype(np.float32)).to(dev)
+    gy = torch.from_numpy(rng.standard_normal((B, T_out, co)).astype(np.float32)).to(dev)
+    plan = bf16_wgrad_plan(B, T_out, ci, co, g, k, s, sm_count(x.device.index))
+    conv = dict(stride=s, padding=(pd, pd), groups=g)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        dws = [kernel.weight_grad_bf16(x, gy, (co, ci // g, k), **conv) for _ in range(3)]
+        torch.cuda.synchronize()
+    launched = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and "k2bf16" in e.key]
+    assert kernel.launches_bf16_dw == 3
+    assert all(torch.equal(dws[0], d) for d in dws[1:])
+    want = grouped_conv1d_bf16_weight_grad_reference(x, gy, (co, ci // g, k), **conv)
+    assert rel_l2(dws[0], want) <= BF16_KERNEL_GRAD_REL
+    assert sum(e.count for e in launched) <= 3 and all("wgrad_kernel" in e.key for e in launched)
+    if plan.splits > 1:
+        assert case[0] == 2 and not kernel._counters[x.device].any()
+    else:
+        assert case[0] == 18 and x.device not in kernel._counters
+
+
+@pytest.mark.cuda
 def test_groupconv_bf16_input_grad_alone_launches_no_weight_grad():
     """autograd.grad for dx alone where the weights take no gradient (the
     generator step's MSD pass) runs K2-bf16 dx and not dw; where they do

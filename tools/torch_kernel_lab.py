@@ -7,6 +7,7 @@ chip_smoke.py, which checks and times them as they ship.
     python3 tools/torch_kernel_lab.py step [N]
     python3 tools/torch_kernel_lab.py bf16 [--sweep] [PARENT_DIR]
     python3 tools/torch_kernel_lab.py bwd [PARENT_DIR]
+    python3 tools/torch_kernel_lab.py profile DIR [DIR ...] [--variants V,..]
 
 accuracy  K2 on the MSD's five grouped layers (B=3, T=1000 or 300) and K1's
           GAN form at its three n_fft (chip_smoke.py's B=18 x 8000 train
@@ -56,15 +57,29 @@ bf16      K2-bf16 on the 15 MSD grouped geometries at B=18, T=8000 (and the
 bwd       K2-bf16's backward, dx and dw, on the 15 MSD grouped geometries
           at B=18, T=8000: the shipped library built as native.build does
           (the ptxas notes that serialize or wait on wgmma counted by
-          source), each kernel against its plain version (relative L2 at
-          most chip_smoke.py's BF16_KERNEL_GRAD_REL), timed as bare launches
-          by CUDA events (chip_smoke.py's groupconv_bf16_dx_launch_ms and
-          _dw_launch_ms) and as wrapper calls, beside cuDNN's bf16
-          conv1d_input / conv1d_weight; dw's plan swept here, not in the
-          program: at most 1-3 consumer warpgroups a block, splits planned
-          for half and all of the card's SMs. With PARENT_DIR, the forward's bare launches
-          of the parent's library and this one, parent, change, change,
-          parent. Writes its rows to build/kernel_lab/k2bf16_bwd_lab.json.
+          source), each kernel (and the forward) against its plain version
+          (relative L2 at most chip_smoke.py's BF16_KERNEL_GRAD_REL), timed
+          as bare launches by CUDA events and by torch.profiler (device ms)
+          and dx and dw as wrapper calls, beside cuDNN's bf16 conv1d_input /
+          conv1d_weight and the bound; dw's plan swept here, not in the
+          program: 1 or 2 consumer warpgroups a block, splits planned for
+          half and all of the card's SMs. With PARENT_DIR (a `git archive`
+          of the commit before, under chiprun_archive/), each tree's
+          forward, dx and dw as `profile`'s "full" rows (bare and device ms,
+          the parent's dw both its launches), each tree in a child process
+          of its own (two kernel libraries loaded in one process disturbed
+          each other's results), parent, change, change, parent. Writes its
+          rows to build/kernel_lab/k2bf16_bwd_lab.json.
+profile   Step 0 of a redesign: python3 tools/torch_kernel_lab.py profile
+          DIR [DIR ...] [--variants full,loads,mma,round,reduce]. Each
+          tree's kernel library built with its K2-bf16 sources patched
+          (probe_source: "loads" without the wgmma statements, "mma"
+          without the TMA loads, "round" without dw's rounding pass,
+          "reduce" without dw's own launch, leaving a reduction launch where
+          the source has one) into build/kernel_lab/, then that tree's
+          chip_smoke.py bare launches of the forward, dx and dw (and, for
+          "full", their relative L2 and the wrapper's device ms by kernel)
+          on the 15 geometries, in a child process of the tree.
 
 Imports nothing of JAX or conan_tpu.
 """
@@ -457,7 +472,7 @@ def _parent_lib(parent: str | None) -> ctypes.CDLL | None:
     return old
 
 
-def bwd(dev: torch.device, parent: str | None) -> None:
+def bwd(dev: torch.device, parent: str | None, sweep_plans: bool = True) -> None:
     log = native.build(force=True)
     notes = {"serialized": r"wgmma.mma_async instructions are serialized",
              "wait injected": r"warpgroup.wait is injected",
@@ -471,15 +486,40 @@ def bwd(dev: torch.device, parent: str | None) -> None:
     entry = None
     for ln in log.splitlines():     # registers and spills of K2-bf16 dw's kernels
         if "Compiling entry function" in ln:
-            entry = ln if "wgrad" in ln else None
+            entry = ln if "k2bf16_wgrad" in ln else None
         elif entry and ("registers" in ln or "spill" in ln):
             print(f"  {entry.split(chr(39))[1][-60:]}: {ln.strip()}", flush=True)
     native.load()
-    old = _parent_lib(parent)
+    # the parent and this tree, each in a child process of its own (two
+    # kernel libraries in one process disturbed each other's results):
+    # bare and device ms, parent, change, change, parent
+    timed = {}
+    if parent:
+        libs = {"parent": build_variant(parent, "parent", "full"),
+                "change": build_variant(ROOT, "change", "full")}
+        roots = {"parent": parent, "change": ROOT}
+        for name in ("parent", "change", "change", "parent"):
+            res = subprocess.run([sys.executable, "-c", PROFILE_CODE,
+                                  os.path.abspath(roots[name]), libs[name], "full"],
+                                 capture_output=True, text=True)
+            if res.returncode:
+                raise SystemExit(f"bwd: the {name} run failed:\n" + res.stdout[-2000:]
+                                 + res.stderr[-2000:])
+            for i, r in enumerate(json.loads(res.stdout.strip().splitlines()[-1])):
+                row = timed.setdefault(i, {})
+                for key, v in r.items():
+                    if key == "case":
+                        continue
+                    label = f"{name} {key}"
+                    if "rel" in key:
+                        row[label] = max(row.get(label, 0.0), v)
+                    elif v is not None:
+                        row[label] = min(row.get(label, float("inf")), v)
     kernel = GroupConvKernel()
+    sms = gc.sm_count(dev.index or 0)
     gen = torch.Generator().manual_seed(0)
     rows, sums = [], {}
-    for sc, t, ci, co, k, s, g, pd in cs.msd_grouped_geometries(8000):
+    for i, (sc, t, ci, co, k, s, g, pd) in enumerate(cs.msd_grouped_geometries(8000)):
         B = cs.TRAIN_B
         T_out = (t + 2 * pd - k) // s + 1
         x = torch.randn(B, t, ci, generator=gen).to(dev)
@@ -489,7 +529,7 @@ def bwd(dev: torch.device, parent: str | None) -> None:
         conv = dict(stride=s, padding=(pd, pd), groups=g)
         want_dx = grouped_conv1d_bf16_input_grad_reference(gy, w, x.shape, **conv)
         want_dw = grouped_conv1d_bf16_weight_grad_reference(x, gy, w.shape, **conv)
-        row = {"case": f"scale {sc} {ci}->{co} s{s} g{g} B={B} T={t}"}
+        row = {"case": f"scale {sc} {ci}->{co} s{s} g{g} B={B} T={t}", **timed.get(i, {})}
 
         def checked(ms, got, want):
             ok = cs.rel_l2(got, want) <= cs.BF16_KERNEL_GRAD_REL
@@ -497,45 +537,215 @@ def bwd(dev: torch.device, parent: str | None) -> None:
 
         row["dx"] = checked(*cs.groupconv_bf16_dx_launch_ms(gy, w, x.shape, s, pd, g)[:2],
                             want_dx)
-        row["dx wrapper"] = cs.cuda_ms(lambda: kernel.input_grad_bf16(gy, w, x.shape, **conv))
-        row["dw wrapper"] = cs.cuda_ms(lambda: kernel.weight_grad_bf16(x, gy, w.shape, **conv))
         row["dw"] = checked(*cs.groupconv_bf16_dw_launch_ms(x, gy, w.shape, s, pd, g), want_dw)
-        # the plan's two choices swept: warpgroups a block (at most 1-3) and
-        # the splits, planned for half and all of this card's SMs
-        sms = gc.sm_count(dev.index or 0)
-        for max_wg, n_sms in ((n, m) for n in (1, 2, 3) for m in (sms // 2, sms)):
-            name = f"dw max {max_wg} wg, {n_sms} SMs"
-            with swapped(gc, "WGRAD_MAX_WARPGROUPS", max_wg):
-                plan = gc.bf16_wgrad_plan.__wrapped__(B, T_out, ci, co, g, k, s, n_sms)
-            row[name] = checked(*cs.groupconv_bf16_dw_launch_ms(x, gy, w.shape, s, pd, g,
-                                                                plan=plan), want_dw)
+        with torch.no_grad():
+            row["dx wrapper"] = cs.cuda_ms(lambda: kernel.input_grad_bf16(gy, w, x.shape, **conv))
+            row["dw wrapper"] = cs.cuda_ms(lambda: kernel.weight_grad_bf16(x, gy, w.shape,
+                                                                           **conv))
+        if sweep_plans:
+            # dw's plan swept here, not in the program: the consumer
+            # warpgroups a block fixed at 1 or 2, the splits planned for
+            # half and all of this card's SMs
+            for nwg, n_sms in ((n, m) for n in range(1, gc.WGRAD_MAX_WARPGROUPS + 1)
+                               for m in (sms // 2, sms)):
+                try:
+                    with swapped(gc, "WGRAD_WARPGROUPS", (nwg,)):
+                        plan = gc.bf16_wgrad_plan.__wrapped__(B, T_out, ci, co, g, k, s, n_sms)
+                except ValueError:
+                    continue
+                if plan.nwg != nwg:
+                    continue
+                row[f"dw {nwg} wg, {n_sms} SMs ({plan.n_tiles}x{plan.splits})"] = checked(
+                    *cs.groupconv_bf16_dw_launch_ms(x, gy, w.shape, s, pd, g, plan=plan),
+                    want_dw)
         xp = F.pad(x.transpose(1, 2), (pd, pd)).bfloat16()
         gyb, wb = gy.transpose(1, 2).bfloat16(), w.bfloat16()
         row["cuDNN bf16 dx"] = cs.cuda_ms(lambda: torch.nn.grad.conv1d_input(
             xp.shape, wb, gyb, stride=s, groups=g), iters=10)
         row["cuDNN bf16 dw"] = cs.cuda_ms(lambda: torch.nn.grad.conv1d_weight(
             xp, w.shape, gyb, stride=s, groups=g), iters=10)
-        if old is not None:
-            for name in ("parent fwd", "fwd", "fwd", "parent fwd"):
-                ms = cs.groupconv_bf16_launch_ms(x, w, s, pd, g,
-                                                 lib=old if name.startswith("parent") else None)[0]
-                row[name] = min(row.get(name, float("inf")), ms)
-        row["dw plan"] = gc.bf16_wgrad_plan(B, T_out, ci, co, g, k, s,
-                                            gc.sm_count(dev.index or 0))._asdict()
+        row["bound"] = cs.groupconv_bf16_bound_ms(B, t, ci, co, k, s, g, pd)[0]
+        row["dw plan"] = gc.bf16_wgrad_plan(B, T_out, ci, co, g, k, s, sms)._asdict()
         rows.append(row)
-        print(row["case"] + ": " + " | ".join(f"{n} {v:.4f}" for n, v in row.items()
-                                              if isinstance(v, float)), flush=True)
+        print(row["case"] + ": " + " | ".join(
+            f"{n} {v:.4f}" if "rel" not in n else f"{n} {v:.3g}"
+            for n, v in row.items() if isinstance(v, float)) + f" | dw plan {row['dw plan']}",
+            flush=True)
         for n, v in row.items():
-            if isinstance(v, float):
+            if isinstance(v, float) and "rel" not in n:
                 sums[n] = sums.get(n, 0.0) + v
-    print("sums over the 15 MSD geometries (ms; nan: wrong): " + " | ".join(
-        f"{n} {v:.4f}" for n, v in sums.items()), flush=True)
+    slower = [r["case"] for r in rows
+              if r.get("change dw device", r["dw"]) > r["cuDNN bf16 dw"]]
+    print("sums over the 15 MSD geometries (ms; each the better of its pair; nan: wrong): "
+          + " | ".join(f"{n} {v:.4f}" for n, v in sums.items()), flush=True)
+    print(f"geometries where dw's device ms exceeds cuDNN bf16 conv1d_weight's: {slower}",
+          flush=True)
     os.makedirs(os.path.join(ROOT, "build", "kernel_lab"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "kernel_lab", "k2bf16_bwd_lab.json"), "w") as f:
         json.dump({"rows": rows, "sums": sums}, f, indent=1, default=str)
 
 
+PROFILE_VARIANTS = ("full", "loads", "mma", "round", "reduce")
+
+
+def probe_source(name: str, text: str, variant: str) -> str:
+    """A K2-bf16 source (``name``: groupconv.cu or groupconv_bwd.cu) as the
+    probe ``variant`` builds it: "loads" no wgmma statement; "mma" no TMA
+    load, each barrier expecting no bytes; "round" (dw) the weight
+    gradient kernel's loops over `e` (its rounding of the staged chunk into
+    bf16 tiles) run no iteration; "reduce" (dw) the weight gradient
+    kernel's own launch (`kernel<<<`) taken out, so that only what else the
+    entry launches runs (a reduction launch, where the source has one)."""
+    if variant == "loads":
+        return re.sub(r"Wgmma(RS)?<[^;]*;", ";", text, flags=re.S)
+    if variant == "mma":
+        text = re.sub(r"tma_load_[23]d\([^;]*;", ";", text, flags=re.S)
+        return re.sub(r"mbar_expect_tx\(([^,;]+),[^;]*;", r"mbar_expect_tx(\1, 0);", text,
+                      flags=re.S)
+    if name != "groupconv_bwd.cu":
+        return text
+    if variant == "round":
+        head, body = text.split("k2bf16_wgrad_kernel(", 1)
+        end = body.index("\n}\n")
+        return (head + "k2bf16_wgrad_kernel(" +
+                re.sub(r"(for \(int e = [^;]*; e <)[^;]*;", r"\1 0;", body[:end]) + body[end:])
+    if variant == "reduce":
+        return re.sub(r"\n\s*kernel<<<[^;]*;", "\n", text, flags=re.S)
+    return text
+
+
+def build_variant(root: str, label: str, variant: str) -> str:
+    """The port's kernel library of the tree at ``root``, its K2-bf16
+    sources patched by probe_source, built as ops/native.build does into
+    build/kernel_lab/<label>-<variant>/; returns the library's path."""
+    import shutil
+
+    out = os.path.join(ROOT, "build", "kernel_lab", f"{label}-{variant}")
+    shutil.rmtree(out, ignore_errors=True)
+    csrc = os.path.join(out, "csrc")
+    shutil.copytree(os.path.join(root, "conan_tpu_torch", "csrc"), csrc)
+    for name in ("groupconv.cu", "groupconv_bwd.cu"):
+        path = os.path.join(csrc, name)
+        with open(path) as f:
+            text = f.read()
+        with open(path, "w") as f:
+            f.write(probe_source(name, text, variant))
+    srcs = sorted(n for n in os.listdir(csrc) if n.endswith(".cu"))
+    nvcc = native._nvcc()
+    procs = [subprocess.Popen([nvcc, *native.COMPILE_FLAGS, os.path.join(csrc, n), "-o",
+                               os.path.join(out, n + ".o")], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for n in srcs]
+    logs = [p.communicate()[0] for p in procs]
+    lib = os.path.join(out, "libconan_kernels.so")
+    if any(p.returncode for p in procs) or subprocess.run(
+            [nvcc, *native.NVCC_FLAGS, *[os.path.join(out, n + ".o") for n in srcs], "-o", lib],
+            capture_output=True).returncode:
+        raise SystemExit(f"profile: {label} {variant} did not build:\n" + "".join(logs)[-4000:])
+    fn = ""
+    for line in "".join(logs).splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            fn = line.split("'")[1] if "'" in line else line.split()[-1]
+        elif "groupconv" in fn and ("Used" in line or "spill" in line) \
+                or "C75" in line:
+            print(f"ptxas {label} {variant} {fn[:70]}:", line.strip()[:150], flush=True)
+    return lib
+
+
+# run in a child process whose first sys.path entry is the tree to time:
+# argv[2] the library to load in place of the tree's own, argv[3] "full"
+# where the checks hold (and the kernels' device ms are taken), else a probe
+PROFILE_CODE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from pathlib import Path
+import torch
+import chip_smoke as cs
+from conan_tpu_torch.ops import native
+from conan_tpu_torch.ops.groupconv import (GroupConvKernel,
+    grouped_conv1d_bf16_input_grad_reference as ref_dx,
+    grouped_conv1d_bf16_weight_grad_reference as ref_dw)
+native.LIB_PATH = Path(sys.argv[2])
+native.load()
+full = sys.argv[3] == "full"
+if not full:
+    def fail(msg):
+        print("probe, not checked:", msg[:120], file=sys.stderr)
+    cs.fail = fail
+src = (Path(sys.argv[1]) / "conan_tpu_torch" / "csrc" / "groupconv_bwd.cu").read_text()
+dev = torch.device("cuda")
+gen = torch.Generator().manual_seed(0)
+kernel = GroupConvKernel()
+out = []
+for sc, t, ci, co, k, s, g, pd in cs.msd_grouped_geometries(8000):
+    B = cs.TRAIN_B
+    T_out = (t + 2 * pd - k) // s + 1
+    x = torch.randn(B, t, ci, generator=gen).to(dev)
+    w = ((torch.rand(co, ci // g, k, generator=gen) * 2 - 1) * (3 / (k * ci // g)) ** 0.5).to(dev)
+    gy = torch.randn(B, T_out, co, generator=gen).to(dev)
+    conv = dict(stride=s, padding=(pd, pd), groups=g)
+    row = {"case": f"scale {sc} {ci}->{co} s{s} g{g}"}
+    row["fwd"] = cs.groupconv_bf16_launch_ms(x, w, s, pd, g)[0]
+    row["dx"], dx = cs.groupconv_bf16_dx_launch_ms(gy, w, x.shape, s, pd, g)[:2]
+    row["dw"], dw = cs.groupconv_bf16_dw_launch_ms(x, gy, w.shape, s, pd, g)[:2]
+    if full:
+        row["dx rel"] = cs.rel_l2(dx, ref_dx(gy, w, x.shape, **conv))
+        row["dw rel"] = cs.rel_l2(dw, ref_dw(x, gy, w.shape, **conv))
+        fns = {"dx": lambda: kernel.input_grad_bf16(gy, w, x.shape, **conv),
+               "dw": lambda: kernel.weight_grad_bf16(x, gy, w.shape, **conv)}
+        keys = {"dx device": ("dx", "groupconv_bf16_dx_kernel" if "groupconv_bf16_dx_kernel"
+                              in (Path(sys.argv[1]) / "conan_tpu_torch" / "csrc" /
+                                  "groupconv.cu").read_text() else "groupconv_bf16_kernel"),
+                "dw device": ("dw", "k2bf16_wgrad_kernel")}
+        if "k2bf16_wgrad_reduce_kernel" in src:
+            keys["dw reduce device"] = ("dw", "k2bf16_wgrad_reduce_kernel")
+        for name, (which, key) in keys.items():
+            row[name] = cs.kernel_device_ms(fns[which], key)
+    out.append(row)
+print(json.dumps(out))
+"""
+
+
+def profile(roots: list[str], variants=PROFILE_VARIANTS) -> None:
+    """Step 0 of a redesign: each tree's K2-bf16 dx and dw (and forward)
+    bare ms on the 15 MSD geometries at B=18, with each probe variant of
+    its sources (probe_source), in a child process of that tree."""
+    libs = {(root, v): build_variant(root, f"tree{i}", v)
+            for i, root in enumerate(roots) for v in variants}
+    sums = {}
+    for root in roots:
+        for v in variants:
+            res = subprocess.run([sys.executable, "-c", PROFILE_CODE, os.path.abspath(root),
+                                  libs[root, v], v], capture_output=True, text=True)
+            if res.returncode:
+                print(f"profile {root} {v} failed:\n" + res.stdout[-2000:] + res.stderr[-2000:],
+                      flush=True)
+                continue
+            for r in json.loads(res.stdout.strip().splitlines()[-1]):
+                print(f"profile {root} {v}: {r['case']}: " + " | ".join(
+                    f"{n} {cs.ms_text(x) if 'rel' not in n else f'{x:.3g}'}"
+                    for n, x in r.items() if n != "case"), flush=True)
+                for n, x in r.items():
+                    if n != "case" and "rel" not in n:
+                        key = f"{root} {v} {n}"
+                        sums[key] = None if x is None or sums.get(key, 0.0) is None \
+                            else sums.get(key, 0.0) + x
+    for key, x in sums.items():
+        print(f"profile sum over the 15 geometries: {key} {cs.ms_text(x)} ms", flush=True)
+
+
 def main() -> None:
+    if len(sys.argv) >= 3 and sys.argv[1] == "profile":
+        args = sys.argv[2:]
+        kw = {}
+        if "--variants" in args:
+            i = args.index("--variants")
+            kw["variants"] = tuple(args[i + 1].split(","))
+            args = args[:i] + args[i + 2:]
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip(), flush=True)
+        profile(args, **kw)
+        return
     if len(sys.argv) < 2 or sys.argv[1] not in ("accuracy", "sweep", "step", "bf16", "bwd"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
